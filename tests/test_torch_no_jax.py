@@ -1,0 +1,69 @@
+"""The PyTorch port imports neither JAX, flax, msgpack nor the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "velocity_asr_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "optax", "velocity_asr_tpu"}
+
+
+def _port_files():
+    out = []
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out) + [os.path.join(ROOT, "chip_smoke.py")]
+
+
+def _modules():
+    names = []
+    for path in _port_files()[:-1]:
+        rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
+        names.append(rel[: -len(".__init__")] if rel.endswith(".__init__") else rel)
+    return names
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_forbidden_import_statement(path):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = {node.module.split(".")[0]}
+        else:
+            continue
+        assert not roots & FORBIDDEN, f"{path}:{node.lineno} imports {roots & FORBIDDEN}"
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_chip_smoke_fails_without_a_card():
+    """Without CUDA the smoke script exits non-zero and prints no result."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

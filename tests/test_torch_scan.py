@@ -1,0 +1,105 @@
+"""Parity of the port's selective scan (ops/scan.py) with the JAX package's.
+
+The plain version of the CUDA kernel (a loop over t) is held against the
+JAX oracle ``selective_scan_sequential`` (lax.scan) and against the
+Pallas kernel in interpret mode, on the same numpy inputs. Tolerance
+rtol 1e-5 / atol 1e-5: fp32 on both sides, different summation order in
+the C . h reduction. The CUDA kernel itself runs only on a card and is
+held against this plain version by chip_smoke.py.
+"""
+
+import glob
+import os
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from velocity_asr_tpu.ops import scan as jscan
+from velocity_asr_tpu_torch.ops import cuda_lib
+from velocity_asr_tpu_torch.ops import scan as tscan
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _inputs(seed, batch=2, length=37, d_inner=16, state_dim=8):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, length, d_inner)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((batch, length, d_inner)))).astype(np.float32)
+    A = -np.exp(np.log(np.arange(1, state_dim + 1, dtype=np.float32))
+                + 0.1 * rng.standard_normal(state_dim)).astype(np.float32)
+    B = rng.standard_normal((batch, length, state_dim)).astype(np.float32)
+    C = rng.standard_normal((batch, length, state_dim)).astype(np.float32)
+    D = rng.standard_normal(d_inner).astype(np.float32)
+    return x, dt, A, B, C, D
+
+
+@pytest.mark.parametrize("length,state_dim", [(1, 8), (37, 8), (64, 16), (100, 32)])
+def test_plain_scan_matches_jax_sequential(length, state_dim):
+    args = _inputs(length + state_dim, length=length, state_dim=state_dim)
+    ref = jscan.selective_scan_sequential(*map(jnp.asarray, args))
+    t = [torch.from_numpy(a) for a in args]
+    np.testing.assert_allclose(tscan.selective_scan_sequential(*t).numpy(), ref, **TOL)
+    y = tscan.scan_fwd_plain(*t[:5]) + t[0] * t[5]
+    np.testing.assert_allclose(y.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("length", [40, 70])
+def test_kernel_path_matches_jax_pallas_interpret(length):
+    args = _inputs(7, batch=1, length=length, d_inner=16, state_dim=8)
+    ref = jscan.selective_scan(*map(jnp.asarray, args), mode="pallas")
+    out = tscan.selective_scan(*[torch.from_numpy(a) for a in args], mode="pallas")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("mode", ["pallas", "parallel"])
+def test_modes_agree_on_cpu(mode):
+    t = [torch.from_numpy(a) for a in _inputs(3)]
+    torch.testing.assert_close(tscan.selective_scan(*t, mode=mode),
+                               tscan.selective_scan(*t, mode="sequential"), rtol=0, atol=0)
+
+
+def test_unknown_mode_raises():
+    t = [torch.from_numpy(a) for a in _inputs(4)]
+    with pytest.raises(ValueError, match="Unknown scan mode"):
+        tscan.selective_scan(*t, mode="sp")
+
+
+def test_wrapper_takes_plain_version_for_cpu_tensors():
+    t = [torch.from_numpy(a) for a in _inputs(5)]
+    before = dict(cuda_lib.launch_counts)
+    torch.testing.assert_close(tscan.scan_fwd(*t[:5]), tscan.scan_fwd_plain(*t[:5]),
+                               rtol=0, atol=0)
+    assert dict(cuda_lib.launch_counts) == before  # no kernel launch counted
+
+
+def test_check_tensor_rejects_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_lib.check_tensor(torch.zeros(2, 3), "x", (2, 3))
+
+
+def test_sources_export_every_launcher():
+    """Every launcher the loader binds is an extern "C" function returning
+    cudaError_t in csrc/, and every .cu file says which TPU kernel it
+    replaces (or is the error-string helper)."""
+    sources = {}
+    for path in glob.glob(os.path.join(cuda_lib.CSRC_DIR, "*.cu")):
+        with open(path) as f:
+            sources[os.path.basename(path)] = f.read()
+    assert {"scan_fwd.cu", "log_mel.cu"} <= set(sources)
+    text = "\n".join(sources.values())
+    for name in cuda_lib.SIGNATURES:
+        assert re.search(rf'extern "C" cudaError_t {name}\(', text), name
+    assert 'extern "C" const char* kernel_error_string' in text
+    for fname in ("scan_fwd.cu", "log_mel.cu"):
+        assert "Replaces: velocity_asr_tpu/ops/" in sources[fname]
+        assert "torch/" not in sources[fname]  # no PyTorch headers
+    assert "--use_fast_math" not in cuda_lib.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
+
+
+def test_kernel_state_dims_cover_the_main_path():
+    # local blocks N=64, global blocks N=32 (the synth checkpoint's config)
+    assert {64, 32} <= set(tscan.KERNEL_STATE_DIMS)

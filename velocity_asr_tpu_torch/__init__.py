@@ -1,0 +1,17 @@
+"""VELOCITY-ASR in PyTorch for NVIDIA Hopper: a port of velocity_asr_tpu.
+
+This slice runs offline transcription: WAV -> log-mel (CUDA kernel) ->
+model (selective-scan CUDA kernel in every SSM block) -> greedy CTC.
+Nothing here imports JAX or the JAX package.
+"""
+
+from .audio import compute_mel_spectrogram_np, load_audio, masked_normalize_mel
+from .decode import CTCDecoder, create_default_vocabulary
+from .models import VelocityASR, VelocityASRConfig, create_model, forward, from_pretrained
+from .ops.mel import compute_mel_spectrogram
+
+__all__ = [
+    "CTCDecoder", "VelocityASR", "VelocityASRConfig", "compute_mel_spectrogram",
+    "compute_mel_spectrogram_np", "create_default_vocabulary", "create_model",
+    "forward", "from_pretrained", "load_audio", "masked_normalize_mel",
+]

@@ -1,0 +1,118 @@
+"""Hierarchical global context (mirrors velocity_asr_tpu/models/attention.py),
+offline branch only.
+
+Pool sizes follow the (bucketed) sequence length; pooling is an
+averaging matmul (ops/pooling.py). The cross-attention is small (<= 64
+keys) and runs as plain matmuls with the softmax in fp32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from ..ops.pooling import adaptive_avg_pool1d, pool_size_level1, pool_size_level2
+from .layers import Dense, LayerNorm
+from .ssm import GlobalSSM
+
+
+class AdaptivePool(nn.Module):
+    """Adaptive average pool over time, then a learned projection.
+    Level 1: K1 = max(64, L // 8); level 2: K2 = min(64, max(16, K1 // 4));
+    both clamped to the input length."""
+
+    def __init__(self, level: int = 1, d_model: int = 192,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.level = level
+        self.pool_proj = Dense(d_model, d_model, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, prev_pool_size: int | None = None):
+        seq_len = x.shape[1]
+        if self.level == 1:
+            pool_size = pool_size_level1(seq_len)
+        else:
+            k1 = prev_pool_size if prev_pool_size is not None else pool_size_level1(seq_len)
+            pool_size = min(pool_size_level2(k1), seq_len)
+        return self.pool_proj(adaptive_avg_pool1d(x, pool_size)), pool_size
+
+
+class MultiHeadAttention(nn.Module):
+    """Cross-attention with reduced attention dim: softmax(q k^T / sqrt(hd)) v."""
+
+    def __init__(self, d_model: int = 192, num_heads: int = 4, attention_dim: int = 48,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if attention_dim % num_heads:
+            raise ValueError(
+                f"attention_dim {attention_dim} not divisible by num_heads {num_heads}"
+            )
+        self.num_heads = num_heads
+        self.attention_dim = attention_dim
+        self.dtype = dtype
+        self.q_proj = Dense(d_model, attention_dim, dtype=dtype)
+        self.k_proj = Dense(d_model, attention_dim, dtype=dtype)
+        self.v_proj = Dense(d_model, attention_dim, dtype=dtype)
+        self.out_proj = Dense(attention_dim, d_model, dtype=dtype)
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor):
+        batch, q_len, _ = query.shape
+        kv_len = key.shape[1]
+        hd = self.attention_dim // self.num_heads
+
+        def heads(t, n):
+            return t.reshape(batch, n, self.num_heads, hd).transpose(1, 2)
+
+        q = heads(self.q_proj(query), q_len)
+        k = heads(self.k_proj(key), kv_len)
+        v = heads(self.v_proj(value), kv_len)
+        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        attn = torch.softmax(scores.to(torch.float32), dim=-1).to(self.dtype)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(batch, q_len, self.attention_dim)
+        return self.out_proj(out)
+
+
+class GatedFusion(nn.Module):
+    """gate = sigmoid(W [local, global]); out = W_o (gate*W_l local + (1-gate)*W_g global)."""
+
+    def __init__(self, d_model: int = 192, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.gate_proj = Dense(2 * d_model, d_model, dtype=dtype)
+        self.local_proj = Dense(d_model, d_model, dtype=dtype)
+        self.global_proj = Dense(d_model, d_model, dtype=dtype)
+        self.out_proj = Dense(d_model, d_model, dtype=dtype)
+
+    def forward(self, local_features: torch.Tensor, global_features: torch.Tensor):
+        gate = torch.sigmoid(self.gate_proj(torch.cat([local_features, global_features], -1)))
+        fused = gate * self.local_proj(local_features) + (1 - gate) * self.global_proj(
+            global_features
+        )
+        return self.out_proj(fused)
+
+
+class HierarchicalGlobalContext(nn.Module):
+    """Pool -> GlobalSSM -> pool -> cross-attention -> gated fusion."""
+
+    def __init__(self, d_model: int = 192, num_heads: int = 4, attention_dim: int = 48,
+                 global_ssm_layers: int = 2, global_ssm_state_dim: int = 32,
+                 scan_mode: str = "parallel", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.pool1 = AdaptivePool(1, d_model, dtype)
+        self.global_ssm = GlobalSSM(d_model, global_ssm_layers, global_ssm_state_dim,
+                                    scan_mode, dtype)
+        self.pool2 = AdaptivePool(2, d_model, dtype)
+        self.norm1 = LayerNorm(d_model, dtype)
+        self.norm2 = LayerNorm(d_model, dtype)
+        self.cross_attention = MultiHeadAttention(d_model, num_heads, attention_dim, dtype)
+        self.fusion = GatedFusion(d_model, dtype)
+
+    def forward(self, local_features: torch.Tensor) -> torch.Tensor:
+        x_pool1, pool_size1 = self.pool1(local_features)
+        x_ssm = self.global_ssm(x_pool1)
+        x_pool2, _ = self.pool2(x_ssm, prev_pool_size=pool_size1)
+        x_pool2 = self.norm1(x_pool2)
+        query = self.norm2(local_features)
+        global_context = self.cross_attention(query, x_pool2, x_pool2)
+        return self.fusion(local_features, global_context)

@@ -1,0 +1,113 @@
+"""Front-end and output layers (mirrors velocity_asr_tpu/models/layers.py),
+offline and without quantisation.
+
+Parameters are fp32. ``Dense`` casts its input, weight and bias to the
+compute dtype, as flax's ``nn.Dense(dtype=...)`` does; LayerNorms run in
+fp32 with eps 1e-5 and cast back.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.conv import strided_conv1d
+
+
+class Dense(nn.Linear):
+    """nn.Linear computed in a fixed dtype (flax ``nn.Dense(dtype=...)``)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm in fp32 (eps 1e-5), cast back to a compute dtype."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__(dim, eps=1e-5)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(torch.float32)).to(self.compute_dtype)
+
+
+def sinusoidal_time_encoding(max_len: int, dim: int) -> np.ndarray:
+    """Fixed sinusoidal table, shape (max_len, dim): sin in the even
+    columns, cos in the odd ones."""
+    pe = np.zeros((max_len, dim), dtype=np.float32)
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div_term = np.exp(np.arange(0, dim, 2, dtype=np.float32) * (-math.log(10000.0) / dim))
+    ang = position * div_term
+    n_even = (dim + 1) // 2
+    pe[:, 0::2] = np.sin(ang[:, :n_even])
+    pe[:, 1::2] = np.cos(ang[:, : dim - n_even])
+    return pe
+
+
+@functools.lru_cache(maxsize=16)
+def _time_encoding(seq_len: int, dim: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(sinusoidal_time_encoding(seq_len, dim), device=device)
+
+
+class PositionalEncoding2D(nn.Module):
+    """First d_model/2 dims: fixed sinusoid over time; last d_model/2: one
+    learned frequency vector broadcast over time."""
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.half = d_model // 2
+        self.pe_freq = nn.Parameter(torch.zeros(1, 1, self.half))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        batch, seq_len, _ = x.shape
+        pe_time = _time_encoding(seq_len, self.half, x.device)[None]
+        pos = torch.cat([pe_time, self.pe_freq.expand(1, seq_len, self.half)], dim=-1)
+        return x + pos.to(x.dtype)
+
+
+class TemporalBindingLayer(nn.Module):
+    """Conv1d(mel_bins -> d_model, k=3, stride=2, pad=1) -> exact GELU ->
+    2D positional encoding -> LayerNorm. Output length (L + 1) // 2."""
+
+    def __init__(self, mel_bins: int = 80, d_model: int = 192, kernel_size: int = 3,
+                 stride: int = 2, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride = stride
+        self.dtype = dtype
+        self.conv = nn.Conv1d(mel_bins, d_model, kernel_size)
+        self.pos_encoding = PositionalEncoding2D(d_model)
+        self.norm = LayerNorm(d_model, dtype)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        k = self.conv.kernel_size[0]
+        x = strided_conv1d(mel.to(self.dtype), self.conv.weight, self.conv.bias,
+                           stride=self.stride, padding=k // 2)
+        x = F.gelu(x)  # exact erf, as torch's and flax's approximate=False
+        x = self.pos_encoding(x)
+        return self.norm(x)
+
+
+class CTCOutputHead(nn.Module):
+    """LayerNorm -> Linear(vocab); dropout is off at inference."""
+
+    def __init__(self, d_model: int = 192, vocab_size: int = 1000,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm = LayerNorm(d_model, dtype)
+        self.proj = Dense(d_model, vocab_size, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(self.norm(x))

@@ -1,0 +1,148 @@
+"""Build and load the package's CUDA kernels.
+
+All ``csrc/*.cu`` files compile in one ``nvcc`` call into a shared
+library with a plain C interface (no PyTorch headers), keyed by a hash of
+the sources and flags, under ``velocity_asr_tpu_torch/_build/``. It is
+loaded with ``ctypes``; every pointer and the stream pass as
+``ctypes.c_void_p``. The build happens at the first launch, never at
+import, and a failed build raises.
+
+``launch_counts`` counts the launches of each kernel: a wrapper adds one
+where it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of each kernel's launcher: every one returns cudaError_t.
+SIGNATURES = {
+    # x, dt, A, B, C, y, batch, length, d_inner, state_dim, stream
+    "scan_fwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # frames, dft_real, dft_imag, fb_t, out, n_frames, n_fft, n_freq, n_mels, stream
+    "log_mel_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+launch_counts: collections.Counter = collections.Counter()
+
+
+def reset_launch_counts() -> None:
+    launch_counts.clear()
+
+
+class KernelLibrary:
+    """The loaded shared library plus how it was built."""
+
+    def __init__(self, path: str, build_seconds: float, build_log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.build_log = build_log
+        self.lib = ctypes.CDLL(path)
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(self.lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        self.lib.kernel_error_string.argtypes = [ctypes.c_int]
+        self.lib.kernel_error_string.restype = ctypes.c_char_p
+
+    def launch(self, name: str, *args) -> None:
+        """Call one launcher on the current stream and raise on its error."""
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(self.lib, name)(*args, stream)
+        if rc != 0:
+            msg = self.lib.kernel_error_string(rc).decode()
+            raise RuntimeError(f"CUDA kernel {name} failed: {msg} (code {rc})")
+        launch_counts[name] += 1
+
+
+_LIB: KernelLibrary | None = None
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def library() -> KernelLibrary:
+    """The kernel library, built on first use."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    with _LOCK:
+        if _LIB is None:
+            _LIB = _build_and_load()
+    return _LIB
+
+
+def _build_and_load() -> KernelLibrary:
+    sources = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(src, "rb") as f:
+            digest.update(os.path.basename(src).encode() + f.read())
+    key = digest.hexdigest()[:16]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"libvelocity_kernels_{key}.so")
+    log_path = path + ".log"
+    if os.path.exists(path):
+        log = open(log_path).read() if os.path.exists(log_path) else ""
+        return KernelLibrary(path, 0.0, log)
+    # Build to a private name and rename into place: a concurrent build
+    # never sees a half-written library, and no lock file is left behind.
+    tmp = f"{path}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+        capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+    with open(log_path, "w") as f:
+        f.write(log)
+    os.replace(tmp, path)
+    return KernelLibrary(path, seconds, log)
+
+
+def check_tensor(t: torch.Tensor, name: str, shape, dtype=torch.float32) -> None:
+    """Raise unless t is a contiguous CUDA tensor of this shape and dtype."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

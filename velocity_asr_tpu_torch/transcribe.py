@@ -1,0 +1,127 @@
+"""Offline transcription (the offline greedy path of scripts/transcribe.py).
+
+    python -m velocity_asr_tpu_torch.transcribe utt.wav --checkpoint DIR
+
+Per utterance: reflect-pad the audio to its frame bucket (multiples of
+``frame_bucket`` frames), round it to int16 as the JAX pipeline's wire
+format does, then on the device: log-mel (CUDA kernel), per-bin
+normalisation over the valid frames only, the model, blank forced beyond
+the valid output frames, and greedy CTC decode. The global context pools
+over the padded length, so the bucketing is part of the result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from typing import List
+
+import numpy as np
+import torch
+
+from .audio import HOP_LENGTH, SAMPLE_RATE, load_audio, masked_normalize_mel
+from .decode import CTCDecoder, create_default_vocabulary, ctc_greedy_decode_torch
+from .device import resolve_device
+from .models.model import VelocityASR, from_pretrained
+from .ops.mel import compute_mel_spectrogram
+
+
+class Transcriber:
+    """Bucketed offline transcription on the model's device."""
+
+    def __init__(self, model: VelocityASR, decoder: CTCDecoder, frame_bucket: int = 200):
+        self.model = model.eval()
+        self.decoder = decoder
+        self.frame_bucket = frame_bucket
+        self.device = resolve_device(next(model.parameters()).device)
+        self.hop = HOP_LENGTH
+        self.sr = SAMPLE_RATE
+
+    def frame_bucket_of(self, audio: np.ndarray) -> int:
+        """The frame bucket this utterance pads to."""
+        min_frames = 1 + -(-len(audio) // self.hop)
+        return -(-min_frames // self.frame_bucket) * self.frame_bucket
+
+    def _pad_audio(self, audio: np.ndarray):
+        """Reflect-pad audio to its bucket; returns ((1, samples), valid frames)."""
+        n_frames = 1 + len(audio) // self.hop
+        target_samples = (self.frame_bucket_of(audio) - 1) * self.hop
+        audio = np.asarray(audio, np.float32)
+        if len(audio) >= 2:
+            padded = np.pad(audio, (0, target_samples - len(audio)), mode="reflect")
+        else:
+            padded = np.zeros(target_samples, np.float32)
+            padded[: len(audio)] = audio
+        return padded[None], n_frames
+
+    @staticmethod
+    def _to_wire(audio_f32: np.ndarray) -> np.ndarray:
+        """int16 PCM, the rounding the JAX pipeline applies on its host link."""
+        return np.clip(audio_f32 * 32768.0, -32768, 32767).astype(np.int16)
+
+    @torch.inference_mode()
+    def masked_logits(self, audio_i16: torch.Tensor, n_valid_frames: int) -> torch.Tensor:
+        """Logits of (1, samples) int16 audio; blank is forced beyond the
+        valid output frames."""
+        audio = audio_i16.to(torch.float32) * (1.0 / 32768.0)
+        mel = compute_mel_spectrogram(audio, normalize=False)
+        mel = masked_normalize_mel(mel, n_valid_frames)
+        logits = self.model(mel)
+        out_len = (n_valid_frames + 1) // 2
+        pad = torch.arange(logits.shape[1], device=logits.device)[None, :, None] >= out_len
+        logits = torch.where(pad, torch.full_like(logits, -1e9), logits)
+        logits[:, :, 0] = torch.where(pad[..., 0], torch.zeros_like(logits[:, :, 0]),
+                                      logits[:, :, 0])
+        return logits
+
+    def transcribe_array(self, audio: np.ndarray) -> dict:
+        padded, n_frames = self._pad_audio(audio)
+        audio_dev = torch.from_numpy(self._to_wire(padded)).to(self.device)
+        toks, lens = ctc_greedy_decode_torch(self.masked_logits(audio_dev, n_frames))
+        toks, lens = toks.cpu(), lens.cpu()
+        return {
+            "text": self.decoder.tokens_to_text(toks[0, : lens[0]].tolist()),
+            "duration": len(audio) / self.sr,
+        }
+
+    def transcribe_file(self, path: str) -> dict:
+        t0 = time.perf_counter()
+        result = self.transcribe_array(load_audio(path))
+        result["file"] = path
+        result["rtf"] = (time.perf_counter() - t0) / max(result["duration"], 1e-9)
+        return result
+
+
+def load_transcriber(checkpoint: str, device="cuda", frame_bucket: int = 200,
+                     **overrides) -> Transcriber:
+    """A Transcriber for a checkpoint directory (config, params, vocabulary)."""
+    model = from_pretrained(checkpoint, device=device, **overrides)
+    vocab_path = os.path.join(checkpoint, "vocabulary.json")
+    if os.path.exists(vocab_path):
+        with open(vocab_path) as f:
+            vocabulary = json.load(f)
+    else:
+        vocabulary = create_default_vocabulary(model.config.vocab_size)
+    return Transcriber(model, CTCDecoder(vocabulary), frame_bucket=frame_bucket)
+
+
+def main(argv: List[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description="Transcribe WAV files with the PyTorch port")
+    parser.add_argument("audio", nargs="+", help="WAV file(s) to transcribe")
+    parser.add_argument("--checkpoint", required=True, help="pretrained checkpoint dir")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--json", action="store_true", help="one JSON object per file")
+    args = parser.parse_args(argv)
+
+    pipeline = load_transcriber(args.checkpoint, device=args.device)
+    for path in args.audio:
+        result = pipeline.transcribe_file(path)
+        print(json.dumps(result) if args.json else f"{path}\t{result['text']}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
