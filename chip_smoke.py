@@ -8,17 +8,35 @@ its seconds:
 
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build the CUDA kernels (one nvcc call), with ptxas registers/spills;
-  3. each kernel against its plain PyTorch version at the main path's
-     shapes, from a numpy seed, with the stated tolerance;
-  4. the main path: regenerate the first N held-out synthetic utterances
-     (split "test", seed 1234) as WAVs in a temporary directory, load
-     checkpoints/synth_run/final_pretrained, transcribe every WAV through
+  3. regenerate the first N held-out synthetic utterances (split "test",
+     seed 1234) as WAVs in a temporary directory, and work out the shapes
+     phases 4 and 5 will run on them (each utterance's frame bucket, each
+     batch's size and padded frames); then each kernel against its plain
+     PyTorch version, from a numpy seed, with the stated tolerance: the
+     scan at every (batch, length, N) of both paths and for N in {4, 8,
+     16, 24, 32, 64, 128, 200, 300} at batch 1 and 4, the log-mel, and
+     both int8 dense kernels at every shape of the batched int8 path plus
+     the 400-frame shapes at batch 1 and 16, one 128-aligned shape, one
+     off every tile and K = 1012, the widest the kernels take (identical
+     codes, output within 1e-5 of max|out|);
+  4. offline path: load checkpoints/synth_run/final_pretrained, transcribe
+     every WAV through
      the port's Transcriber, and hold the WER against the JAX package's
      WER over the same utterances (checkpoints/synth_run/eval_fp32_final.json);
      the launch counters must show 10 scan launches per forward and one
      log-mel launch per utterance; one utterance's logits on the card are
      held against the same model on the CPU in fp32;
-  5. kernel timings (CUDA events) beside their bounds.
+  5. batched path: the same utterances through velocity_asr_tpu_torch.evaluate
+     at batch 16 and frame bucket 200, three times: the checkpoint as it
+     is (bf16), --int8 and --int8-static (calibrated first); each WER
+     within 1.0 point of the JAX package's over the same utterances
+     (eval_fp32_final.json, eval_int8_dynamic.json, eval_int8_static.json);
+     per batched forward exactly 10 scan launches and 11 launches of the
+     mode's int8 kernel (none without int8); int8-dynamic logits at fp32
+     on one 400-frame batch of 4, card against CPU;
+  6. kernel timings beside their bounds and a library call: device time
+     from CUDA graphs of many calls (what the JSON line reports), and
+     CUDA events around eager calls, which include the host's launch.
 
 The line before the last is a JSON object listing the kernels; the last
 line is {"ok": true, "device": {...}} and is printed only when every
@@ -42,24 +60,69 @@ import traceback
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CHECKPOINT = os.path.join(ROOT, "checkpoints", "synth_run", "final_pretrained")
-JAX_EVAL = os.path.join(ROOT, "checkpoints", "synth_run", "eval_fp32_final.json")
+RUN_DIR = os.path.join(ROOT, "checkpoints", "synth_run")
+CHECKPOINT = os.path.join(RUN_DIR, "final_pretrained")
+JAX_EVAL = os.path.join(RUN_DIR, "eval_fp32_final.json")
+# The JAX package's batched evaluations of the same checkpoint, by mode.
+JAX_BATCH_EVALS = {
+    "bf16": JAX_EVAL,
+    "int8": os.path.join(RUN_DIR, "eval_int8_dynamic.json"),
+    "int8_static": os.path.join(RUN_DIR, "eval_int8_static.json"),
+}
 BUDGET_S = 900.0  # fail, rather than run on, past this
+BATCH = 16
+FRAME_BUCKET = 200
 
 # Tolerances (kernel against its plain version on the same inputs).
 SCAN_MAX_REL = 1e-4  # max|kernel - plain| / max|plain|; fp32, other summation order
 MEL_MAX_ABS = 1e-3  # on log-mel; fp32 FMAs against cuBLAS fp32 matmuls
 WER_MAX_DIFF = 0.01  # port WER within 1.0 point of the JAX WER
 LOGITS_FP32_MAX_ABS = 1e-2  # card against CPU, fp32 model, one utterance
+INT8_MAX_REL = 1e-5  # max|kernel - plain| / max|plain|, with identical codes
+# Card against CPU, int8-dynamic model at fp32: an fp32 difference of a
+# few ulps upstream can move an activation across a rounding boundary,
+# and that code then differs by one, shifting its row's outputs by one
+# quantization step; such flips reach the logits (on the CPU, a 1e-7
+# relative change of the mel moves them by 0.05). The bound is one
+# model-level quantization error: the same batch's int8-vs-fp32 logit
+# gap on the CPU (0.14 there).
+LOGITS_INT8_MIN_AGREE = 0.99  # argmax agreement, same comparison
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
+PEAK_INT8_OPS_PER_S = 1979e12
 
 SCAN_SOURCE = "velocity_asr_tpu_torch/csrc/scan_fwd.cu"
 MEL_SOURCE = "velocity_asr_tpu_torch/csrc/log_mel.cu"
+INT8_SOURCE = "velocity_asr_tpu_torch/csrc/int8_dense.cu"
 SCAN_REPLACES = "velocity_asr_tpu/ops/scan_pallas.py:79"
 MEL_REPLACES = "velocity_asr_tpu/ops/mel_pallas.py:74"
+INT8_DYNAMIC_REPLACES = "velocity_asr_tpu/ops/int8_matmul.py:88"
+INT8_STATIC_REPLACES = "velocity_asr_tpu/ops/int8_matmul.py:70"
+
+# every width the kernel picks (N <= 4, 8, 16, 128 and 200: one to 32
+# lanes; 24 fills 3/4 of its lanes; 300: two passes of 256 states)
+SCAN_STATE_DIMS = (4, 8, 16, 24, 32, 64, 128, 200, 300)
+
+
+def int8_shapes(batch: int, frames: int = 400):
+    """(name, M, K, N) of the 11 int8 projections of one batched forward
+    of the synth checkpoint at a `frames`-frame bucket (L = frames / 2
+    output frames, pooled to K1 then K2 frames)."""
+    from velocity_asr_tpu_torch.ops.pooling import pool_size_level1, pool_size_level2
+
+    length = frames // 2
+    k1 = pool_size_level1(length)
+    k2 = pool_size_level2(k1)
+    return [
+        ("pool1", k1 * batch, 192, 192), ("pool2", k2 * batch, 192, 192),
+        ("q", length * batch, 192, 48), ("k", k2 * batch, 192, 48),
+        ("v", k2 * batch, 192, 48), ("attn_out", length * batch, 48, 192),
+        ("gate", length * batch, 384, 192), ("local", length * batch, 192, 192),
+        ("global", length * batch, 192, 192), ("fusion_out", length * batch, 192, 192),
+        ("ctc", length * batch, 192, 30),
+    ]
 
 
 class PhaseFailed(Exception):
@@ -104,6 +167,29 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_time_ms(fn, iters: int) -> float:
+    """Device time of one call of fn: `iters` calls captured in a CUDA
+    graph and replayed between two events, so the host's launch cost
+    (Python, ctypes) is not counted, as it is in cuda_time_ms."""
+    import torch
+
+    fn()  # warm up outside the capture (library build, allocator)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_FP32_OPS_PER_S * 1e3
@@ -116,6 +202,22 @@ def scan_cost(batch, length, d_inner, state_dim):
     n_bytes = 4 * (3 * batch * length * d_inner + 2 * batch * length * state_dim + state_dim)
     n_ops = 7 * batch * length * d_inner * state_dim + batch * length * d_inner
     return n_bytes, n_ops
+
+
+def int8_cost(m, k, n):
+    """Bytes (x fp32 read once, codes and channel scales read once, out
+    fp32 written once) and operations per type: 2*M*N*K int8 (products
+    and sums) and 5*M*K + 2*M*N fp32 (|x| max, divide, round, clamp;
+    dequantize)."""
+    n_bytes = 4 * m * k + n * k + 4 * n + 4 * m * n + 4
+    return n_bytes, 2 * m * n * k, 5 * m * k + 2 * m * n
+
+
+def int8_bound_ms(m, k, n):
+    n_bytes, int8_ops, fp32_ops = int8_cost(m, k, n)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (int8_ops / PEAK_INT8_OPS_PER_S + fp32_ops / PEAK_FP32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def mel_cost(n_frames, n_fft, n_freq, n_mels):
@@ -152,31 +254,6 @@ def mel_inputs(rng, n_frames):
     return frames, padded
 
 
-# ---------------------------------------------------------------- metrics
-
-
-def _edit_distance(pred, ref) -> int:
-    prev = list(range(len(ref) + 1))
-    for i, p in enumerate(pred, start=1):
-        cur = [i] + [0] * len(ref)
-        for j, r in enumerate(ref, start=1):
-            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (p != r))
-        prev = cur
-    return prev[-1]
-
-
-def error_rate(predictions, references, unit) -> float:
-    """WER (unit="word") or CER (unit="char") over lowercased text, as the
-    JAX package's training.compute_wer / compute_cer count them."""
-    split = str.split if unit == "word" else list
-    errors = total = 0
-    for pred, ref in zip(predictions, references, strict=True):
-        p, r = split(pred.lower()), split(ref.lower())
-        errors += _edit_distance(p, r)
-        total += len(r)
-    return errors / total if total else 0.0
-
-
 # ---------------------------------------------------------------- phases
 
 
@@ -203,31 +280,75 @@ def phase_build():
             log(f"  ptxas: {line.strip()}")
 
 
-def phase_compare():
+def int8_inputs(rng, m, k, n):
+    """x (M, K) with rows of differing loudness, and the codes and scales
+    of a (N, K) weight, on the card."""
+    import torch
+
+    from velocity_asr_tpu_torch.ops.int8_matmul import quantize_weight
+
+    loud = rng.uniform(0.25, 4.0, (m, 1))
+    x = (rng.standard_normal((m, k)) * loud).astype(np.float32)
+    w = (rng.standard_normal((n, k)) * 0.1).astype(np.float32)
+    w_q, w_scale = quantize_weight(torch.tensor(w, device="cuda"))
+    return torch.tensor(x, device="cuda"), w_q, w_scale
+
+
+def compare_int8(rng, m, k, n, static: bool):
+    """Kernel against plain on one shape: (max_abs, max_rel, code diffs)."""
+    import torch
+
+    from velocity_asr_tpu_torch.ops.int8_matmul import (
+        dynamic_scale, int8_dot, int8_dot_plain, quantize_activation, scale_of)
+
+    x, w_q, w_scale = int8_inputs(rng, m, k, n)
+    # a static scale that clips the loudest rows, as a calibrated one may
+    x_scale = scale_of(x.abs().amax() * 0.8) if static else None
+    codes = torch.empty(m, k, dtype=torch.int8, device="cuda")
+    ker = int8_dot(x, w_q, w_scale, x_scale, codes_out=codes)
+    torch.cuda.synchronize()
+    ref = int8_dot_plain(x, w_q, w_scale, x_scale)
+    ref_codes = quantize_activation(x, x_scale if static else dynamic_scale(x))
+    code_diffs = int((codes != ref_codes).sum().item())
+    max_abs = (ker - ref).abs().max().item()
+    return max_abs, max_abs / ref.abs().max().item(), code_diffs
+
+
+def scan_cases(plan):
+    """(N, batch, length) of every scan that phases 4 and 5 launch (local
+    blocks N=64 at L = frames / 2, global blocks N=32 at the level-1 pool
+    size), then every width at batch 1 (the offline path) and 4."""
+    from velocity_asr_tpu_torch.ops.pooling import pool_size_level1
+
+    shapes = [(1, f) for f in plan["offline"]] + list(plan["batched"])
+    path = {(n, b, length) for b, f in shapes
+            for n, length in ((64, f // 2), (32, pool_size_level1(f // 2)))}
+    widths = {(n, b, 100) for n in SCAN_STATE_DIMS for b in (1, 4)}
+    return sorted(path) + sorted(widths - path)
+
+
+def phase_compare(plan):
     import torch
 
     from velocity_asr_tpu_torch.ops.mel import _device_matrices, log_mel, log_mel_plain
     from velocity_asr_tpu_torch.ops.scan import scan_fwd, scan_fwd_plain
 
     rng = np.random.default_rng(20261017)
-    errs = {"scan_fwd": 0.0, "log_mel": 0.0}
-    # local blocks (N=64, L = bucket/2) and global blocks (N=32, L = the
-    # level-1 pool size, 64 at every bucket up to 1024 frames); N=16 is
-    # the third state size the kernel is built for (the "tiny" preset)
-    cases = [(64, 100), (64, 300), (32, 64), (32, 100), (32, 300), (16, 100)]
-    for state_dim, length in cases:
-        args = scan_inputs(rng, length, state_dim)
+    errs = dict.fromkeys(("scan_fwd_f32", "log_mel_f32", "int8_dense_dynamic_f32",
+                          "int8_dense_static_f32"), 0.0)
+    for state_dim, batch, length in scan_cases(plan):
+        args = scan_inputs(rng, length, state_dim, batch=batch)
         ker = scan_fwd(*args)
         torch.cuda.synchronize()
         ref = scan_fwd_plain(*args)
         max_abs = (ker - ref).abs().max().item()
         max_rel = max_abs / ref.abs().max().item()
         ok = math.isfinite(max_rel) and max_rel <= SCAN_MAX_REL
-        log(f"scan N={state_dim} L={length} D=384: max_abs {max_abs:.3e} "
+        log(f"scan N={state_dim} B={batch} L={length} D=384: max_abs {max_abs:.3e} "
             f"max_rel {max_rel:.3e} (tol rel {SCAN_MAX_REL:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("scan kernel disagrees with its plain version")
-        errs["scan_fwd"] = max(errs["scan_fwd"], max_abs)
+        errs["scan_fwd_f32"] = max(errs["scan_fwd_f32"], max_abs)
     mats = _device_matrices(torch.device("cuda"), 400, 80, 16000)
     for n_frames in (200, 600):
         frames, _ = mel_inputs(rng, n_frames)
@@ -241,95 +362,259 @@ def phase_compare():
             f"(tol abs {MEL_MAX_ABS:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("log-mel kernel disagrees with its plain version")
-        errs["log_mel"] = max(errs["log_mel"], max_abs)
+        errs["log_mel_f32"] = max(errs["log_mel_f32"], max_abs)
+    # every shape of the batched int8 path (each batch's size and padded
+    # frames), the 400-frame shapes at batch 1 and 16, one 128-aligned
+    # shape, one with K, M and N off every tile (K % 4 != 0: the byte-wise
+    # weight path), and the widest K the kernels take
+    groups = {f"batch {b}, {f} frames (batched path)": int8_shapes(b, f)
+              for b, f in sorted(plan["batched"])}
+    for b in (1, BATCH):
+        groups.setdefault(f"batch {b}, 400 frames", int8_shapes(b, 400))
+    groups["aligned, ragged and widest K"] = [("aligned", 256, 256, 256), ("ragged", 37, 50, 70),
+                                              ("widest", 37, 1012, 70)]
+    for static, name in ((False, "int8_dense_dynamic_f32"), (True, "int8_dense_static_f32")):
+        for group, projections in groups.items():
+            shapes = sorted({(m, k, n) for _, m, k, n in projections})
+            worst = (0.0, 0.0)
+            for m, k, n in shapes:
+                max_abs, max_rel, code_diffs = compare_int8(rng, m, k, n, static)
+                ok = code_diffs == 0 and math.isfinite(max_rel) and max_rel <= INT8_MAX_REL
+                if not ok:
+                    log(f"{name} M={m} K={k} N={n}: code diffs {code_diffs}, max_abs "
+                        f"{max_abs:.3e} max_rel {max_rel:.3e} FAIL")
+                    raise AssertionError(f"{name} disagrees with its plain version")
+                worst = max(worst, (max_rel, max_abs))
+                errs[name] = max(errs[name], max_abs)
+            log(f"{name}, {group}: {len(shapes)} shapes (M {min(s[0] for s in shapes)}-"
+                f"{max(s[0] for s in shapes)}), codes identical, worst max_rel {worst[0]:.3e} "
+                f"(max_abs {worst[1]:.3e}; tol rel {INT8_MAX_REL:g}) ok")
     torch.cuda.synchronize()
     return errs
 
 
-def phase_main_path(n_utts: int):
-    import torch
+def read_jax_eval(path: str, refs):
+    """The JAX package's predictions for the first len(refs) utterances of
+    one of its eval files, checked against the regenerated references."""
+    with open(path) as f:
+        jax_rows = json.load(f)["results"][:len(refs)]
+    if [r["reference"] for r in jax_rows] != list(refs):
+        raise AssertionError(f"regenerated references differ from {os.path.basename(path)}'s")
+    return [r["prediction"] for r in jax_rows]
 
+
+def phase_corpus(tmp: str, n_utts: int):
+    """Write the corpus and work out the shapes both paths will run on
+    it: each utterance's frame bucket on the offline path, and each
+    batch's (size, padded frames) on the batched path."""
+    from velocity_asr_tpu_torch import evaluate as ev
     from velocity_asr_tpu_torch import synth
     from velocity_asr_tpu_torch.audio import load_audio
+    from velocity_asr_tpu_torch.transcribe import padded_frames
+
+    t0 = time.perf_counter()
+    manifest = synth.write_corpus(tmp, n_utts, split="test", seed=1234)
+    log(f"corpus: {n_utts} utterances in {time.perf_counter() - t0:.3f} s")
+    with open(manifest) as f:
+        paths = [json.loads(line)["audio_path"] for line in f]
+    offline = collections.Counter(padded_frames(len(load_audio(p)), FRAME_BUCKET) for p in paths)
+    ds, n = ev.load_test_set(manifest)
+    mel_lens = [int(ds[i]["input_lengths"]) for i in range(n)]
+    batched = collections.Counter(
+        (len(chunk), -(-max(chunk) // FRAME_BUCKET) * FRAME_BUCKET)
+        for chunk in (mel_lens[s:s + BATCH] for s in range(0, n, BATCH)))
+    log(f"offline frame buckets {dict(sorted(offline.items()))}; batched (size, padded "
+        f"frames) {dict(sorted(batched.items()))}")
+    return manifest, {"offline": offline, "batched": batched, "mel_lens": mel_lens}
+
+
+def phase_main_path(manifest: str, plan):
+    import torch
+
+    from velocity_asr_tpu_torch.audio import load_audio
     from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.training import compute_cer, compute_wer
     from velocity_asr_tpu_torch.transcribe import load_transcriber
 
-    tmp = tempfile.mkdtemp(prefix="velocity_asr_smoke_")
-    try:
-        t0 = time.perf_counter()
-        manifest = synth.write_corpus(tmp, n_utts, split="test", seed=1234)
-        with open(manifest) as f:
-            rows = [json.loads(line) for line in f]
-        log(f"corpus: {len(rows)} utterances in {time.perf_counter() - t0:.3f} s")
+    with open(manifest) as f:
+        rows = [json.loads(line) for line in f]
+    n_utts = len(rows)
+    t0 = time.perf_counter()
+    tr = load_transcriber(CHECKPOINT, device="cuda")
+    cfg = tr.model.config
+    log(f"checkpoint: {os.path.relpath(CHECKPOINT, ROOT)} d_model {cfg.d_model} "
+        f"layers {cfg.ssm_layers}+{cfg.global_ssm_layers} dtype {cfg.dtype} "
+        f"scan_mode {cfg.scan_mode} in {time.perf_counter() - t0:.3f} s")
 
-        t0 = time.perf_counter()
-        tr = load_transcriber(CHECKPOINT, device="cuda")
-        cfg = tr.model.config
-        log(f"checkpoint: {os.path.relpath(CHECKPOINT, ROOT)} d_model {cfg.d_model} "
-            f"layers {cfg.ssm_layers}+{cfg.global_ssm_layers} dtype {cfg.dtype} "
-            f"scan_mode {cfg.scan_mode} in {time.perf_counter() - t0:.3f} s")
+    # Warm up outside the counted run (allocator, cuBLAS handles).
+    tr.transcribe_file(rows[0]["audio_path"])
+    torch.cuda.synchronize()
 
-        # Warm up outside the counted run (allocator, cuBLAS handles).
-        tr.transcribe_file(rows[0]["audio_path"])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    preds = [tr.transcribe_file(r["audio_path"])["text"] for r in rows]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    buckets = plan["offline"]
+
+    refs = [r["text"] for r in rows]
+    wer, cer = compute_wer(preds, refs), compute_cer(preds, refs)
+    jax_preds = read_jax_eval(JAX_EVAL, refs)
+    jax_wer, jax_cer = compute_wer(jax_preds, refs), compute_cer(jax_preds, refs)
+    same = sum(p == q for p, q in zip(preds, jax_preds))
+    log(f"main path: {n_utts} utterances in {seconds:.3f} s "
+        f"({seconds / n_utts * 1e3:.3f} ms/utterance); buckets {dict(sorted(buckets.items()))}")
+    log(f"WER {wer * 100:.4f}% CER {cer * 100:.4f}% | JAX (eval_fp32_final.json, same "
+        f"{n_utts}) WER {jax_wer * 100:.4f}% CER {jax_cer * 100:.4f}% | "
+        f"identical transcripts {same}/{n_utts}")
+    log(f"launches: {counts}; per forward: scan {counts.get('scan_fwd_f32', 0) / n_utts:g}, "
+        f"log_mel {counts.get('log_mel_f32', 0) / n_utts:g}")
+    if counts.get("scan_fwd_f32", 0) != 10 * n_utts:
+        raise AssertionError("expected 10 scan launches per forward")
+    if counts.get("log_mel_f32", 0) != n_utts:
+        raise AssertionError("expected 1 log-mel launch per utterance")
+    if abs(wer - jax_wer) > WER_MAX_DIFF:
+        raise AssertionError(f"WER {wer:.4f} is more than {WER_MAX_DIFF} from JAX {jax_wer:.4f}")
+
+    # One utterance's logits: finite, of the expected shape, and the
+    # card's fp32 model against the same model on the CPU.
+    audio = load_audio(rows[0]["audio_path"])
+    padded, n_frames = tr._pad_audio(audio)
+    wire = torch.from_numpy(tr._to_wire(padded))
+    logits = tr.masked_logits(wire.cuda(), n_frames)
+    want = (1, (1 + padded.shape[1] // 160 + 1) // 2, cfg.vocab_size)
+    if tuple(logits.shape) != want or not torch.isfinite(logits).all():
+        raise AssertionError(f"logits {tuple(logits.shape)} (want {want}) or not finite")
+    out_len = (n_frames + 1) // 2
+    f32 = [load_transcriber(CHECKPOINT, device=d, dtype="float32") for d in ("cuda", "cpu")]
+    lg = [t.masked_logits(wire.to(t.device), n_frames)[:, :out_len].cpu() for t in f32]
+    max_abs = (lg[0] - lg[1]).abs().max().item()
+    agree = (lg[0].argmax(-1) == lg[1].argmax(-1)).float().mean().item()
+    log(f"fp32 logits card vs CPU (utterance 0, {out_len} frames): max_abs {max_abs:.3e} "
+        f"(tol {LOGITS_FP32_MAX_ABS:g}), argmax agreement {agree:.4f}")
+    if not max_abs <= LOGITS_FP32_MAX_ABS:
+        raise AssertionError("card logits disagree with the CPU")
+    return counts, buckets.most_common(1)[0][0]
+
+
+def phase_batched(manifest: str, plan):
+    """The batched evaluation in its three modes; returns each mode's
+    launch counts, batch count and most common padded length."""
+    import torch
+
+    from velocity_asr_tpu_torch import evaluate as ev
+    from velocity_asr_tpu_torch.data import ASRCollator
+    from velocity_asr_tpu_torch.models.model import from_pretrained
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.training import compute_cer, compute_wer
+    from velocity_asr_tpu_torch.transcribe import checkpoint_decoder
+
+    ds, n = ev.load_test_set(manifest)
+    collator = ASRCollator(frame_bucket=FRAME_BUCKET, target_bucket=1)
+    n_batches = -(-n // BATCH)
+    mel_lens = plan["mel_lens"]
+    buckets = collections.Counter()
+    for (_, frames), count in plan["batched"].items():
+        buckets[frames] += count
+    log(f"batched path: {n} utterances in {n_batches} batches of up to {BATCH}; padded frames "
+        f"per batch {dict(sorted(buckets.items()))}")
+    modes = {"bf16": {}, "int8": {"int8_inference": True},
+             "int8_static": {"int8_inference": True, "int8_static": True}}
+    int8_kernel = {"bf16": None, "int8": "int8_dense_dynamic_f32",
+                   "int8_static": "int8_dense_static_f32"}
+    out = {}
+    for mode, overrides in modes.items():
+        model = from_pretrained(CHECKPOINT, device="cuda", **overrides)
+        decoder = checkpoint_decoder(CHECKPOINT, model.config.vocab_size)
+        if mode == "int8_static":
+            t0 = time.perf_counter()
+            n_calib = ev.calibrate(model, ds, n, collator, BATCH, calib_batches=8)
+            log(f"[{mode}] calibrated on {n_calib} utterances in {time.perf_counter() - t0:.3f} s")
+        ev.evaluate(model, decoder, ds, min(n, BATCH), collator, BATCH)  # warm-up, not counted
         torch.cuda.synchronize()
-
         reset_launch_counts()
         t0 = time.perf_counter()
-        preds = [tr.transcribe_file(r["audio_path"])["text"] for r in rows]
+        res = ev.evaluate(model, decoder, ds, n, collator, BATCH)
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
         counts = dict(launch_counts)
-        buckets = collections.Counter(
-            tr.frame_bucket_of(load_audio(r["audio_path"])) for r in rows)
-
-        refs = [r["text"] for r in rows]
-        wer, cer = error_rate(preds, refs, "word"), error_rate(preds, refs, "char")
-        with open(JAX_EVAL) as f:
-            jax_rows = json.load(f)["results"][:n_utts]
-        if [r["reference"] for r in jax_rows] != refs:
-            raise AssertionError("regenerated references differ from the JAX eval's")
-        jax_preds = [r["prediction"] for r in jax_rows]
-        jax_wer = error_rate(jax_preds, refs, "word")
-        jax_cer = error_rate(jax_preds, refs, "char")
+        preds = [r["prediction"] for r in res["results"]]
+        refs = [r["reference"] for r in res["results"]]
+        jax_preds = read_jax_eval(JAX_BATCH_EVALS[mode], refs)
+        jax_wer, jax_cer = compute_wer(jax_preds, refs), compute_cer(jax_preds, refs)
         same = sum(p == q for p, q in zip(preds, jax_preds))
-        log(f"main path: {n_utts} utterances in {seconds:.3f} s "
-            f"({seconds / n_utts * 1e3:.3f} ms/utterance); buckets {dict(sorted(buckets.items()))}")
-        log(f"WER {wer * 100:.4f}% CER {cer * 100:.4f}% | JAX (eval_fp32_final.json, same "
-            f"{n_utts}) WER {jax_wer * 100:.4f}% CER {jax_cer * 100:.4f}% | "
-            f"identical transcripts {same}/{n_utts}")
-        log(f"launches: {counts}; per forward: scan {counts.get('scan_fwd_f32', 0) / n_utts:g}, "
-            f"log_mel {counts.get('log_mel_f32', 0) / n_utts:g}")
-        if counts.get("scan_fwd_f32", 0) != 10 * n_utts:
-            raise AssertionError("expected 10 scan launches per forward")
-        if counts.get("log_mel_f32", 0) != n_utts:
-            raise AssertionError("expected 1 log-mel launch per utterance")
-        if abs(wer - jax_wer) > WER_MAX_DIFF:
-            raise AssertionError(f"WER {wer:.4f} is more than {WER_MAX_DIFF} from JAX {jax_wer:.4f}")
+        log(f"[{mode}] batch {BATCH}, bucket {FRAME_BUCKET}: WER {res['wer'] * 100:.4f}% "
+            f"CER {res['cer'] * 100:.4f}% | JAX ({os.path.basename(JAX_BATCH_EVALS[mode])}, "
+            f"same {n}) WER {jax_wer * 100:.4f}% CER {jax_cer * 100:.4f}% | identical "
+            f"transcripts {same}/{n} | {wall / n * 1e3:.3f} ms/utterance with host mel, "
+            f"{res['seconds'] / n * 1e3:.3f} ms/utterance model and decode")
+        log(f"[{mode}] launches over {n_batches} batches: {counts}")
+        want = {"scan_fwd_f32": 10 * n_batches}
+        if int8_kernel[mode]:
+            want[int8_kernel[mode]] = 11 * n_batches
+        if counts != want:
+            raise AssertionError(f"[{mode}] launches {counts}, expected {want}")
+        if abs(res["wer"] - jax_wer) > WER_MAX_DIFF:
+            raise AssertionError(f"[{mode}] WER {res['wer']:.4f} is more than {WER_MAX_DIFF} "
+                                 f"from JAX {jax_wer:.4f}")
+        out[mode] = {"counts": counts, "batches": n_batches,
+                     "bucket": buckets.most_common(1)[0][0]}
 
-        # One utterance's logits: finite, of the expected shape, and the
-        # card's fp32 model against the same model on the CPU.
-        audio = load_audio(rows[0]["audio_path"])
-        padded, n_frames = tr._pad_audio(audio)
-        wire = torch.from_numpy(tr._to_wire(padded))
-        logits = tr.masked_logits(wire.cuda(), n_frames)
-        want = (1, (1 + padded.shape[1] // 160 + 1) // 2, cfg.vocab_size)
-        if tuple(logits.shape) != want or not torch.isfinite(logits).all():
-            raise AssertionError(f"logits {tuple(logits.shape)} (want {want}) or not finite")
-        out_len = (n_frames + 1) // 2
-        f32 = [load_transcriber(CHECKPOINT, device=d, dtype="float32") for d in ("cuda", "cpu")]
-        lg = [t.masked_logits(wire.to(t.device), n_frames)[:, :out_len].cpu() for t in f32]
-        max_abs = (lg[0] - lg[1]).abs().max().item()
-        agree = (lg[0].argmax(-1) == lg[1].argmax(-1)).float().mean().item()
-        log(f"fp32 logits card vs CPU (utterance 0, {out_len} frames): max_abs {max_abs:.3e} "
-            f"(tol {LOGITS_FP32_MAX_ABS:g}), argmax agreement {agree:.4f}")
-        if not max_abs <= LOGITS_FP32_MAX_ABS:
-            raise AssertionError("card logits disagree with the CPU")
-        return counts, buckets.most_common(1)[0][0]
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # int8-dynamic logits at fp32, one 400-frame batch of 4: card vs CPU
+    items = [ds[i] for i in range(n) if mel_lens[i] <= 400][:4]
+    batch = ASRCollator(frame_bucket=400, target_bucket=1)(items)
+    if batch["mel_spectrogram"].shape != (4, 400, 80):
+        raise AssertionError(f"batch shape {batch['mel_spectrogram'].shape}")
+    mel, lens = (torch.from_numpy(batch[k]) for k in ("mel_spectrogram", "input_lengths"))
+    lg = [ev.masked_logits(from_pretrained(CHECKPOINT, device=device, dtype="float32", **q),
+                           mel.to(device), lens.to(device)).cpu()
+          for device, q in (("cuda", modes["int8"]), ("cpu", modes["int8"]), ("cpu", {}))]
+    if not torch.isfinite(lg[0]).all():
+        raise AssertionError("int8 logits on the card are not finite")
+    max_abs = (lg[0] - lg[1]).abs().max().item()
+    step = (lg[2] - lg[1]).abs().max().item()
+    agree = (lg[0].argmax(-1) == lg[1].argmax(-1)).float().mean().item()
+    log(f"int8-dynamic fp32 logits card vs CPU (4 x 400 frames): max_abs {max_abs:.3e} "
+        f"(tol: the CPU's int8-vs-fp32 gap {step:.3e}), argmax agreement {agree:.4f} "
+        f"(tol {LOGITS_INT8_MIN_AGREE:g})")
+    if not (max_abs < step and agree >= LOGITS_INT8_MIN_AGREE):
+        raise AssertionError("int8 card logits disagree with the CPU")
+    return out
 
 
-def phase_timing(counts, bucket: int, errs):
+def time_int8(rng, m, k, n):
+    """Times of both int8 kernels, their plain version and torch._int_mm
+    (int8 x int8 -> int32 on pre-quantized operands, where its shape rules
+    allow; None elsewhere) at one shape: device time from CUDA graphs, and
+    the kernels' eager time (host launch included) from events."""
+    import torch
+
+    from velocity_asr_tpu_torch.ops.int8_matmul import (
+        dynamic_scale, int8_dot, int8_dot_plain, quantize_activation, scale_of)
+
+    x, w_q, w_scale = int8_inputs(rng, m, k, n)
+    x_scale = scale_of(x.abs().amax())
+    times = {
+        "dynamic": graph_time_ms(lambda: int8_dot(x, w_q, w_scale), iters=100),
+        "static": graph_time_ms(lambda: int8_dot(x, w_q, w_scale, x_scale), iters=100),
+        "eager_dynamic": cuda_time_ms(lambda: int8_dot(x, w_q, w_scale), iters=200),
+        "eager_static": cuda_time_ms(lambda: int8_dot(x, w_q, w_scale, x_scale), iters=200),
+        "plain_dynamic": graph_time_ms(lambda: int8_dot_plain(x, w_q, w_scale), iters=20),
+        "plain_static": graph_time_ms(lambda: int8_dot_plain(x, w_q, w_scale, x_scale), iters=20),
+        "int_mm": None,
+    }
+    x_q, w_t = quantize_activation(x, dynamic_scale(x)), w_q.t()
+    try:
+        torch._int_mm(x_q, w_t)
+    except RuntimeError as e:  # a shape _int_mm does not take
+        log(f"  torch._int_mm M={m} K={k} N={n}: not available ({str(e).splitlines()[0]})")
+    else:
+        times["int_mm"] = graph_time_ms(lambda: torch._int_mm(x_q, w_t), iters=100)
+    return times
+
+
+def phase_timing(counts, bucket: int, errs, batched):
     import torch
 
     from velocity_asr_tpu_torch.audio import mel_filterbank
@@ -339,20 +624,30 @@ def phase_timing(counts, bucket: int, errs):
 
     rng = np.random.default_rng(7)
     local_len = bucket // 2
+    pooled = pool_size_level1(local_len)
+    batched_len = batched["int8"]["bucket"] // 2
     rows = []
-    for state_dim, length in ((64, local_len), (32, pool_size_level1(local_len))):
-        args = scan_inputs(rng, length, state_dim)
-        ms = cuda_time_ms(lambda: scan_fwd(*args), iters=50)
-        plain = cuda_time_ms(lambda: scan_fwd_plain(*args), iters=5, warmup=1)
-        b_ms, b_by = bound_ms(*scan_cost(1, length, 384, state_dim))
-        log(f"time scan N={state_dim} L={length} D=384: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {b_ms:.5f} ms ({b_by})")
+    # the offline path's shapes (batch 1, its most common bucket), N=16 for
+    # the third width the repo's configs use, and the batched path's (its
+    # most common padded length)
+    for state_dim, length, batch in ((64, local_len, 1), (32, pooled, 1), (16, local_len, 1),
+                                     (64, batched_len, BATCH),
+                                     (32, pool_size_level1(batched_len), BATCH)):
+        args = scan_inputs(rng, length, state_dim, batch=batch)
+        ms = graph_time_ms(lambda: scan_fwd(*args), iters=50)
+        eager = cuda_time_ms(lambda: scan_fwd(*args), iters=50)
+        plain = graph_time_ms(lambda: scan_fwd_plain(*args), iters=3)
+        b_ms, b_by = bound_ms(*scan_cost(batch, length, 384, state_dim))
+        log(f"time scan N={state_dim} L={length} B={batch} D=384 (device, CUDA graph): kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}); eager (host "
+            f"launch included) {eager:.4f} ms")
         rows.append((ms, plain, b_ms, b_by))
 
     frames, padded = mel_inputs(rng, bucket)
     mats = _device_matrices(torch.device("cuda"), 400, 80, 16000)
-    mel_ms = cuda_time_ms(lambda: log_mel(frames, *mats), iters=50)
-    mel_plain = cuda_time_ms(lambda: log_mel_plain(frames, *mats), iters=50)
+    mel_ms = graph_time_ms(lambda: log_mel(frames, *mats), iters=50)
+    mel_eager = cuda_time_ms(lambda: log_mel(frames, *mats), iters=50)
+    mel_plain = graph_time_ms(lambda: log_mel_plain(frames, *mats), iters=50)
     window = torch.hann_window(400, device="cuda")
     fb = torch.tensor(mel_filterbank(), device="cuda")
 
@@ -360,30 +655,61 @@ def phase_timing(counts, bucket: int, errs):
         spec = torch.stft(padded[0], 400, 160, window=window, center=False, return_complex=True)
         return torch.log(fb @ spec.abs().square() + 1e-10)
 
-    lib_ms = cuda_time_ms(library, iters=50)
+    lib_ms = graph_time_ms(library, iters=50)
     lib_err = (library().T - log_mel(frames, *mats)).abs().max().item()
     mb_ms, mb_by = bound_ms(*mel_cost(bucket, 400, 201, 80))
-    log(f"time log_mel T={bucket}: kernel {mel_ms:.4f} ms, plain {mel_plain:.4f} ms, "
-        f"library (stft+power+fb+log) {lib_ms:.4f} ms (max_abs vs kernel {lib_err:.3e}), "
-        f"bound {mb_ms:.5f} ms ({mb_by})")
+    log(f"time log_mel T={bucket} (device, CUDA graph): kernel {mel_ms:.4f} ms, plain "
+        f"{mel_plain:.4f} ms, library (stft+power+fb+log) {lib_ms:.4f} ms (max_abs vs kernel "
+        f"{lib_err:.3e}), bound {mb_ms:.5f} ms ({mb_by}); eager (host launch included) "
+        f"{mel_eager:.4f} ms")
+
+    # int8 at the batched path's shapes (batch 16, its most common padded
+    # length); the JSON line carries the (16 * L) x 192 -> 192 shape, 3 of
+    # the 11 projections
+    frames = batched["int8"]["bucket"]
+    int8_rows = {}
+    for m, k, n in sorted({(m, k, n) for _, m, k, n in int8_shapes(BATCH, frames)}):
+        t = time_int8(rng, m, k, n)
+        b_ms, b_by = int8_bound_ms(m, k, n)
+        int_mm = "n/a" if t["int_mm"] is None else f"{t['int_mm']:.4f} ms"
+        log(f"time int8 M={m} K={k} N={n} (device, CUDA graph): dynamic {t['dynamic']:.4f} ms, "
+            f"static {t['static']:.4f} ms, plain {t['plain_dynamic']:.4f} / "
+            f"{t['plain_static']:.4f} ms, torch._int_mm {int_mm}, bound {b_ms:.5f} ms ({b_by}); "
+            f"eager (host launch included) {t['eager_dynamic']:.4f} / {t['eager_static']:.4f} ms")
+        int8_rows[(m, k, n)] = (t, b_ms, b_by)
+    t, i8_b, i8_by = int8_rows[(frames // 2 * BATCH, 192, 192)]
+    per_utt = {mode: batched[mode]["counts"].get(name, 0) / (batched[mode]["batches"] * BATCH)
+               for mode, name in (("int8", "int8_dense_dynamic_f32"),
+                                  ("int8_static", "int8_dense_static_f32"))}
+    log(f"int8 launches per utterance at batch {BATCH}: dynamic {per_utt['int8']:.4f}, "
+        f"static {per_utt['int8_static']:.4f} (11 per batched forward)")
 
     scan_ms, scan_plain, scan_b, scan_by = rows[0]
+
+    def int8_entry(name, replaces, mode, kind):
+        return {"name": name, "route": "cuda", "source": INT8_SOURCE, "replaces": replaces,
+                "launches": batched[mode]["counts"].get(name, 0), "max_abs_err": errs[name],
+                "ms": t[kind], "plain_ms": t[f"plain_{kind}"], "bound_ms": i8_b,
+                "bound_by": i8_by, "library_ms": t["int_mm"]}
+
     return {"kernels": [
-        {"name": "scan_fwd", "route": "cuda", "source": SCAN_SOURCE,
+        {"name": "scan_fwd_f32", "route": "cuda", "source": SCAN_SOURCE,
          "replaces": SCAN_REPLACES, "launches": counts.get("scan_fwd_f32", 0),
-         "max_abs_err": errs["scan_fwd"], "ms": scan_ms, "plain_ms": scan_plain,
+         "max_abs_err": errs["scan_fwd_f32"], "ms": scan_ms, "plain_ms": scan_plain,
          "bound_ms": scan_b, "bound_by": scan_by, "library_ms": None},
-        {"name": "log_mel", "route": "cuda", "source": MEL_SOURCE,
+        {"name": "log_mel_f32", "route": "cuda", "source": MEL_SOURCE,
          "replaces": MEL_REPLACES, "launches": counts.get("log_mel_f32", 0),
-         "max_abs_err": errs["log_mel"], "ms": mel_ms, "plain_ms": mel_plain,
+         "max_abs_err": errs["log_mel_f32"], "ms": mel_ms, "plain_ms": mel_plain,
          "bound_ms": mb_ms, "bound_by": mb_by, "library_ms": lib_ms},
+        int8_entry("int8_dense_dynamic_f32", INT8_DYNAMIC_REPLACES, "int8", "dynamic"),
+        int8_entry("int8_dense_static_f32", INT8_STATIC_REPLACES, "int8_static", "static"),
     ]}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--utterances", type=int, default=200,
-                        help="held-out utterances on the main path (default 200)")
+                        help="held-out utterances on the offline and batched paths (default 200)")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -397,17 +723,23 @@ def main(argv=None) -> int:
 
     resolve_device("cuda")  # also turns TF32 off for matmuls and convolutions
 
+    tmp = tempfile.mkdtemp(prefix="velocity_asr_smoke_")
     try:
         run_phase("1 card", phase_card, t_start)
         run_phase("2 build", phase_build, t_start)
-        errs = run_phase("3 kernels vs plain", phase_compare, t_start)
+        manifest, plan = run_phase(
+            "3a corpus and shapes", lambda: phase_corpus(tmp, args.utterances), t_start)
+        errs = run_phase("3 kernels vs plain", lambda: phase_compare(plan), t_start)
         counts, bucket = run_phase(
-            "4 main path", lambda: phase_main_path(args.utterances), t_start)
+            "4 offline path", lambda: phase_main_path(manifest, plan), t_start)
+        batched = run_phase("5 batched int8 path", lambda: phase_batched(manifest, plan), t_start)
         kernels = run_phase(
-            "5 timing", lambda: phase_timing(counts, bucket, errs), t_start)
+            "6 timing", lambda: phase_timing(counts, bucket, errs, batched), t_start)
     except PhaseFailed as e:
         print(f"chip_smoke: phase {e} failed", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -41,6 +41,17 @@ def test_no_forbidden_import_statement(path):
         assert not roots & FORBIDDEN, f"{path}:{node.lineno} imports {roots & FORBIDDEN}"
 
 
+@pytest.mark.parametrize("module", [
+    "velocity_asr_tpu_torch.data", "velocity_asr_tpu_torch.evaluate",
+    "velocity_asr_tpu_torch.ops.int8_matmul", "velocity_asr_tpu_torch.quantize",
+    "velocity_asr_tpu_torch.training",
+])
+def test_batched_int8_modules_are_checked(module):
+    """The evaluation and int8 modules are among those both checks above
+    and below walk."""
+    assert module in _modules()
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"

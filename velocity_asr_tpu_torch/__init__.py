@@ -1,7 +1,9 @@
 """VELOCITY-ASR in PyTorch for NVIDIA Hopper: a port of velocity_asr_tpu.
 
-This slice runs offline transcription: WAV -> log-mel (CUDA kernel) ->
-model (selective-scan CUDA kernel in every SSM block) -> greedy CTC.
+It runs offline transcription: WAV -> log-mel (CUDA kernel) -> model
+(selective-scan CUDA kernel in every SSM block) -> greedy CTC; and
+batched evaluation over a manifest (``evaluate.py``), optionally with
+int8 projections (int8 dense CUDA kernels, ``quantize.py``).
 Nothing here imports JAX or the JAX package.
 """
 

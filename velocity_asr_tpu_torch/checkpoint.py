@@ -12,6 +12,9 @@ Dense kernels (in, out) become Linear weights (out, in), conv kernels
 (k, in/groups, out) become Conv1d weights (out, in/groups, k), LayerNorm
 ``scale`` becomes ``weight`` and ``layers_{i}`` becomes ``layers.{i}``.
 It is the inverse of ``velocity_asr_tpu/compat/torch_convert.py``.
+``quant_stats_from_numpy`` names a flax ``quant_stats`` tree (``x_amax``
+and ``calibrated`` per static int8 layer) the same way, for
+``quantize.load_quant_stats``.
 """
 
 from __future__ import annotations
@@ -159,3 +162,10 @@ def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             arr = arr.transpose(2, 1, 0)  # (k, in/groups, out) -> (out, in/groups, k)
         state[key] = torch.tensor(arr)  # a contiguous copy
     return state
+
+
+def quant_stats_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map a flax ``quant_stats`` tree (numpy leaves) onto the port's int8
+    buffer names, e.g. ``global_context.pool1.pool_proj.x_amax``."""
+    return {_torch_key(path)[0]: torch.tensor(np.asarray(value))
+            for path, value in _flatten(tree)}

@@ -38,6 +38,21 @@ def ctc_greedy_decode_torch(logits: torch.Tensor, blank_token: int = BLANK_TOKEN
     return out[:, :seq_len], lengths
 
 
+def force_blank_beyond(logits: torch.Tensor, out_lens) -> torch.Tensor:
+    """Logits (batch, T, vocab) with every frame at or past the valid
+    output length (an int, or a (batch,) tensor) set to a certain blank
+    (0 for blank, -1e9 for the rest), so a padded batch decodes in one
+    call: a blank emits nothing."""
+    if isinstance(out_lens, torch.Tensor):
+        out_lens = out_lens.to(logits.device).reshape(-1, 1)
+    t = torch.arange(logits.shape[1], device=logits.device)
+    pad = (t[None, :] >= out_lens)[:, :, None]
+    logits = torch.where(pad, torch.full_like(logits, -1e9), logits)
+    logits[:, :, BLANK_TOKEN] = torch.where(pad[..., 0], torch.zeros_like(logits[:, :, 0]),
+                                            logits[:, :, BLANK_TOKEN])
+    return logits
+
+
 def ctc_greedy_decode(logits: torch.Tensor, blank_token: int = BLANK_TOKEN,
                       collapse_repeated: bool = True) -> List[List[int]]:
     """Greedy CTC decode returning Python token lists."""

@@ -1,0 +1,148 @@
+"""Batched WER/CER evaluation (the greedy batch branch of scripts/evaluate.py).
+
+    python -m velocity_asr_tpu_torch.evaluate --checkpoint DIR --test-set MANIFEST \
+        [--int8 | --int8-static] [--batch-size 16] [--frame-bucket 200] \
+        [--max-utts N] [--calib-batches 8] [--output results.json] [--device cuda]
+
+Utterances are read from a JSONL manifest, their log-mels computed on the
+host and padded batch by batch to a multiple of ``--frame-bucket`` frames
+(``data.ASRCollator``); the model runs on the device, blank is forced on
+each utterance's padded frames and the batch is greedily decoded on the
+device. ``--int8`` runs the ten global-context projections and the CTC
+head as int8 Dense layers with per-row dynamic scales; ``--int8-static``
+first calibrates one activation scale per layer on the first
+min(n, calib_batches * batch_size) utterances. The output JSON has the
+keys of the JAX package's ``eval_*.json`` files.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import time
+from typing import List
+
+import numpy as np
+import torch
+
+from .data import ASRCollator, ASRDataset, calibration_batches
+from .decode import CTCDecoder, ctc_greedy_decode_torch, force_blank_beyond
+from .models.model import VelocityASR, from_pretrained
+from .quantize import calibrate_int8_model
+from .training import compute_cer, compute_wer
+from .transcribe import checkpoint_decoder
+
+logger = logging.getLogger("velocity_asr_tpu_torch.evaluate")
+
+HOP_SECONDS = 0.01  # one mel frame
+
+
+def load_test_set(test_set: str, max_utts: int = 0):
+    """(dataset, utterance count) of a manifest; max_utts <= 0 means all."""
+    ds = ASRDataset(test_set, max_duration=None, min_duration=0.0)
+    n = len(ds) if max_utts <= 0 else min(len(ds), max_utts)
+    return ds, n
+
+
+@torch.inference_mode()
+def masked_logits(model: VelocityASR, mel: torch.Tensor,
+                  input_lengths: torch.Tensor) -> torch.Tensor:
+    """Logits with blank forced on every utterance's padded output frames."""
+    return force_blank_beyond(model(mel), (input_lengths + 1) // 2)
+
+
+def calibrate(model: VelocityASR, ds, n: int, collator: ASRCollator, batch_size: int,
+              calib_batches: int) -> int:
+    """Calibrate a static-int8 model on the first min(n, calib_batches *
+    batch_size) utterances; returns that count."""
+    n_calib = min(n, calib_batches * batch_size)
+    calibrate_int8_model(model, calibration_batches(ds, collator, batch_size, calib_batches,
+                                                    max_items=n))
+    return n_calib
+
+
+def evaluate(model: VelocityASR, decoder: CTCDecoder, ds, n: int, collator: ASRCollator,
+             batch_size: int) -> dict:
+    """Greedy-decode the first n utterances batch by batch.
+
+    Returns wer, cer, rtf (model and decode seconds per second of audio,
+    host mel excluded, as in the JAX package), utterances, results (one
+    {"prediction", "reference"} per utterance) and seconds (the model and
+    decode time behind rtf).
+    """
+    device = next(model.parameters()).device
+    predictions: List[str] = []
+    references: List[str] = []
+    total_audio_s = total_wall = 0.0
+    for start in range(0, n, batch_size):
+        batch = collator([ds[i] for i in range(start, min(start + batch_size, n))])
+        t0 = time.perf_counter()
+        mel = torch.from_numpy(batch["mel_spectrogram"]).to(device)
+        in_lens = torch.from_numpy(batch["input_lengths"]).to(device)
+        toks, lens = ctc_greedy_decode_torch(masked_logits(model, mel, in_lens))
+        toks, lens = toks.cpu(), lens.cpu()
+        predictions.extend(decoder.tokens_to_text(toks[b, : lens[b]].tolist())
+                           for b in range(toks.shape[0]))
+        total_wall += time.perf_counter() - t0
+        references.extend(batch["texts"])
+        total_audio_s += float(np.sum(batch["input_lengths"])) * HOP_SECONDS
+        if (start // batch_size) % 20 == 0:
+            logger.info("  %d/%d", min(start + batch_size, n), n)
+    return {
+        "wer": compute_wer(predictions, references),
+        "cer": compute_cer(predictions, references),
+        "rtf": total_wall / max(total_audio_s, 1e-9),
+        "utterances": n,
+        "results": [{"prediction": p, "reference": r}
+                    for p, r in zip(predictions, references)],
+        "seconds": total_wall,
+    }
+
+
+def main(argv: List[str] | None = None) -> dict:
+    parser = argparse.ArgumentParser(description="Evaluate the PyTorch port on a test set")
+    parser.add_argument("--checkpoint", required=True, help="pretrained checkpoint dir")
+    parser.add_argument("--test-set", required=True, help="JSONL manifest")
+    parser.add_argument("--batch-size", type=int, default=16)
+    parser.add_argument("--frame-bucket", type=int, default=200,
+                        help="pad each batch's mel frames to a multiple of this")
+    parser.add_argument("--max-utts", type=int, default=0, help="0 = all")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 projections, per-row dynamic activation scales")
+    parser.add_argument("--int8-static", action="store_true",
+                        help="int8 projections with calibrated static activation scales")
+    parser.add_argument("--calib-batches", type=int, default=8)
+    parser.add_argument("--output", help="write per-utterance results (JSON)")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(levelname)s | %(message)s")
+
+    overrides = {}
+    if args.int8 or args.int8_static:
+        overrides["int8_inference"] = True
+    if args.int8_static:
+        overrides["int8_static"] = True
+    model = from_pretrained(args.checkpoint, device=args.device, **overrides)
+    decoder = checkpoint_decoder(args.checkpoint, model.config.vocab_size)
+
+    ds, n = load_test_set(args.test_set, args.max_utts)
+    logger.info("Evaluating %d utterances from %s", n, args.test_set)
+    collator = ASRCollator(frame_bucket=args.frame_bucket, target_bucket=1)
+    if args.int8_static:
+        n_calib = calibrate(model, ds, n, collator, args.batch_size, args.calib_batches)
+        logger.info("Calibrated static int8 scales on %d utterances", n_calib)
+
+    result = evaluate(model, decoder, ds, n, collator, args.batch_size)
+    logger.info("WER: %.2f%% | CER: %.2f%% | RTF: %.5f | utts/s: %.2f",
+                result["wer"] * 100, result["cer"] * 100, result["rtf"],
+                n / max(result["seconds"], 1e-9))
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump({k: result[k] for k in ("wer", "cer", "rtf", "utterances", "results")},
+                      f, indent=2)
+    return {k: result[k] for k in ("wer", "cer", "rtf")}
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,8 @@ offline branch only.
 
 Pool sizes follow the (bucketed) sequence length; pooling is an
 averaging matmul (ops/pooling.py). The cross-attention is small (<= 64
-keys) and runs as plain matmuls with the softmax in fp32.
+keys) and runs as plain matmuls with the softmax in fp32. With int8 set,
+the ten projections here are int8 Dense layers (``layers.quant_dense``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.pooling import adaptive_avg_pool1d, pool_size_level1, pool_size_level2
-from .layers import Dense, LayerNorm
+from .layers import LayerNorm, quant_dense, quant_mode
 from .ssm import GlobalSSM
 
 
@@ -24,10 +25,12 @@ class AdaptivePool(nn.Module):
     both clamped to the input length."""
 
     def __init__(self, level: int = 1, d_model: int = 192,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, int8: bool = False,
+                 int8_static: bool = False):
         super().__init__()
         self.level = level
-        self.pool_proj = Dense(d_model, d_model, dtype=dtype)
+        self.pool_proj = quant_dense(quant_mode(int8), d_model, d_model, dtype,
+                                     static=int8_static)
 
     def forward(self, x: torch.Tensor, prev_pool_size: int | None = None):
         seq_len = x.shape[1]
@@ -43,7 +46,8 @@ class MultiHeadAttention(nn.Module):
     """Cross-attention with reduced attention dim: softmax(q k^T / sqrt(hd)) v."""
 
     def __init__(self, d_model: int = 192, num_heads: int = 4, attention_dim: int = 48,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, int8: bool = False,
+                 int8_static: bool = False):
         super().__init__()
         if attention_dim % num_heads:
             raise ValueError(
@@ -52,10 +56,11 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.attention_dim = attention_dim
         self.dtype = dtype
-        self.q_proj = Dense(d_model, attention_dim, dtype=dtype)
-        self.k_proj = Dense(d_model, attention_dim, dtype=dtype)
-        self.v_proj = Dense(d_model, attention_dim, dtype=dtype)
-        self.out_proj = Dense(attention_dim, d_model, dtype=dtype)
+        mode = quant_mode(int8)
+        self.q_proj = quant_dense(mode, d_model, attention_dim, dtype, static=int8_static)
+        self.k_proj = quant_dense(mode, d_model, attention_dim, dtype, static=int8_static)
+        self.v_proj = quant_dense(mode, d_model, attention_dim, dtype, static=int8_static)
+        self.out_proj = quant_dense(mode, attention_dim, d_model, dtype, static=int8_static)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor):
         batch, q_len, _ = query.shape
@@ -77,12 +82,14 @@ class MultiHeadAttention(nn.Module):
 class GatedFusion(nn.Module):
     """gate = sigmoid(W [local, global]); out = W_o (gate*W_l local + (1-gate)*W_g global)."""
 
-    def __init__(self, d_model: int = 192, dtype: torch.dtype = torch.float32):
+    def __init__(self, d_model: int = 192, dtype: torch.dtype = torch.float32,
+                 int8: bool = False, int8_static: bool = False):
         super().__init__()
-        self.gate_proj = Dense(2 * d_model, d_model, dtype=dtype)
-        self.local_proj = Dense(d_model, d_model, dtype=dtype)
-        self.global_proj = Dense(d_model, d_model, dtype=dtype)
-        self.out_proj = Dense(d_model, d_model, dtype=dtype)
+        mode = quant_mode(int8)
+        self.gate_proj = quant_dense(mode, 2 * d_model, d_model, dtype, static=int8_static)
+        self.local_proj = quant_dense(mode, d_model, d_model, dtype, static=int8_static)
+        self.global_proj = quant_dense(mode, d_model, d_model, dtype, static=int8_static)
+        self.out_proj = quant_dense(mode, d_model, d_model, dtype, static=int8_static)
 
     def forward(self, local_features: torch.Tensor, global_features: torch.Tensor):
         gate = torch.sigmoid(self.gate_proj(torch.cat([local_features, global_features], -1)))
@@ -97,16 +104,18 @@ class HierarchicalGlobalContext(nn.Module):
 
     def __init__(self, d_model: int = 192, num_heads: int = 4, attention_dim: int = 48,
                  global_ssm_layers: int = 2, global_ssm_state_dim: int = 32,
-                 scan_mode: str = "parallel", dtype: torch.dtype = torch.float32):
+                 scan_mode: str = "parallel", dtype: torch.dtype = torch.float32,
+                 int8: bool = False, int8_static: bool = False):
         super().__init__()
-        self.pool1 = AdaptivePool(1, d_model, dtype)
+        q = {"int8": int8, "int8_static": int8_static}
+        self.pool1 = AdaptivePool(1, d_model, dtype, **q)
         self.global_ssm = GlobalSSM(d_model, global_ssm_layers, global_ssm_state_dim,
                                     scan_mode, dtype)
-        self.pool2 = AdaptivePool(2, d_model, dtype)
+        self.pool2 = AdaptivePool(2, d_model, dtype, **q)
         self.norm1 = LayerNorm(d_model, dtype)
         self.norm2 = LayerNorm(d_model, dtype)
-        self.cross_attention = MultiHeadAttention(d_model, num_heads, attention_dim, dtype)
-        self.fusion = GatedFusion(d_model, dtype)
+        self.cross_attention = MultiHeadAttention(d_model, num_heads, attention_dim, dtype, **q)
+        self.fusion = GatedFusion(d_model, dtype, **q)
 
     def forward(self, local_features: torch.Tensor) -> torch.Tensor:
         x_pool1, pool_size1 = self.pool1(local_features)

@@ -1,9 +1,11 @@
 """Front-end and output layers (mirrors velocity_asr_tpu/models/layers.py),
-offline and without quantisation.
+offline.
 
 Parameters are fp32. ``Dense`` casts its input, weight and bias to the
 compute dtype, as flax's ``nn.Dense(dtype=...)`` does; LayerNorms run in
-fp32 with eps 1e-5 and cast back.
+fp32 with eps 1e-5 and cast back. ``quant_dense`` builds each
+quantizable projection (attention, fusion, pooling, CTC head) as a Dense
+or an int8 Dense; QAT is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +33,28 @@ class Dense(nn.Linear):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def quant_mode(int8: bool) -> str:
+    """The projection mode: "int8" or "none" (the JAX package's third,
+    "qat", is not ported yet)."""
+    return "int8" if int8 else "none"
+
+
+def quant_dense(mode: str, in_features: int, out_features: int,
+                dtype: torch.dtype = torch.float32, bias: bool = True,
+                static: bool = False) -> nn.Linear:
+    """A Dense (mode "none") or an int8 Dense (mode "int8"; static selects
+    calibrated activation scales): the one place that picks, so no call
+    site drifts."""
+    if mode == "int8":
+        from ..quantize import DynamicInt8Dense
+
+        return DynamicInt8Dense(in_features, out_features, bias=bias, dtype=dtype,
+                                static=static)
+    if mode == "none":
+        return Dense(in_features, out_features, bias=bias, dtype=dtype)
+    raise NotImplementedError(f"projection mode {mode!r} is not ported yet")
 
 
 class LayerNorm(nn.LayerNorm):
@@ -104,10 +128,12 @@ class CTCOutputHead(nn.Module):
     """LayerNorm -> Linear(vocab); dropout is off at inference."""
 
     def __init__(self, d_model: int = 192, vocab_size: int = 1000,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, int8: bool = False,
+                 int8_static: bool = False):
         super().__init__()
         self.norm = LayerNorm(d_model, dtype)
-        self.proj = Dense(d_model, vocab_size, dtype=dtype)
+        self.proj = quant_dense(quant_mode(int8), d_model, vocab_size, dtype,
+                                static=int8_static)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj(self.norm(x))

@@ -1,8 +1,10 @@
 """VELOCITY-ASR model assembly (mirrors velocity_asr_tpu/models/model.py),
 offline inference only.
 
-``from_pretrained`` reads the JAX package's checkpoint directory
-(``config.json`` + flax ``params.msgpack``) with no JAX or flax.
+``create_model`` initialises every parameter from the distributions the
+JAX package's ``init_params`` draws from; ``from_pretrained`` reads the
+JAX package's checkpoint directory (``config.json`` + flax
+``params.msgpack``) with no JAX or flax.
 """
 
 from __future__ import annotations
@@ -18,18 +20,15 @@ from ..checkpoint import params_from_numpy, read_params
 from ..device import resolve_device
 from .attention import HierarchicalGlobalContext
 from .config import VelocityASRConfig
-from .layers import CTCOutputHead, TemporalBindingLayer
-from .ssm import LocalSSMProcessor
+from .layers import CTCOutputHead, PositionalEncoding2D, TemporalBindingLayer
+from .ssm import LocalSSMProcessor, SelectiveSSM
 
 PARAMS_FILE = "params.msgpack"
 CONFIG_FILE = "config.json"
 
 # Options of the JAX package that this port does not implement yet: a
 # config that sets one must not load as a model that silently ignores it.
-_UNSUPPORTED = {
-    "qat": False, "int8_inference": False, "int8_static": False,
-    "moe_experts": 0, "num_languages": 0,
-}
+_UNSUPPORTED = {"qat": False, "moe_experts": 0, "num_languages": 0}
 
 
 class VelocityASR(nn.Module):
@@ -49,11 +48,12 @@ class VelocityASR(nn.Module):
             cfg.d_model, cfg.ssm_layers, cfg.ssm_state_dim, cfg.ssm_expand_ratio,
             cfg.ssm_kernel_size, cfg.scan_mode, dtype,
         )
+        int8 = {"int8": cfg.int8_inference, "int8_static": cfg.int8_static}
         self.global_context = HierarchicalGlobalContext(
             cfg.d_model, cfg.attention_heads, cfg.attention_dim, cfg.global_ssm_layers,
-            cfg.global_ssm_state_dim, cfg.scan_mode, dtype,
+            cfg.global_ssm_state_dim, cfg.scan_mode, dtype, **int8,
         )
-        self.ctc_head = CTCOutputHead(cfg.d_model, cfg.vocab_size, dtype)
+        self.ctc_head = CTCOutputHead(cfg.d_model, cfg.vocab_size, dtype, **int8)
 
     def forward(self, mel_spectrogram: torch.Tensor, return_features: bool = False):
         """(batch, frames, mel_bins) -> fp32 logits (batch, (frames+1)//2, vocab)
@@ -76,15 +76,69 @@ class VelocityASR(nn.Module):
         return (input_length + 1) // 2
 
 
-def create_model(config: Optional[VelocityASRConfig] = None,
-                 device="cuda") -> VelocityASR:
-    """An uninitialised model on `device`: load weights with
-    ``load_state_dict(checkpoint.params_from_numpy(tree))`` or use
-    ``from_pretrained``."""
+def _empty_model(config: VelocityASRConfig, device) -> VelocityASR:
+    """A model whose parameters are allocated on `device` but not written;
+    the int8 layers' calibration statistics start cleared."""
+    from ..quantize import reset_quant_stats
+
     device = resolve_device(device)
     with torch.device("meta"):
-        model = VelocityASR(config or VelocityASRConfig())
-    return model.to_empty(device=device).eval()
+        model = VelocityASR(config)
+    return reset_quant_stats(model.to_empty(device=device)).eval()
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every parameter as the JAX package's ``init_params`` draws it:
+
+    - Dense kernels xavier-uniform (bound sqrt(6 / (in + out))), biases 0;
+    - conv kernels kaiming-normal, fan_out = out * k, std sqrt(2 / fan_out),
+      biases 0 (``layers.kaiming_conv_init``);
+    - ``A_log = log(1..N)`` and ``D = 1`` in every SelectiveSSM;
+    - LayerNorm weight 1 and bias 0; ``pe_freq`` normal with std 0.02.
+
+    The draws come from `generator` (a CPU generator, so the tensors must
+    be on the CPU): the distributions are JAX's, the values are not.
+    Int8 layers then recompute their weight codes.
+    """
+    from ..quantize import DynamicInt8Dense
+
+    for module in model.modules():
+        if isinstance(module, nn.Linear):
+            nn.init.xavier_uniform_(module.weight, generator=generator)
+            if module.bias is not None:
+                nn.init.zeros_(module.bias)
+        elif isinstance(module, nn.Conv1d):
+            nn.init.kaiming_normal_(module.weight, mode="fan_out", nonlinearity="relu",
+                                    generator=generator)
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, nn.LayerNorm):
+            nn.init.ones_(module.weight)
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, SelectiveSSM):
+            n = module.A_log.shape[0]
+            module.A_log.copy_(torch.log(torch.arange(1, n + 1, dtype=torch.float32)))
+            nn.init.ones_(module.D)
+        elif isinstance(module, PositionalEncoding2D):
+            nn.init.normal_(module.pe_freq, std=0.02, generator=generator)
+    for module in model.modules():
+        if isinstance(module, DynamicInt8Dense):
+            module.requantize()
+    return model
+
+
+def create_model(config: Optional[VelocityASRConfig] = None, device="cuda",
+                 generator: Optional[torch.Generator] = None) -> VelocityASR:
+    """A freshly initialised model on `device` (``init_parameters``).
+
+    Randomness comes from `generator`, a CPU ``torch.Generator``; None
+    means one seeded with 0, so two calls give the same weights.
+    """
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    model = init_parameters(_empty_model(config or VelocityASRConfig(), "cpu"), generator)
+    return model.to(device)
 
 
 @torch.inference_mode()
@@ -102,7 +156,7 @@ def from_pretrained(path: str, device="cuda", **overrides) -> VelocityASR:
         payload = json.load(f)
     cfg_dict = dict(payload.get("config", {}))
     cfg_dict.update(overrides)
-    model = create_model(VelocityASRConfig.from_dict(cfg_dict), device)
+    model = _empty_model(VelocityASRConfig.from_dict(cfg_dict), device)
     tree = read_params(os.path.join(path, PARAMS_FILE))
     model.load_state_dict(params_from_numpy(tree), strict=True)
     return model

@@ -41,6 +41,10 @@ SIGNATURES = {
     "scan_fwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # frames, dft_real, dft_imag, fb_t, out, n_frames, n_fft, n_freq, n_mels, stream
     "log_mel_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w_q, w_scale, out, x_q_out (or None), M, K, N, stream
+    "int8_dense_dynamic_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, x_scale, w_q, w_scale, out, x_q_out (or None), M, K, N, stream
+    "int8_dense_static_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 launch_counts: collections.Counter = collections.Counter()

@@ -15,9 +15,6 @@ import torch
 
 from .cuda_lib import check_tensor, library
 
-# State sizes scan_fwd.cu is instantiated for.
-KERNEL_STATE_DIMS = (16, 32, 64)
-
 
 def scan_fwd_plain(x, dt, A, B, C) -> torch.Tensor:
     """Plain version of the kernel: y[t] = C[t] . h[t], no D*x skip."""
@@ -37,15 +34,13 @@ def scan_fwd_plain(x, dt, A, B, C) -> torch.Tensor:
 def scan_fwd(x, dt, A, B, C) -> torch.Tensor:
     """Selective-scan forward y (no D*x skip) in fp32.
 
-    On CUDA tensors this launches ``scan_fwd_f32``; on CPU tensors it runs
-    ``scan_fwd_plain``.
+    On CUDA tensors this launches ``scan_fwd_f32`` (any state_dim); on
+    CPU tensors it runs ``scan_fwd_plain``.
     """
     if not x.is_cuda:
         return scan_fwd_plain(x, dt, A, B, C)
     batch, length, d_inner = x.shape
     state_dim = A.shape[0]
-    if state_dim not in KERNEL_STATE_DIMS:
-        raise ValueError(f"scan kernel takes state_dim in {KERNEL_STATE_DIMS}, got {state_dim}")
     for name, t, shape in (
         ("x", x, (batch, length, d_inner)),
         ("dt", dt, (batch, length, d_inner)),

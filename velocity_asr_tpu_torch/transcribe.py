@@ -23,10 +23,18 @@ import numpy as np
 import torch
 
 from .audio import HOP_LENGTH, SAMPLE_RATE, load_audio, masked_normalize_mel
-from .decode import CTCDecoder, create_default_vocabulary, ctc_greedy_decode_torch
+from .decode import (CTCDecoder, create_default_vocabulary, ctc_greedy_decode_torch,
+                     force_blank_beyond)
 from .device import resolve_device
 from .models.model import VelocityASR, from_pretrained
 from .ops.mel import compute_mel_spectrogram
+
+
+def padded_frames(n_samples: int, frame_bucket: int = 200, hop: int = HOP_LENGTH) -> int:
+    """The frames an utterance of n_samples pads to: the first multiple of
+    frame_bucket that holds 1 + ceil(n_samples / hop) frames."""
+    min_frames = 1 + -(-n_samples // hop)
+    return -(-min_frames // frame_bucket) * frame_bucket
 
 
 class Transcriber:
@@ -42,8 +50,7 @@ class Transcriber:
 
     def frame_bucket_of(self, audio: np.ndarray) -> int:
         """The frame bucket this utterance pads to."""
-        min_frames = 1 + -(-len(audio) // self.hop)
-        return -(-min_frames // self.frame_bucket) * self.frame_bucket
+        return padded_frames(len(audio), self.frame_bucket, self.hop)
 
     def _pad_audio(self, audio: np.ndarray):
         """Reflect-pad audio to its bucket; returns ((1, samples), valid frames)."""
@@ -70,12 +77,7 @@ class Transcriber:
         mel = compute_mel_spectrogram(audio, normalize=False)
         mel = masked_normalize_mel(mel, n_valid_frames)
         logits = self.model(mel)
-        out_len = (n_valid_frames + 1) // 2
-        pad = torch.arange(logits.shape[1], device=logits.device)[None, :, None] >= out_len
-        logits = torch.where(pad, torch.full_like(logits, -1e9), logits)
-        logits[:, :, 0] = torch.where(pad[..., 0], torch.zeros_like(logits[:, :, 0]),
-                                      logits[:, :, 0])
-        return logits
+        return force_blank_beyond(logits, (n_valid_frames + 1) // 2)
 
     def transcribe_array(self, audio: np.ndarray) -> dict:
         padded, n_frames = self._pad_audio(audio)
@@ -99,13 +101,18 @@ def load_transcriber(checkpoint: str, device="cuda", frame_bucket: int = 200,
                      **overrides) -> Transcriber:
     """A Transcriber for a checkpoint directory (config, params, vocabulary)."""
     model = from_pretrained(checkpoint, device=device, **overrides)
+    return Transcriber(model, checkpoint_decoder(checkpoint, model.config.vocab_size),
+                       frame_bucket=frame_bucket)
+
+
+def checkpoint_decoder(checkpoint: str, vocab_size: int) -> CTCDecoder:
+    """A decoder over the checkpoint's vocabulary.json, or the default
+    vocabulary of `vocab_size` tokens where it has none."""
     vocab_path = os.path.join(checkpoint, "vocabulary.json")
     if os.path.exists(vocab_path):
         with open(vocab_path) as f:
-            vocabulary = json.load(f)
-    else:
-        vocabulary = create_default_vocabulary(model.config.vocab_size)
-    return Transcriber(model, CTCDecoder(vocabulary), frame_bucket=frame_bucket)
+            return CTCDecoder(json.load(f))
+    return CTCDecoder(create_default_vocabulary(vocab_size))
 
 
 def main(argv: List[str] | None = None) -> int:
