@@ -10,15 +10,19 @@ its seconds:
   2. build the CUDA kernels (one nvcc call), with ptxas registers/spills;
   3. regenerate the first N held-out synthetic utterances (split "test",
      seed 1234) as WAVs in a temporary directory, and work out the shapes
-     phases 4 and 5 will run on them (each utterance's frame bucket, each
-     batch's size and padded frames); then each kernel against its plain
-     PyTorch version, from a numpy seed, with the stated tolerance: the
-     scan at every (batch, length, N) of both paths and for N in {4, 8,
-     16, 24, 32, 64, 128, 200, 300} at batch 1 and 4, the log-mel, and
-     both int8 dense kernels at every shape of the batched int8 path plus
-     the 400-frame shapes at batch 1 and 16, one 128-aligned shape, one
-     off every tile and K = 1012, the widest the kernels take (identical
-     codes, output within 1e-5 of max|out|);
+     phases 4, 5 and 7 will run on them (each utterance's frame bucket,
+     each batch's size and padded frames, each streaming group's chunks);
+     then each kernel against its plain PyTorch version, from a numpy
+     seed, with the stated tolerance: the scan at every (batch, length, N)
+     of the offline and batched paths and for N in {4, 8, 16, 24, 32, 64,
+     128, 200, 300} at batch 1 and 4; the carried-state scan from a random
+     h0 at every shape of the streaming path, for N in {4, 8, 16, 32, 64,
+     200, 300} at batch 1 and 4, and across a seam (L = 200 as two
+     launches of 100: against the plain version and against one launch);
+     the log-mel; and both int8 dense kernels at every shape of the
+     batched int8 path plus the 400-frame shapes at batch 1 and 16, one
+     128-aligned shape, one off every tile and K = 1012, the widest the
+     kernels take (identical codes, output within 1e-5 of max|out|);
   4. offline path: load checkpoints/synth_run/final_pretrained, transcribe
      every WAV through
      the port's Transcriber, and hold the WER against the JAX package's
@@ -34,9 +38,20 @@ its seconds:
      per batched forward exactly 10 scan launches and 11 launches of the
      mode's int8 kernel (none without int8); int8-dynamic logits at fp32
      on one 400-frame batch of 4, card against CPU;
-  6. kernel timings beside their bounds and a library call: device time
-     from CUDA graphs of many calls (what the JSON line reports), and
-     CUDA events around eager calls, which include the host's launch.
+  7. streaming path: the same utterances through the port's
+     BatchedStreamingTranscriber at batch 16 with 2 s chunks, lookahead 0
+     and 1, each WER within 1.0 point of the JAX package's over the same
+     utterances (eval_streaming.json, eval_streaming_la1.json); exactly the
+     planned carried-state scan launches (10 per advancing step, 8 more per
+     emit under lookahead 1) and no other kernel; the live
+     StreamingTranscriber on the first 16, fed 0.1 s blocks, against the
+     batched lookahead-0 transcripts (at least 15 of 16 identical), with
+     its per-chunk step latency; two chunks of one utterance at fp32,
+     card against CPU (logits and every state leaf);
+  6. (after 7, whose launch counts it reports) kernel timings beside their
+     bounds and a library call: device time from CUDA graphs of many
+     calls (what the JSON line reports), and CUDA events around eager
+     calls, which include the host's launch.
 
 The line before the last is a JSON object listing the kernels; the last
 line is {"ok": true, "device": {...}} and is printed only when every
@@ -63,6 +78,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(ROOT, "checkpoints", "synth_run")
 CHECKPOINT = os.path.join(RUN_DIR, "final_pretrained")
 JAX_EVAL = os.path.join(RUN_DIR, "eval_fp32_final.json")
+# The JAX package's batched streaming evaluations (2 s chunks, batch 16), by lookahead.
+JAX_STREAM_EVALS = {0: os.path.join(RUN_DIR, "eval_streaming.json"),
+                    1: os.path.join(RUN_DIR, "eval_streaming_la1.json")}
 # The JAX package's batched evaluations of the same checkpoint, by mode.
 JAX_BATCH_EVALS = {
     "bf16": JAX_EVAL,
@@ -72,12 +90,23 @@ JAX_BATCH_EVALS = {
 BUDGET_S = 900.0  # fail, rather than run on, past this
 BATCH = 16
 FRAME_BUCKET = 200
+CHUNK_FRAMES = 200  # streaming: 2 s chunks
+LIVE_UTTS = 16  # live StreamingTranscriber sessions
+LIVE_BLOCK = 1600  # samples per feed (0.1 s)
+LIVE_MIN_AGREE = 15  # of LIVE_UTTS transcripts equal to the batched path's
 
 # Tolerances (kernel against its plain version on the same inputs).
 SCAN_MAX_REL = 1e-4  # max|kernel - plain| / max|plain|; fp32, other summation order
+# a chunk scanned as two launches with the carried state against one
+# launch: the same arithmetic in the same order, the state stored and
+# read back in fp32
+SEAM_MAX_REL = 1e-6
 MEL_MAX_ABS = 1e-3  # on log-mel; fp32 FMAs against cuBLAS fp32 matmuls
 WER_MAX_DIFF = 0.01  # port WER within 1.0 point of the JAX WER
 LOGITS_FP32_MAX_ABS = 1e-2  # card against CPU, fp32 model, one utterance
+# card against CPU, fp32 model, two streaming chunks: every carried leaf
+# (conv tails, scan states, global memory) after each chunk
+STATE_FP32_MAX_ABS = 1e-2
 INT8_MAX_REL = 1e-5  # max|kernel - plain| / max|plain|, with identical codes
 # Card against CPU, int8-dynamic model at fp32: an fp32 difference of a
 # few ulps upstream can move an activation across a rounding boundary,
@@ -104,6 +133,7 @@ INT8_STATIC_REPLACES = "velocity_asr_tpu/ops/int8_matmul.py:70"
 # every width the kernel picks (N <= 4, 8, 16, 128 and 200: one to 32
 # lanes; 24 fills 3/4 of its lanes; 300: two passes of 256 states)
 SCAN_STATE_DIMS = (4, 8, 16, 24, 32, 64, 128, 200, 300)
+STATE_SCAN_DIMS = (4, 8, 16, 32, 64, 200, 300)  # the carried-state scan's widths
 
 
 def int8_shapes(batch: int, frames: int = 400):
@@ -229,7 +259,8 @@ def mel_cost(n_frames, n_fft, n_freq, n_mels):
 # ---------------------------------------------------------------- inputs
 
 
-def scan_inputs(rng, length, state_dim, d_inner=384, batch=1):
+def scan_inputs(rng, length, state_dim, d_inner=384, batch=1, with_state=False):
+    """x, dt, A, B, C (and a random non-zero h0 (batch, d_inner, N)) on the card."""
     import torch
 
     x = rng.standard_normal((batch, length, d_inner)).astype(np.float32)
@@ -237,7 +268,54 @@ def scan_inputs(rng, length, state_dim, d_inner=384, batch=1):
     A = -np.arange(1, state_dim + 1, dtype=np.float32)
     B = rng.standard_normal((batch, length, state_dim)).astype(np.float32)
     C = rng.standard_normal((batch, length, state_dim)).astype(np.float32)
-    return [torch.tensor(a, device="cuda") for a in (x, dt, A, B, C)]
+    out = [x, dt, A, B, C]
+    if with_state:
+        out.append(rng.standard_normal((batch, d_inner, state_dim)).astype(np.float32))
+    return [torch.tensor(a, device="cuda") for a in out]
+
+
+def rel_err(ker, ref):
+    """(max abs, max abs / max|ref|) of two tensors."""
+    max_abs = (ker - ref).abs().max().item()
+    return max_abs, max_abs / ref.abs().max().item()
+
+
+def compare_state_scan(rng, state_dim, batch, length):
+    """The carried-state kernel against its plain version from a random h0;
+    returns the worst (max_abs, max_rel) over y and h_final."""
+    import torch
+
+    from velocity_asr_tpu_torch.ops.scan import scan_fwd_plain, scan_fwd_state
+
+    x, dt, A, B, C, h0 = scan_inputs(rng, length, state_dim, batch=batch, with_state=True)
+    y, h = scan_fwd_state(x, dt, A, B, C, h0)
+    torch.cuda.synchronize()
+    ref_y, ref_h = scan_fwd_plain(x, dt, A, B, C, h0, return_state=True)
+    return max(rel_err(y, ref_y), rel_err(h, ref_h), key=lambda e: e[1])
+
+
+def compare_seam(rng, state_dim, batch, length=200):
+    """[0, L) as two launches with the carried state, against the plain
+    version and against one launch: (max_abs, max_rel vs plain, max_rel
+    vs one launch), over y and h_final."""
+    import torch
+
+    from velocity_asr_tpu_torch.ops.scan import scan_fwd_plain, scan_fwd_state
+
+    x, dt, A, B, C, h0 = scan_inputs(rng, length, state_dim, batch=batch, with_state=True)
+    half = length // 2
+    parts = [[t[:, sl].contiguous() for t in (x, dt)] + [A]
+             + [t[:, sl].contiguous() for t in (B, C)]
+             for sl in (slice(0, half), slice(half, length))]
+    y1, h1 = scan_fwd_state(*parts[0], h0)
+    y2, h2 = scan_fwd_state(*parts[1], h1)
+    y_one, h_one = scan_fwd_state(x, dt, A, B, C, h0)
+    torch.cuda.synchronize()
+    y_seam = torch.cat([y1, y2], dim=1)
+    ref_y, ref_h = scan_fwd_plain(x, dt, A, B, C, h0, return_state=True)
+    vs_plain = max(rel_err(y_seam, ref_y), rel_err(h2, ref_h), key=lambda e: e[1])
+    vs_one = max(rel_err(y_seam, y_one)[1], rel_err(h2, h_one)[1])
+    return vs_plain[0], vs_plain[1], vs_one
 
 
 def mel_inputs(rng, n_frames):
@@ -334,8 +412,8 @@ def phase_compare(plan):
     from velocity_asr_tpu_torch.ops.scan import scan_fwd, scan_fwd_plain
 
     rng = np.random.default_rng(20261017)
-    errs = dict.fromkeys(("scan_fwd_f32", "log_mel_f32", "int8_dense_dynamic_f32",
-                          "int8_dense_static_f32"), 0.0)
+    errs = dict.fromkeys(("scan_fwd_f32", "scan_fwd_state_f32", "log_mel_f32",
+                          "int8_dense_dynamic_f32", "int8_dense_static_f32"), 0.0)
     for state_dim, batch, length in scan_cases(plan):
         args = scan_inputs(rng, length, state_dim, batch=batch)
         ker = scan_fwd(*args)
@@ -349,6 +427,29 @@ def phase_compare(plan):
         if not ok:
             raise AssertionError("scan kernel disagrees with its plain version")
         errs["scan_fwd_f32"] = max(errs["scan_fwd_f32"], max_abs)
+    # the carried-state scan: every shape of the streaming path, the widths
+    # at batch 1 and 4, then the seam
+    path = set(plan["stream"]["shapes"])
+    widths = {(b, 100, n) for n in STATE_SCAN_DIMS for b in (1, 4)}
+    for batch, length, state_dim in sorted(path) + sorted(widths - path):
+        max_abs, max_rel = compare_state_scan(rng, state_dim, batch, length)
+        ok = math.isfinite(max_rel) and max_rel <= SCAN_MAX_REL
+        log(f"state scan N={state_dim} B={batch} L={length} D=384{' (streaming path)' if (batch, length, state_dim) in path else ''}: "
+            f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} over y and h_final "
+            f"(tol rel {SCAN_MAX_REL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("carried-state scan kernel disagrees with its plain version")
+        errs["scan_fwd_state_f32"] = max(errs["scan_fwd_state_f32"], max_abs)
+    for state_dim in sorted({n for _, _, n in path}):
+        for batch in (1, 4):
+            max_abs, max_rel, vs_one = compare_seam(rng, state_dim, batch)
+            ok = max_rel <= SCAN_MAX_REL and vs_one <= SEAM_MAX_REL
+            log(f"state scan seam N={state_dim} B={batch} L=100+100: vs plain max_abs "
+                f"{max_abs:.3e} max_rel {max_rel:.3e} (tol {SCAN_MAX_REL:g}); vs one launch "
+                f"max_rel {vs_one:.3e} (tol {SEAM_MAX_REL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("carried-state scan breaks across a seam")
+            errs["scan_fwd_state_f32"] = max(errs["scan_fwd_state_f32"], max_abs)
     mats = _device_matrices(torch.device("cuda"), 400, 80, 16000)
     for n_frames in (200, 600):
         frames, _ = mel_inputs(rng, n_frames)
@@ -403,10 +504,39 @@ def read_jax_eval(path: str, refs):
     return [r["prediction"] for r in jax_rows]
 
 
+def checkpoint_config():
+    from velocity_asr_tpu_torch.models.config import VelocityASRConfig
+
+    with open(os.path.join(CHECKPOINT, "config.json")) as f:
+        return VelocityASRConfig.from_dict(json.load(f)["config"])
+
+
+def streaming_plan(n_samples):
+    """What the streaming path will launch on utterances of these lengths:
+    each utterance's chunks (StreamingMel gives 1 + samples // 160 frames),
+    each batched group's advancing steps (its longest utterance's chunks;
+    a short group runs padded to the batch size, as in the JAX package),
+    the carried-state scan shapes, and the exact launch counts: one scan
+    per SSM block and advancing step, one more per local block and emit
+    under lookahead 1 (the frozen global SSM does not run)."""
+    cfg = checkpoint_config()
+    chunks = [-(-(1 + n // 160) // CHUNK_FRAMES) for n in n_samples]
+    steps = sum(max(chunks[s:s + BATCH]) for s in range(0, len(chunks), BATCH))
+    per_step = cfg.ssm_layers + cfg.global_ssm_layers
+    live_chunks = sum(chunks[:LIVE_UTTS])
+    shapes = {(b, length, n) for b in (BATCH, 1)
+              for length, n in ((CHUNK_FRAMES // 2, cfg.ssm_state_dim),
+                                (cfg.stream_summary_tokens, cfg.global_ssm_state_dim))}
+    return {"chunks": chunks, "steps": steps, "live_chunks": live_chunks,
+            "shapes": sorted(shapes),
+            "launches": {0: per_step * steps, 1: (per_step + cfg.ssm_layers) * steps,
+                         "live": per_step * live_chunks}}
+
+
 def phase_corpus(tmp: str, n_utts: int):
-    """Write the corpus and work out the shapes both paths will run on
-    it: each utterance's frame bucket on the offline path, and each
-    batch's (size, padded frames) on the batched path."""
+    """Write the corpus and work out the shapes the paths will run on it:
+    each utterance's frame bucket on the offline path, each batch's
+    (size, padded frames) on the batched path, and the streaming plan."""
     from velocity_asr_tpu_torch import evaluate as ev
     from velocity_asr_tpu_torch import synth
     from velocity_asr_tpu_torch.audio import load_audio
@@ -417,15 +547,22 @@ def phase_corpus(tmp: str, n_utts: int):
     log(f"corpus: {n_utts} utterances in {time.perf_counter() - t0:.3f} s")
     with open(manifest) as f:
         paths = [json.loads(line)["audio_path"] for line in f]
-    offline = collections.Counter(padded_frames(len(load_audio(p)), FRAME_BUCKET) for p in paths)
+    n_samples = [len(load_audio(p)) for p in paths]
+    offline = collections.Counter(padded_frames(n, FRAME_BUCKET) for n in n_samples)
     ds, n = ev.load_test_set(manifest)
     mel_lens = [int(ds[i]["input_lengths"]) for i in range(n)]
     batched = collections.Counter(
         (len(chunk), -(-max(chunk) // FRAME_BUCKET) * FRAME_BUCKET)
         for chunk in (mel_lens[s:s + BATCH] for s in range(0, n, BATCH)))
+    stream = streaming_plan(n_samples)
     log(f"offline frame buckets {dict(sorted(offline.items()))}; batched (size, padded "
         f"frames) {dict(sorted(batched.items()))}")
-    return manifest, {"offline": offline, "batched": batched, "mel_lens": mel_lens}
+    log(f"streaming: chunks per utterance {dict(sorted(collections.Counter(stream['chunks']).items()))}; "
+        f"{stream['steps']} advancing steps at batch {BATCH}, {stream['live_chunks']} live "
+        f"chunks at batch 1; carried-state scan shapes (batch, L, N) {stream['shapes']}; "
+        f"planned launches {stream['launches']}")
+    return manifest, {"offline": offline, "batched": batched, "mel_lens": mel_lens,
+                      "stream": stream}
 
 
 def phase_main_path(manifest: str, plan):
@@ -583,6 +720,129 @@ def phase_batched(manifest: str, plan):
     return out
 
 
+def phase_streaming(manifest: str, plan):
+    """The streaming path: batched at lookahead 0 and 1, then live
+    sessions, then two chunks at fp32 card against CPU. Returns each
+    counted run's launch counts."""
+    import torch
+
+    from velocity_asr_tpu_torch.audio import load_audio
+    from velocity_asr_tpu_torch.models.model import from_pretrained
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.streaming import (BatchedStreamingTranscriber,
+                                                  StreamingTranscriber, init_stream_state)
+    from velocity_asr_tpu_torch.training import compute_cer, compute_wer
+    from velocity_asr_tpu_torch.transcribe import checkpoint_decoder
+
+    with open(manifest) as f:
+        rows = [json.loads(line) for line in f]
+    audios = [load_audio(r["audio_path"]) for r in rows]
+    refs = [r["text"] for r in rows]
+    n = len(rows)
+    stream = plan["stream"]
+    model = from_pretrained(CHECKPOINT, device="cuda")
+    decoder = checkpoint_decoder(CHECKPOINT, model.config.vocab_size)
+    out = {}
+    batched_texts = {}
+    for lookahead in (0, 1):
+        bt = BatchedStreamingTranscriber(model, decoder, chunk_frames=CHUNK_FRAMES,
+                                         batch_size=BATCH, lookahead_chunks=lookahead)
+        bt.transcribe_batch(audios[:BATCH])  # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        texts = bt.transcribe_batch(audios)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launch_counts)
+        wer, cer = compute_wer(texts, refs), compute_cer(texts, refs)
+        jax_path = JAX_STREAM_EVALS[lookahead]
+        jax_preds = read_jax_eval(jax_path, refs)
+        jax_wer, jax_cer = compute_wer(jax_preds, refs), compute_cer(jax_preds, refs)
+        same = sum(p == q for p, q in zip(texts, jax_preds))
+        log(f"[streaming la{lookahead}] batch {BATCH}, {CHUNK_FRAMES}-frame chunks: WER "
+            f"{wer * 100:.4f}% CER {cer * 100:.4f}% | JAX ({os.path.basename(jax_path)}, same "
+            f"{n}) WER {jax_wer * 100:.4f}% CER {jax_cer * 100:.4f}% | identical transcripts "
+            f"{same}/{n} | {wall / n * 1e3:.3f} ms/utterance with the host mel "
+            f"({wall:.3f} s for {stream['steps']} advancing steps)")
+        want = {"scan_fwd_state_f32": stream["launches"][lookahead]}
+        log(f"[streaming la{lookahead}] launches {counts}, planned {want}")
+        if counts != want:
+            raise AssertionError(f"[streaming la{lookahead}] launches {counts}, expected {want}")
+        if abs(wer - jax_wer) > WER_MAX_DIFF:
+            raise AssertionError(f"[streaming la{lookahead}] WER {wer:.4f} is more than "
+                                 f"{WER_MAX_DIFF} from JAX {jax_wer:.4f}")
+        out[lookahead] = counts
+        batched_texts[lookahead] = texts
+
+    # live sessions, fed 0.1 s blocks, each advancing step timed to its sync
+    st = StreamingTranscriber(model, decoder, chunk_frames=CHUNK_FRAMES)
+    step_ms = []
+    advance = st._advance_chunk
+
+    def timed_advance(chunk, offset):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds = advance(chunk, offset)  # ends in the argmax's copy to the host
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return preds
+
+    st._advance_chunk = timed_advance
+    st.feed(audios[0][:CHUNK_FRAMES * 160])  # warm-up, not counted
+    st.finish()
+    step_ms.clear()
+    live = []
+    reset_launch_counts()
+    for audio in audios[:LIVE_UTTS]:
+        st.reset()
+        text = "".join(st.feed(audio[i:i + LIVE_BLOCK]) for i in range(0, len(audio), LIVE_BLOCK))
+        live.append(text + st.finish())
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    want = {"scan_fwd_state_f32": stream["launches"]["live"]}
+    agree = sum(a == b for a, b in zip(live, batched_texts[0]))
+    log(f"[streaming live] {LIVE_UTTS} sessions fed {LIVE_BLOCK}-sample blocks: {agree}/"
+        f"{LIVE_UTTS} transcripts identical to the batched lookahead-0 path (need "
+        f"{LIVE_MIN_AGREE}); advancing step at batch 1 over {len(step_ms)} chunks: p50 "
+        f"{np.percentile(step_ms, 50):.3f} ms, p95 {np.percentile(step_ms, 95):.3f} ms")
+    log(f"[streaming live] launches {counts}, planned {want}")
+    if counts != want:
+        raise AssertionError(f"[streaming live] launches {counts}, expected {want}")
+    if agree < LIVE_MIN_AGREE:
+        raise AssertionError("live sessions disagree with the batched streaming path")
+    out["live"] = counts
+
+    # two chunks of utterance 0 at fp32: card against CPU, logits and state
+    audio = audios[0]
+    mel = np.concatenate([BatchedStreamingTranscriber(
+        model, decoder, chunk_frames=CHUNK_FRAMES)._causal_mel_raw(audio)[0],
+        np.zeros((2 * CHUNK_FRAMES, 80), np.float32)])[: 2 * CHUNK_FRAMES]
+    results = []
+    for device in ("cuda", "cpu"):
+        m = from_pretrained(CHECKPOINT, device=device, dtype="float32")
+        state = init_stream_state(m.config, 1, device)
+        logits = []
+        with torch.inference_mode():
+            for c in range(2):
+                chunk = torch.from_numpy(mel[None, c * CHUNK_FRAMES:(c + 1) * CHUNK_FRAMES])
+                lg, state = m(chunk.to(device), stream_state=state,
+                              time_offset=c * CHUNK_FRAMES // 2, return_state=True)
+                logits.append(lg.cpu())
+        leaves = [state["mel_carry"], state["gc_mem"]] + [
+            t for b in state["blocks"] + state["gc_blocks"] for t in b.values()]
+        results.append((torch.cat(logits, dim=1), [t.cpu() for t in leaves]))
+    (lg_card, st_card), (lg_cpu, st_cpu) = results
+    if not torch.isfinite(lg_card).all():
+        raise AssertionError("streaming logits on the card are not finite")
+    lg_err = (lg_card - lg_cpu).abs().max().item()
+    st_err = max((a - b).abs().max().item() for a, b in zip(st_card, st_cpu))
+    log(f"[streaming fp32] 2 chunks, card vs CPU: logits max_abs {lg_err:.3e} (tol "
+        f"{LOGITS_FP32_MAX_ABS:g}), state leaves max_abs {st_err:.3e} (tol {STATE_FP32_MAX_ABS:g})")
+    if not (lg_err <= LOGITS_FP32_MAX_ABS and st_err <= STATE_FP32_MAX_ABS):
+        raise AssertionError("streaming card logits or state disagree with the CPU")
+    return out
+
+
 def time_int8(rng, m, k, n):
     """Times of both int8 kernels, their plain version and torch._int_mm
     (int8 x int8 -> int32 on pre-quantized operands, where its shape rules
@@ -614,13 +874,13 @@ def time_int8(rng, m, k, n):
     return times
 
 
-def phase_timing(counts, bucket: int, errs, batched):
+def phase_timing(counts, bucket: int, errs, batched, streaming):
     import torch
 
     from velocity_asr_tpu_torch.audio import mel_filterbank
     from velocity_asr_tpu_torch.ops.mel import _device_matrices, log_mel, log_mel_plain
     from velocity_asr_tpu_torch.ops.pooling import pool_size_level1
-    from velocity_asr_tpu_torch.ops.scan import scan_fwd, scan_fwd_plain
+    from velocity_asr_tpu_torch.ops.scan import scan_fwd, scan_fwd_plain, scan_fwd_state
 
     rng = np.random.default_rng(7)
     local_len = bucket // 2
@@ -642,6 +902,27 @@ def phase_timing(counts, bucket: int, errs, batched):
             f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}); eager (host "
             f"launch included) {eager:.4f} ms")
         rows.append((ms, plain, b_ms, b_by))
+
+    # the carried-state scan at the streaming path's shapes: the live
+    # session's local and global blocks (batch 1) and the batched local
+    # blocks (batch 16); its bytes add h0 read and h_final written once
+    state_rows = []
+    for state_dim, length, batch in ((64, CHUNK_FRAMES // 2, 1), (32, 64, 1),
+                                     (64, CHUNK_FRAMES // 2, BATCH)):
+        args = scan_inputs(rng, length, state_dim, batch=batch, with_state=True)
+        ms = graph_time_ms(lambda: scan_fwd_state(*args), iters=50)
+        eager = cuda_time_ms(lambda: scan_fwd_state(*args), iters=50)
+        plain = graph_time_ms(lambda: scan_fwd_plain(*args, return_state=True), iters=3)
+        n_bytes, n_ops = scan_cost(batch, length, 384, state_dim)
+        b_ms, b_by = bound_ms(n_bytes + 2 * 4 * batch * 384 * state_dim, n_ops)
+        log(f"time state scan N={state_dim} L={length} B={batch} D=384 (device, CUDA graph): "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}); eager "
+            f"(host launch included) {eager:.4f} ms")
+        state_rows.append((ms, plain, b_ms, b_by))
+    per_run = {run: c.get("scan_fwd_state_f32", 0) for run, c in streaming.items()}
+    state_launches = sum(per_run.values())
+    log(f"state scan launches on the streaming path: {state_launches} (per run: lookahead "
+        f"0, lookahead 1, live: {per_run})")
 
     frames, padded = mel_inputs(rng, bucket)
     mats = _device_matrices(torch.device("cuda"), 400, 80, 16000)
@@ -697,6 +978,11 @@ def phase_timing(counts, bucket: int, errs, batched):
          "replaces": SCAN_REPLACES, "launches": counts.get("scan_fwd_f32", 0),
          "max_abs_err": errs["scan_fwd_f32"], "ms": scan_ms, "plain_ms": scan_plain,
          "bound_ms": scan_b, "bound_by": scan_by, "library_ms": None},
+        {"name": "scan_fwd_state_f32", "route": "cuda", "source": SCAN_SOURCE,
+         "replaces": SCAN_REPLACES, "launches": state_launches,
+         "max_abs_err": errs["scan_fwd_state_f32"], "ms": state_rows[0][0],
+         "plain_ms": state_rows[0][1], "bound_ms": state_rows[0][2],
+         "bound_by": state_rows[0][3], "library_ms": None},
         {"name": "log_mel_f32", "route": "cuda", "source": MEL_SOURCE,
          "replaces": MEL_REPLACES, "launches": counts.get("log_mel_f32", 0),
          "max_abs_err": errs["log_mel_f32"], "ms": mel_ms, "plain_ms": mel_plain,
@@ -733,8 +1019,10 @@ def main(argv=None) -> int:
         counts, bucket = run_phase(
             "4 offline path", lambda: phase_main_path(manifest, plan), t_start)
         batched = run_phase("5 batched int8 path", lambda: phase_batched(manifest, plan), t_start)
+        streaming = run_phase(
+            "7 streaming path", lambda: phase_streaming(manifest, plan), t_start)
         kernels = run_phase(
-            "6 timing", lambda: phase_timing(counts, bucket, errs, batched), t_start)
+            "6 timing", lambda: phase_timing(counts, bucket, errs, batched, streaming), t_start)
     except PhaseFailed as e:
         print(f"chip_smoke: phase {e} failed", file=sys.stderr)
         return 1

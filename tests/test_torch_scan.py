@@ -115,3 +115,78 @@ def test_kernel_state_dims_cover_the_main_path():
         t = [torch.from_numpy(a) for a in args]
         out = tscan.scan_fwd(*t[:5]) + t[0] * t[5]
         np.testing.assert_allclose(out.numpy(), ref, **TOL, err_msg=f"N={state_dim}")
+
+
+# ------------------------------------------------------- carried state
+
+
+def _state(seed, batch, d_inner, state_dim):
+    return np.random.default_rng(seed).standard_normal(
+        (batch, d_inner, state_dim)).astype(np.float32)
+
+
+@pytest.mark.parametrize("state_dim", [4, 8, 300])
+def test_plain_scan_with_state_matches_jax(state_dim):
+    """scan_fwd_plain seeded by h0 returns (y, h_final) in the oracle's
+    (batch, d_inner, N) layout: against lax.scan and the Pallas kernel
+    (interpret mode), which returns the state swapped back from its
+    (batch, N, d_inner) layout."""
+    from velocity_asr_tpu.ops.scan_pallas import selective_scan_pallas
+
+    args = _inputs(state_dim + 1, batch=2, length=21, d_inner=16, state_dim=state_dim)
+    h0 = _state(state_dim, 2, 16, state_dim)
+    jargs = [jnp.asarray(a) for a in args]
+    refs = [jscan.selective_scan_sequential(*jargs, h0=jnp.asarray(h0), return_state=True),
+            selective_scan_pallas(*jargs, h0=jnp.asarray(h0), return_state=True)]
+    t = [torch.from_numpy(a) for a in args]
+    y, h = tscan.scan_fwd_plain(*t[:5], torch.from_numpy(h0), return_state=True)
+    y = y + t[0] * t[5]
+    assert h.shape == (2, 16, state_dim) and h.dtype == torch.float32
+    for ref_y, ref_h in refs:
+        np.testing.assert_allclose(y.numpy(), np.asarray(ref_y), **TOL)
+        np.testing.assert_allclose(h.numpy(), np.asarray(ref_h), **TOL)
+    for mode in ("pallas", "sequential"):
+        ys, hs = tscan.selective_scan(*t, mode=mode, h0=torch.from_numpy(h0),
+                                      return_state=True)
+        np.testing.assert_allclose(ys.numpy(), np.asarray(refs[0][0]), **TOL)
+        np.testing.assert_allclose(hs.numpy(), np.asarray(refs[0][1]), **TOL)
+
+
+def test_scan_seam_two_chunks_equal_one():
+    """Scanning [0, L) as [0, L/2) and [L/2, L) with the carried state gives
+    the one-pass result within 1e-6 relative: the property streaming rests on."""
+    args = [torch.from_numpy(a) for a in _inputs(9, batch=3, length=40, state_dim=8)]
+    h0 = torch.from_numpy(_state(10, 3, 16, 8))
+    y, h = tscan.scan_fwd_state(*args[:5], h0)
+    first = [a[:, :20].contiguous() for a in args[:2]] + [args[2]] + [
+        a[:, :20].contiguous() for a in args[3:5]]
+    second = [a[:, 20:].contiguous() for a in args[:2]] + [args[2]] + [
+        a[:, 20:].contiguous() for a in args[3:5]]
+    y1, h1 = tscan.scan_fwd_state(*first, h0)
+    y2, h2 = tscan.scan_fwd_state(*second, h1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, rtol=1e-6, atol=0)
+    torch.testing.assert_close(h2, h, rtol=1e-6, atol=0)
+
+
+def test_state_wrapper_on_cpu_runs_plain_version():
+    args = [torch.from_numpy(a) for a in _inputs(11, state_dim=8)]
+    h0 = torch.from_numpy(_state(12, 2, 16, 8))
+    before = dict(cuda_lib.launch_counts)
+    y, h = tscan.scan_fwd_state(*args[:5], h0)
+    ref_y, ref_h = tscan.scan_fwd_plain(*args[:5], h0, return_state=True)
+    torch.testing.assert_close(y, ref_y, rtol=0, atol=0)
+    torch.testing.assert_close(h, ref_h, rtol=0, atol=0)
+    # zero seed: the offline scan's y
+    y0, _ = tscan.scan_fwd_state(*args[:5], torch.zeros_like(h0))
+    torch.testing.assert_close(y0, tscan.scan_fwd(*args[:5]), rtol=0, atol=0)
+    # an empty chunk hands back a copy of h0
+    empty = [a[:, :0] for a in args[:2]] + [args[2]] + [a[:, :0] for a in args[3:5]]
+    y_e, h_e = tscan.scan_fwd_state(*empty, h0)
+    assert y_e.shape == (2, 0, 16)
+    torch.testing.assert_close(h_e, h0, rtol=0, atol=0)
+    assert h_e.data_ptr() != h0.data_ptr()
+    assert dict(cuda_lib.launch_counts) == before  # no kernel launch counted
+    # no seed and no state asked for: the stateless scan, as before
+    out = tscan.selective_scan(*args, mode="pallas")
+    torch.testing.assert_close(out, tscan.scan_fwd(*args[:5]) + args[0] * args[5],
+                               rtol=0, atol=0)

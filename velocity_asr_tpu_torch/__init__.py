@@ -3,7 +3,10 @@
 It runs offline transcription: WAV -> log-mel (CUDA kernel) -> model
 (selective-scan CUDA kernel in every SSM block) -> greedy CTC; and
 batched evaluation over a manifest (``evaluate.py``), optionally with
-int8 projections (int8 dense CUDA kernels, ``quantize.py``).
+int8 projections (int8 dense CUDA kernels, ``quantize.py``); and greedy
+chunked streaming (``streaming.py``: a live ``StreamingTranscriber`` and
+the batched ``BatchedStreamingTranscriber``), whose SSM blocks run the
+carried-state scan kernel every chunk.
 Nothing here imports JAX or the JAX package.
 """
 

@@ -15,6 +15,12 @@ It is the inverse of ``velocity_asr_tpu/compat/torch_convert.py``.
 ``quant_stats_from_numpy`` names a flax ``quant_stats`` tree (``x_amax``
 and ``calibrated`` per static int8 layer) the same way, for
 ``quantize.load_quant_stats``.
+
+``stream_state_from_numpy`` and ``stream_state_to_numpy`` carry a
+streaming state across: the JAX package's ``init_stream_state`` tree
+(numpy leaves) and the port's (``streaming.init_stream_state``) have the
+same keys, lists and layouts, the scan state (batch, d_inner, state_dim)
+included, so the map is leaf by leaf.
 """
 
 from __future__ import annotations
@@ -169,3 +175,21 @@ def quant_stats_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     buffer names, e.g. ``global_context.pool1.pool_proj.x_amax``."""
     return {_torch_key(path)[0]: torch.tensor(np.asarray(value))
             for path, value in _flatten(tree)}
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(fn, v) for v in tree]
+    return None if tree is None else fn(tree)
+
+
+def stream_state_from_numpy(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """A JAX streaming state (numpy leaves) as the port's, on `device`."""
+    return _map_tree(lambda a: torch.tensor(np.asarray(a), device=device), tree)
+
+
+def stream_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's streaming state as numpy leaves, in the JAX tree's layout."""
+    return _map_tree(lambda t: t.detach().cpu().numpy(), state)

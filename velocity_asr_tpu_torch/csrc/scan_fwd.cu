@@ -1,18 +1,27 @@
-// Selective-scan forward for the offline SSM blocks.
+// Selective-scan forward for the SSM blocks, offline and streaming.
 //
 // Replaces: velocity_asr_tpu/ops/scan_pallas.py `_make_fwd_kernel`
-// (save_bounds=False, with_state=False), launched by `_pallas_scan_fwd`.
+// (save_bounds=False), both with_state=False, launched by
+// `_pallas_scan_fwd` (entry `scan_fwd_f32`), and with_state=True,
+// launched by `_pallas_scan_fwd_state` (entry `scan_fwd_state_f32`).
 //
 // Computes, in fp32, per batch element b and channel d:
-//   h[t] = exp(dt[t,d] * A) * h[t-1] + B[t] * (dt[t,d] * x[t,d]),  h[-1] = 0
+//   h[t] = exp(dt[t,d] * A) * h[t-1] + B[t] * (dt[t,d] * x[t,d])
 //   y[t,d] = sum_n C[t,n] * h[t,n,d]
-// with x, dt, y (batch, L, D), B, C (batch, L, N), A (N,). The D*x skip
-// is added by the caller, as on the TPU.
+// with x, dt, y (batch, L, D), B, C (batch, L, N), A (N,). The offline
+// entry starts from h[-1] = 0. The streaming entry seeds h[-1] from h0
+// and stores h_final = h[L-1]; both are (batch, D, N) fp32, the layout of
+// the JAX oracle's carry (the Pallas kernel's (batch, N, D) is its VMEM
+// choice; the JAX wrapper swaps it back). The D*x skip is added by the
+// caller, as on the TPU.
 //
 // What bounds it on an H100: not bytes and not FLOPs but the serial chain
 // over t. At the main path's shapes (batch 1, D=384, L=100..300) the
 // inputs are ~1.5 MB and ~50 MFLOP, a microsecond of work for the card,
-// while every step of the recurrence depends on the one before.
+// while every step of the recurrence depends on the one before. The
+// carried state adds 2 * batch * D * N * 4 bytes (196 KB at batch 1,
+// N=64), read once before the first step and written once after the
+// last.
 //
 // What the design does about that: it spreads the independent work as
 // wide as the recurrence allows. Each channel's states are split over G
@@ -20,16 +29,19 @@
 // costs a thread S exps and 2S FMAs, and the y reduction over n is a
 // G-lane butterfly of shuffles. B[t] and C[t] for a tile of time steps
 // are staged once per block in shared memory (lane g owns states
-// n = j*G + g, so neighbouring lanes read neighbouring banks); x and dt
-// are staged beside them. Each input is read once from device memory and
-// y is written once; the (batch, L, D, N) state never leaves registers.
+// n = j*G + g, so neighbouring lanes read neighbouring banks, and
+// neighbouring words of h0 and h_final); x and dt are staged beside
+// them. Each input is read once from device memory and y is written
+// once; the (batch, L, D, N) state never leaves registers.
 // expf is the IEEE one: no fast math.
 //
 // Any state size N >= 1 runs. The launcher picks the narrowest (G, S)
 // with G*S >= N, up to G*S = 256 (G=32 lanes of 8 states); states past N
-// get A = B = C = 0, so they stay 0 and add nothing. Above 256 the block
-// walks the states in passes of 256, each a full sweep over t that adds
-// its part of y (the states of one channel are independent).
+// get A = B = C = 0, so they stay 0 and add nothing, and are neither
+// loaded from h0 nor stored to h_final. Above 256 the block walks the
+// states in passes of 256, each a full sweep over t that adds its part
+// of y (the states of one channel are independent) and loads and stores
+// its own slice of the carried state.
 
 #include <cuda_runtime.h>
 
@@ -37,11 +49,14 @@ namespace {
 
 constexpr int kThreads = 64;  // threads per block
 
-template <int G, int S>  // G lanes share one channel, S states per lane
+// G lanes share one channel, S states per lane; kWithState seeds h from
+// h0 and stores h_final (both (batch, D, N)), else h starts at 0.
+template <int G, int S, bool kWithState>
 __global__ void __launch_bounds__(kThreads) scan_fwd_kernel(
     const float* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ Bm,
-    const float* __restrict__ Cm, float* __restrict__ y, int L, int D,
+    const float* __restrict__ Cm, const float* __restrict__ h0,
+    float* __restrict__ y, float* __restrict__ h_final, int L, int D,
     int N) {
   constexpr int NP = G * S;  // states per pass
   // Time steps staged per tile: 32, fewer for the widest passes, so that
@@ -60,6 +75,8 @@ __global__ void __launch_bounds__(kThreads) scan_fwd_kernel(
   const int d = d0 + c;
   const size_t seq_d = static_cast<size_t>(b) * L * D;
   const size_t seq_n = static_cast<size_t>(b) * L * N;
+  // this channel's carried states, (batch, D, N); only read for d < D
+  const size_t state = (static_cast<size_t>(b) * D + d) * N;
 
   for (int n0 = 0; n0 < N; n0 += NP) {
     const int live = min(NP, N - n0);  // states of this pass below N
@@ -68,7 +85,10 @@ __global__ void __launch_bounds__(kThreads) scan_fwd_kernel(
     for (int j = 0; j < S; ++j) {
       const int n = j * G + g;
       a[j] = n < live ? A[n0 + n] : 0.f;
-      h[j] = 0.f;
+      if constexpr (kWithState)
+        h[j] = n < live && d < D ? h0[state + n0 + n] : 0.f;
+      else
+        h[j] = 0.f;
     }
 
     for (int t0 = 0; t0 < L; t0 += kTile) {
@@ -111,36 +131,72 @@ __global__ void __launch_bounds__(kThreads) scan_fwd_kernel(
         }
       }
     }
+
+    if constexpr (kWithState) {
+      if (d < D) {
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          const int n = j * G + g;
+          if (n < live) h_final[state + n0 + n] = h[j];
+        }
+      }
+    }
   }
 }
 
-template <int G, int S>
+template <int G, int S, bool kWithState>
 cudaError_t launch(const float* x, const float* dt, const float* A,
-                   const float* B, const float* C, float* y, int batch,
-                   int L, int D, int N, cudaStream_t stream) {
+                   const float* B, const float* C, const float* h0, float* y,
+                   float* h_final, int batch, int L, int D, int N,
+                   cudaStream_t stream) {
   constexpr int kChannels = kThreads / G;
   dim3 grid((D + kChannels - 1) / kChannels, batch);
-  scan_fwd_kernel<G, S><<<grid, kThreads, 0, stream>>>(x, dt, A, B, C, y, L,
-                                                        D, N);
+  scan_fwd_kernel<G, S, kWithState><<<grid, kThreads, 0, stream>>>(
+      x, dt, A, B, C, h0, y, h_final, L, D, N);
   return cudaGetLastError();
 }
-
-}  // namespace
 
 // Any N >= 1: the narrowest (lanes G, states per lane S) with G*S >= N,
 // and passes of 256 states beyond that. N = 16, 32 and 64 (the repo's
 // model configs) fill their lanes exactly. Returns cudaErrorInvalidValue
 // for an empty or negative size and otherwise the launch's error code.
+template <bool kWithState>
+cudaError_t dispatch(const float* x, const float* dt, const float* A,
+                     const float* B, const float* C, const float* h0,
+                     float* y, float* h_final, int batch, int L, int D, int N,
+                     cudaStream_t stream) {
+  if (batch <= 0 || L <= 0 || D <= 0 || N <= 0) return cudaErrorInvalidValue;
+#define VELOCITY_SCAN_LAUNCH(G, S) \
+  launch<G, S, kWithState>(x, dt, A, B, C, h0, y, h_final, batch, L, D, N, stream)
+  if (N <= 4) return VELOCITY_SCAN_LAUNCH(1, 4);
+  if (N <= 8) return VELOCITY_SCAN_LAUNCH(1, 8);
+  if (N <= 16) return VELOCITY_SCAN_LAUNCH(2, 8);
+  if (N <= 32) return VELOCITY_SCAN_LAUNCH(4, 8);
+  if (N <= 64) return VELOCITY_SCAN_LAUNCH(8, 8);
+  if (N <= 128) return VELOCITY_SCAN_LAUNCH(16, 8);
+  return VELOCITY_SCAN_LAUNCH(32, 8);
+#undef VELOCITY_SCAN_LAUNCH
+}
+
+}  // namespace
+
+// The offline scan: h[-1] = 0, no carried state.
 extern "C" cudaError_t scan_fwd_f32(const float* x, const float* dt,
                                     const float* A, const float* B,
                                     const float* C, float* y, int batch,
                                     int L, int D, int N, cudaStream_t stream) {
-  if (batch <= 0 || L <= 0 || D <= 0 || N <= 0) return cudaErrorInvalidValue;
-  if (N <= 4) return launch<1, 4>(x, dt, A, B, C, y, batch, L, D, N, stream);
-  if (N <= 8) return launch<1, 8>(x, dt, A, B, C, y, batch, L, D, N, stream);
-  if (N <= 16) return launch<2, 8>(x, dt, A, B, C, y, batch, L, D, N, stream);
-  if (N <= 32) return launch<4, 8>(x, dt, A, B, C, y, batch, L, D, N, stream);
-  if (N <= 64) return launch<8, 8>(x, dt, A, B, C, y, batch, L, D, N, stream);
-  if (N <= 128) return launch<16, 8>(x, dt, A, B, C, y, batch, L, D, N, stream);
-  return launch<32, 8>(x, dt, A, B, C, y, batch, L, D, N, stream);
+  return dispatch<false>(x, dt, A, B, C, nullptr, y, nullptr, batch, L, D, N,
+                         stream);
+}
+
+// The streaming scan: h[-1] = h0, h_final = h[L-1]; h0 and h_final are
+// (batch, D, N) fp32 and must not overlap.
+extern "C" cudaError_t scan_fwd_state_f32(const float* x, const float* dt,
+                                          const float* A, const float* B,
+                                          const float* C, const float* h0,
+                                          float* y, float* h_final, int batch,
+                                          int L, int D, int N,
+                                          cudaStream_t stream) {
+  return dispatch<true>(x, dt, A, B, C, h0, y, h_final, batch, L, D, N,
+                        stream);
 }

@@ -1,8 +1,10 @@
-"""Batched WER/CER evaluation (the greedy batch branch of scripts/evaluate.py).
+"""Batched WER/CER evaluation (the greedy branches of scripts/evaluate.py).
 
     python -m velocity_asr_tpu_torch.evaluate --checkpoint DIR --test-set MANIFEST \
         [--int8 | --int8-static] [--batch-size 16] [--frame-bucket 200] \
-        [--max-utts N] [--calib-batches 8] [--output results.json] [--device cuda]
+        [--max-utts N] [--calib-batches 8] [--output results.json] [--device cuda] \
+        [--streaming [--chunk-seconds 2.0] [--lookahead N] [--stream-tokens K]
+         [--stream-memory M]]
 
 Utterances are read from a JSONL manifest, their log-mels computed on the
 host and padded batch by batch to a multiple of ``--frame-bucket`` frames
@@ -11,7 +13,10 @@ each utterance's padded frames and the batch is greedily decoded on the
 device. ``--int8`` runs the ten global-context projections and the CTC
 head as int8 Dense layers with per-row dynamic scales; ``--int8-static``
 first calibrates one activation scale per layer on the first
-min(n, calib_batches * batch_size) utterances. The output JSON has the
+min(n, calib_batches * batch_size) utterances. ``--streaming`` decodes
+each utterance through the chunked streaming path instead, batched
+across utterances (``streaming.BatchedStreamingTranscriber``), and
+measures the streaming-vs-offline accuracy gap. The output JSON has the
 keys of the JAX package's ``eval_*.json`` files.
 """
 
@@ -26,12 +31,14 @@ from typing import List
 import numpy as np
 import torch
 
+from .audio import SAMPLE_RATE, load_audio
 from .data import ASRCollator, ASRDataset, calibration_batches
 from .decode import CTCDecoder, ctc_greedy_decode_torch, force_blank_beyond
 from .models.model import VelocityASR, from_pretrained
 from .quantize import calibrate_int8_model
+from .streaming import BatchedStreamingTranscriber
 from .training import compute_cer, compute_wer
-from .transcribe import checkpoint_decoder
+from .transcribe import checkpoint_decoder, chunk_frames_of
 
 logger = logging.getLogger("velocity_asr_tpu_torch.evaluate")
 
@@ -100,6 +107,39 @@ def evaluate(model: VelocityASR, decoder: CTCDecoder, ds, n: int, collator: ASRC
     }
 
 
+def evaluate_streaming(model: VelocityASR, decoder: CTCDecoder, ds, n: int,
+                       batch_size: int, chunk_frames: int = 200, lookahead: int = 0) -> dict:
+    """Greedy streaming decode of the first n utterances, batch by batch.
+
+    The same keys as ``evaluate``; rtf and seconds count the host mel and
+    the chunk steps (not the WAV read), as in the JAX package.
+    """
+    st = BatchedStreamingTranscriber(model, decoder, chunk_frames=chunk_frames,
+                                     batch_size=batch_size, lookahead_chunks=lookahead)
+    predictions: List[str] = []
+    references: List[str] = []
+    total_audio_s = total_wall = 0.0
+    for start in range(0, n, batch_size):
+        items = [ds.samples[i] for i in range(start, min(start + batch_size, n))]
+        audios = [load_audio(item["audio_path"]) for item in items]
+        t0 = time.perf_counter()
+        predictions.extend(st.transcribe_batch(audios))
+        total_wall += time.perf_counter() - t0
+        references.extend(item.get("text", "") for item in items)
+        total_audio_s += sum(len(a) for a in audios) / SAMPLE_RATE
+        if (start // batch_size) % 10 == 0:
+            logger.info("  %d/%d", start + len(audios), n)
+    return {
+        "wer": compute_wer(predictions, references),
+        "cer": compute_cer(predictions, references),
+        "rtf": total_wall / max(total_audio_s, 1e-9),
+        "utterances": n,
+        "results": [{"prediction": p, "reference": r}
+                    for p, r in zip(predictions, references)],
+        "seconds": total_wall,
+    }
+
+
 def main(argv: List[str] | None = None) -> dict:
     parser = argparse.ArgumentParser(description="Evaluate the PyTorch port on a test set")
     parser.add_argument("--checkpoint", required=True, help="pretrained checkpoint dir")
@@ -115,7 +155,24 @@ def main(argv: List[str] | None = None) -> dict:
     parser.add_argument("--calib-batches", type=int, default=8)
     parser.add_argument("--output", help="write per-utterance results (JSON)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--streaming", action="store_true",
+                        help="decode each utterance with the chunked streaming pipeline "
+                             "(carried model state), batched across utterances")
+    parser.add_argument("--chunk-seconds", type=float, default=2.0)
+    parser.add_argument("--lookahead", type=int, default=0,
+                        help="streaming only: emit each chunk N chunks late, re-decoded "
+                             "with the later chunks' global context and statistics")
+    parser.add_argument("--stream-tokens", type=int, default=None,
+                        help="override config.stream_summary_tokens")
+    parser.add_argument("--stream-memory", type=int, default=None,
+                        help="override config.stream_memory_chunks")
     args = parser.parse_args(argv)
+    if args.streaming and args.int8_static:
+        parser.error("--int8-static is not supported with --streaming "
+                     "(static quant_stats are not threaded through the "
+                     "streaming step); use --int8 (dynamic scales)")
+    if args.lookahead and not args.streaming:
+        parser.error("--lookahead requires --streaming")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(levelname)s | %(message)s")
 
     overrides = {}
@@ -123,11 +180,27 @@ def main(argv: List[str] | None = None) -> dict:
         overrides["int8_inference"] = True
     if args.int8_static:
         overrides["int8_static"] = True
+    if args.stream_tokens is not None:
+        overrides["stream_summary_tokens"] = args.stream_tokens
+    if args.stream_memory is not None:
+        overrides["stream_memory_chunks"] = args.stream_memory
     model = from_pretrained(args.checkpoint, device=args.device, **overrides)
     decoder = checkpoint_decoder(args.checkpoint, model.config.vocab_size)
 
     ds, n = load_test_set(args.test_set, args.max_utts)
     logger.info("Evaluating %d utterances from %s", n, args.test_set)
+    if args.streaming:
+        result = evaluate_streaming(model, decoder, ds, n, args.batch_size,
+                                    chunk_frames_of(args.chunk_seconds), args.lookahead)
+        logger.info("STREAMING WER: %.2f%% | CER: %.2f%% | RTF: %.5f | utts/s: %.2f",
+                    result["wer"] * 100, result["cer"] * 100, result["rtf"],
+                    n / max(result["seconds"], 1e-9))
+        if args.output:
+            with open(args.output, "w") as f:
+                json.dump({"wer": result["wer"], "cer": result["cer"], "rtf": result["rtf"],
+                           "utterances": n, "streaming": True, "lookahead": args.lookahead,
+                           "results": result["results"]}, f, indent=2)
+        return {k: result[k] for k in ("wer", "cer", "rtf")}
     collator = ASRCollator(frame_bucket=args.frame_bucket, target_bucket=1)
     if args.int8_static:
         n_calib = calibrate(model, ds, n, collator, args.batch_size, args.calib_batches)

@@ -1,5 +1,5 @@
 """Hierarchical global context (mirrors velocity_asr_tpu/models/attention.py),
-offline branch only.
+offline and streaming.
 
 Pool sizes follow the (bucketed) sequence length; pooling is an
 averaging matmul (ops/pooling.py). The cross-attention is small (<= 64
@@ -32,8 +32,13 @@ class AdaptivePool(nn.Module):
         self.pool_proj = quant_dense(quant_mode(int8), d_model, d_model, dtype,
                                      static=int8_static)
 
-    def forward(self, x: torch.Tensor, prev_pool_size: int | None = None):
+    def forward(self, x: torch.Tensor, prev_pool_size: int | None = None,
+                pre_pooled: bool = False):
+        """(projected pooled tokens, pool size). pre_pooled: x is already a
+        streaming chunk's summary tokens; only the projection applies."""
         seq_len = x.shape[1]
+        if pre_pooled:
+            return self.pool_proj(x), seq_len
         if self.level == 1:
             pool_size = pool_size_level1(seq_len)
         else:
@@ -100,7 +105,18 @@ class GatedFusion(nn.Module):
 
 
 class HierarchicalGlobalContext(nn.Module):
-    """Pool -> GlobalSSM -> pool -> cross-attention -> gated fusion."""
+    """Pool -> GlobalSSM -> pool -> cross-attention -> gated fusion.
+
+    Streaming (``summary`` given): this chunk's pooled summary tokens
+    (batch, S, d_model) pass the level-1 projection and the GlobalSSM
+    incrementally (per-block conv and scan state in ``gc_state["blocks"]``),
+    and the SSM outputs roll into a memory ``gc_state["mem"]`` (batch, M,
+    d_model) fp32, over which level-2 pooling and the cross-attention run.
+    A row whose ``gc_state["init"]`` is false (its first chunk) fills the
+    memory by tiling its tokens. ``frozen`` is the lookahead emit pass:
+    attend over the memory as given, advancing nothing. Returns (fused,
+    new gc_state).
+    """
 
     def __init__(self, d_model: int = 192, num_heads: int = 4, attention_dim: int = 48,
                  global_ssm_layers: int = 2, global_ssm_state_dim: int = 32,
@@ -108,6 +124,7 @@ class HierarchicalGlobalContext(nn.Module):
                  int8: bool = False, int8_static: bool = False):
         super().__init__()
         q = {"int8": int8, "int8_static": int8_static}
+        self.dtype = dtype
         self.pool1 = AdaptivePool(1, d_model, dtype, **q)
         self.global_ssm = GlobalSSM(d_model, global_ssm_layers, global_ssm_state_dim,
                                     scan_mode, dtype)
@@ -117,11 +134,37 @@ class HierarchicalGlobalContext(nn.Module):
         self.cross_attention = MultiHeadAttention(d_model, num_heads, attention_dim, dtype, **q)
         self.fusion = GatedFusion(d_model, dtype, **q)
 
-    def forward(self, local_features: torch.Tensor) -> torch.Tensor:
-        x_pool1, pool_size1 = self.pool1(local_features)
-        x_ssm = self.global_ssm(x_pool1)
+    def forward(self, local_features: torch.Tensor, summary: torch.Tensor | None = None,
+                gc_state: dict | None = None, frozen: bool = False):
+        streaming = summary is not None
+        if streaming and gc_state is None:
+            raise ValueError(
+                "streaming HierarchicalGlobalContext requires gc_state "
+                "(build one with streaming.init_stream_state)"
+            )
+        if streaming and frozen:
+            x_ssm = gc_state["mem"].to(self.dtype)
+            pool_size1 = x_ssm.shape[1]
+            new_gc_state = gc_state
+        elif streaming:
+            x_new, _ = self.pool1(summary.to(self.dtype), pre_pooled=True)
+            ssm_new, new_blocks = self.global_ssm(x_new, gc_state["blocks"],
+                                                  return_state=True)
+            mem = gc_state["mem"]
+            mem_tokens, s = mem.shape[1], ssm_new.shape[1]
+            ssm_new = ssm_new.to(torch.float32)
+            tiled = ssm_new.repeat(1, mem_tokens // s, 1)
+            rolled = torch.cat([mem[:, s:], ssm_new], dim=1)
+            x_ssm = torch.where(gc_state["init"][:, None, None], rolled, tiled).to(self.dtype)
+            pool_size1 = mem_tokens
+            new_gc_state = {"mem": x_ssm.to(torch.float32), "blocks": new_blocks,
+                            "init": torch.ones_like(gc_state["init"])}
+        else:
+            x_pool1, pool_size1 = self.pool1(local_features)
+            x_ssm = self.global_ssm(x_pool1)
         x_pool2, _ = self.pool2(x_ssm, prev_pool_size=pool_size1)
         x_pool2 = self.norm1(x_pool2)
         query = self.norm2(local_features)
         global_context = self.cross_attention(query, x_pool2, x_pool2)
-        return self.fusion(local_features, global_context)
+        fused = self.fusion(local_features, global_context)
+        return (fused, new_gc_state) if streaming else fused

@@ -1,5 +1,5 @@
 """Front-end and output layers (mirrors velocity_asr_tpu/models/layers.py),
-offline.
+offline and streaming.
 
 Parameters are fp32. ``Dense`` casts its input, weight and bias to the
 compute dtype, as flax's ``nn.Dense(dtype=...)`` does; LayerNorms run in
@@ -86,25 +86,52 @@ def _time_encoding(seq_len: int, dim: int, device: torch.device) -> torch.Tensor
     return torch.tensor(sinusoidal_time_encoding(seq_len, dim), device=device)
 
 
+def time_encoding(time_offset: int, seq_len: int, dim: int,
+                  device: torch.device) -> torch.Tensor:
+    """(seq_len, dim) sinusoid at absolute positions time_offset + t, in
+    fp32: a cached table at offset 0 (offline and a stream's first chunk),
+    computed from the positions after that, as the JAX package computes
+    it (no table cap on a session's length)."""
+    if time_offset == 0:
+        return _time_encoding(seq_len, dim, device)
+    div_term = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                         * (-math.log(10000.0) / dim))
+    positions = float(time_offset) + torch.arange(seq_len, dtype=torch.float32,
+                                                  device=device)
+    ang = positions[:, None] * div_term
+    n_even = (dim + 1) // 2
+    pe = torch.empty(seq_len, dim, dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang[:, :n_even])
+    pe[:, 1::2] = torch.cos(ang[:, : dim - n_even])
+    return pe
+
+
 class PositionalEncoding2D(nn.Module):
     """First d_model/2 dims: fixed sinusoid over time; last d_model/2: one
-    learned frequency vector broadcast over time."""
+    learned frequency vector broadcast over time. time_offset is the
+    absolute output frame of x's first frame (streaming)."""
 
     def __init__(self, d_model: int):
         super().__init__()
         self.half = d_model // 2
         self.pe_freq = nn.Parameter(torch.zeros(1, 1, self.half))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time_offset: int = 0) -> torch.Tensor:
         batch, seq_len, _ = x.shape
-        pe_time = _time_encoding(seq_len, self.half, x.device)[None]
+        pe_time = time_encoding(time_offset, seq_len, self.half, x.device)[None]
         pos = torch.cat([pe_time, self.pe_freq.expand(1, seq_len, self.half)], dim=-1)
         return x + pos.to(x.dtype)
 
 
 class TemporalBindingLayer(nn.Module):
     """Conv1d(mel_bins -> d_model, k=3, stride=2, pad=1) -> exact GELU ->
-    2D positional encoding -> LayerNorm. Output length (L + 1) // 2."""
+    2D positional encoding -> LayerNorm. Output length (L + 1) // 2.
+
+    Streaming (``return_carry``): chunks have an even number of frames;
+    the last ``kernel_size // 2`` mel frames of a chunk are carried (zeros
+    before the first chunk) and spliced in front of the next, and a valid
+    strided conv over [carry | chunk] gives exactly the chunk's offline
+    outputs. time_offset is the chunk's first absolute output frame."""
 
     def __init__(self, mel_bins: int = 80, d_model: int = 192, kernel_size: int = 3,
                  stride: int = 2, dtype: torch.dtype = torch.float32):
@@ -115,13 +142,35 @@ class TemporalBindingLayer(nn.Module):
         self.pos_encoding = PositionalEncoding2D(d_model)
         self.norm = LayerNorm(d_model, dtype)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, carry: torch.Tensor | None = None,
+                time_offset: int = 0, return_carry: bool = False):
         k = self.conv.kernel_size[0]
-        x = strided_conv1d(mel.to(self.dtype), self.conv.weight, self.conv.bias,
-                           stride=self.stride, padding=k // 2)
-        x = F.gelu(x)  # exact erf, as torch's and flax's approximate=False
-        x = self.pos_encoding(x)
-        return self.norm(x)
+        if not return_carry:
+            x = strided_conv1d(mel.to(self.dtype), self.conv.weight, self.conv.bias,
+                               stride=self.stride, padding=k // 2)
+            x = F.gelu(x)  # exact erf, as torch's and flax's approximate=False
+            return self.norm(self.pos_encoding(x))
+        if mel.shape[1] % self.stride:
+            raise ValueError(f"stream chunks must be a multiple of {self.stride} frames, "
+                             f"got {mel.shape[1]}")
+        # The one-frame carry reproduces the offline conv only while no
+        # output needs frames beyond its chunk.
+        if k // 2 > self.stride - 1:
+            raise NotImplementedError(
+                f"streaming temporal binding requires kernel_size // 2 "
+                f"<= stride - 1 (got kernel_size={k}, "
+                f"stride={self.stride}); offline mode supports any size"
+            )
+        pad = k // 2
+        if carry is None:
+            carry = torch.zeros(mel.shape[0], pad, mel.shape[2], dtype=torch.float32,
+                                device=mel.device)
+        mel_ext = torch.cat([carry.to(mel.dtype), mel], dim=1)
+        new_carry = mel_ext[:, mel_ext.shape[1] - pad:]
+        x = strided_conv1d(mel_ext.to(self.dtype), self.conv.weight, self.conv.bias,
+                           stride=self.stride, padding=0)
+        x = F.gelu(x)
+        return self.norm(self.pos_encoding(x, time_offset)), new_carry
 
 
 class CTCOutputHead(nn.Module):

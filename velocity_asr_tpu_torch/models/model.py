@@ -1,5 +1,5 @@
 """VELOCITY-ASR model assembly (mirrors velocity_asr_tpu/models/model.py),
-offline inference only.
+offline and streaming inference.
 
 ``create_model`` initialises every parameter from the distributions the
 JAX package's ``init_params`` draws from; ``from_pretrained`` reads the
@@ -18,6 +18,7 @@ import torch.nn as nn
 
 from ..checkpoint import params_from_numpy, read_params
 from ..device import resolve_device
+from ..ops.pooling import adaptive_avg_pool1d
 from .attention import HierarchicalGlobalContext
 from .config import VelocityASRConfig
 from .layers import CTCOutputHead, PositionalEncoding2D, TemporalBindingLayer
@@ -55,25 +56,96 @@ class VelocityASR(nn.Module):
         )
         self.ctc_head = CTCOutputHead(cfg.d_model, cfg.vocab_size, dtype, **int8)
 
-    def forward(self, mel_spectrogram: torch.Tensor, return_features: bool = False):
+    def forward(self, mel_spectrogram: torch.Tensor, stream_state: Optional[dict] = None,
+                time_offset: int = 0, return_state: bool = False, frozen_mem: bool = False,
+                return_features: bool = False):
         """(batch, frames, mel_bins) -> fp32 logits (batch, (frames+1)//2, vocab)
-        [, features dict]."""
-        x = self.temporal_binding(mel_spectrogram)
-        local_features = self.local_ssm(x)
-        fused_features = self.global_context(local_features)
+        [, features dict] offline.
+
+        Streaming (``stream_state`` given or ``return_state``): one chunk
+        of an even number of frames, its first output frame at
+        ``time_offset``. The local path carries its state exactly; the
+        chunk's local features pool to ``stream_summary_tokens`` summary
+        tokens that advance the global context's SSM and rolling memory
+        (``HierarchicalGlobalContext``). With ``return_state`` it returns
+        (logits, new state), the state a dict with the keys of
+        ``streaming.init_stream_state``, every leaf fp32 (``gc_init``
+        bool). ``frozen_mem`` is the lookahead emit pass: the global
+        context attends over ``stream_state["gc_mem"]`` as given and the
+        gc_* leaves echo the inputs, while the local state still advances
+        (a caller re-decoding an old chunk discards it).
+        """
+        cfg = self.config
+        streaming = return_state or stream_state is not None
+        if frozen_mem and stream_state is None:
+            raise ValueError(
+                "frozen_mem requires a stream_state produced by at least "
+                "one advancing streaming step"
+            )
+        if not streaming:
+            x = self.temporal_binding(mel_spectrogram)
+            local_features = self.local_ssm(x)
+            fused_features = self.global_context(local_features)
+            logits = self.ctc_head(fused_features).to(torch.float32)
+            if return_features:
+                return logits, {
+                    "temporal_binding": x,
+                    "local_features": local_features,
+                    "fused_features": fused_features,
+                }
+            return logits
+
+        state = stream_state or init_stream_state(cfg, mel_spectrogram.shape[0],
+                                                  mel_spectrogram.device)
+        x, mel_carry = self.temporal_binding(
+            mel_spectrogram, carry=state["mel_carry"], time_offset=time_offset,
+            return_carry=True)
+        local_features, block_states = self.local_ssm(x, state["blocks"], return_state=True)
+        summary = adaptive_avg_pool1d(local_features.to(torch.float32),
+                                      cfg.stream_summary_tokens)
+        gc_state = {"mem": state["gc_mem"], "blocks": state["gc_blocks"],
+                    "init": state["gc_init"]}
+        fused_features, new_gc = self.global_context(local_features, summary=summary,
+                                                     gc_state=gc_state, frozen=frozen_mem)
         logits = self.ctc_head(fused_features).to(torch.float32)
-        if return_features:
-            return logits, {
-                "temporal_binding": x,
-                "local_features": local_features,
-                "fused_features": fused_features,
-            }
-        return logits
+        if not return_state:
+            return logits
+        return logits, {
+            "mel_carry": mel_carry.to(torch.float32),  # the mel's dtype otherwise
+            "blocks": block_states,
+            "gc_mem": new_gc["mem"],
+            "gc_blocks": new_gc["blocks"],
+            "gc_init": new_gc["init"],
+        }
 
     @staticmethod
     def get_output_length(input_length: int) -> int:
         """Stride-2 temporal binding halves the frames."""
         return (input_length + 1) // 2
+
+
+def init_stream_state(cfg: VelocityASRConfig, batch: int, device="cpu") -> dict:
+    """Fresh carried state for `batch` independent streams, fp32 on
+    `device` (the JAX package's ``streaming.init_stream_state``): the mel
+    carry, per local block its conv tail and scan state (batch, d_inner,
+    N), the global memory, per global block the same (expand 2, kernel 4,
+    fixed as in the JAX package), and per row whether its memory is warm."""
+    def zeros(*shape):
+        return torch.zeros(*shape, dtype=torch.float32, device=device)
+
+    k = cfg.ssm_kernel_size
+    return {
+        "mel_carry": zeros(batch, 1, cfg.mel_bins),
+        "blocks": [{"conv": zeros(batch, k - 1, cfg.d_model),
+                    "ssm": zeros(batch, cfg.d_inner, cfg.ssm_state_dim)}
+                   for _ in range(cfg.ssm_layers)],
+        "gc_mem": zeros(batch, cfg.stream_memory_chunks * cfg.stream_summary_tokens,
+                        cfg.d_model),
+        "gc_blocks": [{"conv": zeros(batch, 3, cfg.d_model),
+                       "ssm": zeros(batch, 2 * cfg.d_model, cfg.global_ssm_state_dim)}
+                      for _ in range(cfg.global_ssm_layers)],
+        "gc_init": torch.zeros(batch, dtype=torch.bool, device=device),
+    }
 
 
 def _empty_model(config: VelocityASRConfig, device) -> VelocityASR:

@@ -1,8 +1,10 @@
 """Selective-SSM components (mirrors velocity_asr_tpu/models/ssm.py),
-offline only.
+offline and streaming.
 
 The recurrence always runs in fp32; the Dense layers run in the compute
-dtype.
+dtype. A streaming block carries, per stream, its last (k-1) normed
+frames (the causal conv's tail, fp32) and the scan state (batch,
+d_inner, state_dim) fp32: ``{"conv": ..., "ssm": ...}``.
 """
 
 from __future__ import annotations
@@ -34,16 +36,21 @@ class SelectiveSSM(nn.Module):
         self.A_log = nn.Parameter(torch.zeros(state_dim))
         self.D = nn.Parameter(torch.zeros(d_inner))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ssm_state: torch.Tensor | None = None,
+                return_state: bool = False):
+        """y, or (y, final scan state) with return_state; ssm_state seeds
+        the scan."""
         x_in, z = self.in_proj(x).chunk(2, dim=-1)
         B, C = self.x_proj(x_in).chunk(2, dim=-1)
         dt = F.softplus(self.dt_proj(x_in))
         A = -torch.exp(self.A_log)
         f32 = torch.float32
         y = selective_scan(x_in.to(f32), dt.to(f32), A, B.to(f32), C.to(f32), self.D,
-                           mode=self.scan_mode)
-        y = y.to(self.dtype) * F.silu(z)
-        return self.out_proj(y)
+                           mode=self.scan_mode, h0=ssm_state, return_state=return_state)
+        if return_state:
+            y, h_final = y
+        out = self.out_proj(y.to(self.dtype) * F.silu(z))
+        return (out, h_final) if return_state else out
 
 
 class SSMBlock(nn.Module):
@@ -54,6 +61,10 @@ class SSMBlock(nn.Module):
                  kernel_size: int = 4, scan_mode: str = "parallel",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.d_model = d_model
+        self.kernel_size = kernel_size
+        self.d_inner = d_model * expand_ratio
+        self.state_dim = state_dim
         self.norm1 = LayerNorm(d_model, dtype)
         self.conv = nn.Conv1d(d_model, d_model, kernel_size, groups=d_model)
         self.ssm = SelectiveSSM(d_model, state_dim, expand_ratio, scan_mode, dtype)
@@ -61,11 +72,41 @@ class SSMBlock(nn.Module):
         self.ffn_in = Dense(d_model, d_model * expand_ratio, dtype=dtype)
         self.ffn_out = Dense(d_model * expand_ratio, d_model, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = causal_depthwise_conv1d(self.norm1(x), self.conv.weight, self.conv.bias)
-        x = self.ssm(h) + x
-        h = self.ffn_out(F.gelu(self.ffn_in(self.norm2(x))))
-        return h + x
+    def forward(self, x: torch.Tensor, state: dict | None = None,
+                return_state: bool = False):
+        """out, or (out, new state) with return_state. A passed state is
+        spliced in either way: the carried conv tail goes in front of the
+        chunk, so the causal conv is exact across chunk boundaries."""
+        h = self.norm1(x)
+        if return_state and state is None:
+            state = self.init_stream_state(x.shape[0], x.device)
+        if state is not None:
+            h_ext = torch.cat([state["conv"].to(h.dtype), h], dim=1)
+            # explicit start index: -(k-1) == -0 would keep everything at k == 1
+            new_tail = h_ext[:, h_ext.shape[1] - (self.kernel_size - 1):]
+            h = causal_depthwise_conv1d(h_ext, self.conv.weight, self.conv.bias)[
+                :, self.kernel_size - 1:]
+        else:
+            h = causal_depthwise_conv1d(h, self.conv.weight, self.conv.bias)
+        ssm_state = None if state is None else state["ssm"]
+        if return_state:
+            h, ssm_final = self.ssm(h, ssm_state, return_state=True)
+        else:
+            h = self.ssm(h, ssm_state)
+        x = h + x
+        out = self.ffn_out(F.gelu(self.ffn_in(self.norm2(x)))) + x
+        if return_state:
+            return out, {"conv": new_tail.to(torch.float32), "ssm": ssm_final}
+        return out
+
+    def init_stream_state(self, batch: int, device="cpu") -> dict:
+        """Zero streaming state: (k-1) conv-tail frames and the scan state."""
+        return {
+            "conv": torch.zeros(batch, self.kernel_size - 1, self.d_model,
+                                dtype=torch.float32, device=device),
+            "ssm": torch.zeros(batch, self.d_inner, self.state_dim, dtype=torch.float32,
+                               device=device),
+        }
 
 
 class LocalSSMProcessor(nn.Module):
@@ -81,10 +122,21 @@ class LocalSSMProcessor(nn.Module):
         )
         self.norm = LayerNorm(d_model, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for block in self.layers:
-            x = block(x)
-        return self.norm(x)
+    def forward(self, x: torch.Tensor, states: list | None = None,
+                return_state: bool = False):
+        """out, or (out, per-block states) with return_state. Passed
+        states are spliced in even when no state is asked back (running
+        stateless would decode the chunk as a fresh stream)."""
+        new_states = []
+        for i, block in enumerate(self.layers):
+            state = None if states is None else states[i]
+            if return_state:
+                x, st = block(x, state, return_state=True)
+                new_states.append(st)
+            else:
+                x = block(x, state)
+        out = self.norm(x)
+        return (out, new_states) if return_state else out
 
 
 class GlobalSSM(LocalSSMProcessor):

@@ -39,6 +39,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, dt, A, B, C, y, batch, length, d_inner, state_dim, stream
     "scan_fwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, dt, A, B, C, h0, y, h_final, batch, length, d_inner, state_dim, stream
+    "scan_fwd_state_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # frames, dft_real, dft_imag, fb_t, out, n_frames, n_fft, n_freq, n_mels, stream
     "log_mel_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w_q, w_scale, out, x_q_out (or None), M, K, N, stream

@@ -34,10 +34,19 @@ def adaptive_pool_matrix(seq_len: int, pool_size: int) -> np.ndarray:
     return mat
 
 
+@functools.lru_cache(maxsize=64)
+def _device_pool_matrix(seq_len: int, pool_size: int, device: torch.device,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """The averaging matrix on `device` in `dtype`, copied there once (a
+    normal tensor even when first asked for under inference mode)."""
+    with torch.inference_mode(False):
+        mat = torch.from_numpy(adaptive_pool_matrix(seq_len, pool_size).copy())
+        return mat.to(device=device, dtype=dtype)
+
+
 def adaptive_avg_pool1d(x: torch.Tensor, pool_size: int) -> torch.Tensor:
     """(batch, L, d) -> (batch, pool_size, d); the matrix is cast to x's dtype."""
     seq_len = x.shape[1]
     if pool_size == seq_len:
         return x
-    mat = torch.from_numpy(adaptive_pool_matrix(seq_len, pool_size).copy())
-    return torch.matmul(mat.to(device=x.device, dtype=x.dtype), x)
+    return torch.matmul(_device_pool_matrix(seq_len, pool_size, x.device, x.dtype), x)

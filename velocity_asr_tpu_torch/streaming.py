@@ -1,0 +1,522 @@
+"""Chunked streaming transcription, greedy (mirrors velocity_asr_tpu/streaming.py).
+
+    st = StreamingTranscriber(model, decoder)
+    for block in audio_blocks:
+        print(st.feed(block), end="")
+    print(st.finish())
+
+- The SSM recurrence and every causal conv carry state across chunks,
+  so the local acoustic path is exact chunked evaluation (the scan's
+  carried-state kernel, ``ops/scan.py`` ``scan_fwd_state``).
+- The global context runs its SSM incrementally over each chunk's
+  summary tokens and attends over a rolling memory of the last
+  ``stream_memory_chunks`` chunks (``models/attention.py``).
+- The mel front end is incremental and on the host (``StreamingMel``,
+  numpy, as in the JAX package). Chunk c is normalised with the
+  statistics of raw frames [0, chunk c's end): the output depends only on
+  the audio and the chunk length, never on how the samples were fed.
+- Greedy CTC decoding carries its collapse state across chunks.
+- ``lookahead_chunks`` > 0 emits each chunk that many chunks late,
+  re-decoded with the statistics and global memory available by then
+  (the model's ``frozen_mem`` pass).
+
+``BatchedStreamingTranscriber`` runs a batch of utterances through the
+same chunk step for evaluation, with the same results per utterance.
+Beam search, word timestamps and confidences, the serving session
+batcher and the training graph ``streaming_forward`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .audio import HOP_LENGTH, N_FFT, N_MELS, SAMPLE_RATE, hann_window, mel_filterbank
+from .decode import BLANK_TOKEN, CTCDecoder
+from .models.model import VelocityASR, init_stream_state
+
+__all__ = ["BatchedStreamingTranscriber", "StreamingMel", "StreamingTranscriber",
+           "init_stream_state"]
+
+BEAM_NOT_PORTED = ("streaming beam search (beam_width > 1) is not ported yet "
+                   "(ROADMAP module item 3: streaming beam)")
+
+
+class StreamingMel:
+    """Incremental log-mel extraction.
+
+    Matches the offline front end except for the normalisation
+    statistics, which are cumulative-causal rather than whole-utterance.
+    The initial reflect padding is reproduced once enough samples arrive;
+    the final reflect-padded frames are emitted by finish().
+
+    Memory is bounded for arbitrarily long sessions: raw samples are kept
+    only as the short head (to build the front reflect pad), the
+    pad+1-sample tail (for finish()'s back pad), and the not-yet-framed
+    window of the padded signal; normalisation uses running sums. The raw
+    log-mel history (needed only by the lookahead re-decode) is kept
+    until the consumer calls trim_raw_mel().
+    """
+
+    def __init__(self, n_fft: int = N_FFT, hop: int = HOP_LENGTH, n_mels: int = N_MELS,
+                 sample_rate: int = SAMPLE_RATE, normalize: bool = True):
+        self.n_fft = n_fft
+        self.hop = hop
+        self.pad = n_fft // 2
+        self.normalize = normalize
+        self.window = hann_window(n_fft)
+        self.fb = mel_filterbank(n_fft, n_mels, sample_rate)
+        self._raw_len = 0  # total samples fed
+        self._head = np.zeros(0, np.float32)  # first <= pad+1 samples
+        self._tail = np.zeros(0, np.float32)  # last <= pad+1 samples
+        # rolling window of the front-padded signal; _padded_start is the
+        # absolute (padded-coordinate) sample index of _padded[0]
+        self._padded: Optional[np.ndarray] = None
+        self._padded_start = 0
+        self._next_frame = 0
+        # running normalisation statistics per mel bin
+        self._count = 0
+        self._sum = np.zeros(n_mels, np.float64)
+        self._sumsq = np.zeros(n_mels, np.float64)
+        # statistics of raw frames dropped by trim_raw_mel, so stats_at()
+        # stays exact after the history is trimmed
+        self._trim_count = 0
+        self._trim_sum = np.zeros(n_mels, np.float64)
+        self._trim_sumsq = np.zeros(n_mels, np.float64)
+        # un-normalised log-mel of frames [_raw_mel_start, ...), so the
+        # lookahead re-decode can re-normalise an older chunk with later
+        # statistics
+        self._raw_mel = np.zeros((0, n_mels), np.float32)
+        self._raw_mel_start = 0
+
+    def _frames_available(self, total_padded: int) -> int:
+        if total_padded < self.n_fft:
+            return 0
+        return 1 + (total_padded - self.n_fft) // self.hop
+
+    def _extract(self, signal: np.ndarray, start: int, count: int) -> np.ndarray:
+        """Frame and mel of `count` frames from absolute frame `start`;
+        `signal` starts at padded sample _padded_start."""
+        idx = (
+            (start + np.arange(count))[:, None] * self.hop
+            + np.arange(self.n_fft)[None, :]
+            - self._padded_start
+        )
+        frames = signal[idx] * self.window
+        spec = np.fft.rfft(frames, n=self.n_fft, axis=-1)
+        power = (spec.real**2 + spec.imag**2).astype(np.float32)
+        mel = np.log(power @ self.fb.T + 1e-10).astype(np.float32)
+        self._raw_mel = np.concatenate([self._raw_mel, mel])
+        if self.normalize:
+            self._count += mel.shape[0]
+            self._sum += mel.sum(axis=0, dtype=np.float64)
+            self._sumsq += (mel.astype(np.float64) ** 2).sum(axis=0)
+            mel = self.apply_stats(mel)
+        return mel
+
+    def current_stats(self):
+        """(mean, std) of the running per-bin statistics (fp32)."""
+        count = max(self._count, 1)
+        mean = self._sum / count
+        if self._count > 1:
+            var = (self._sumsq - count * mean**2) / (count - 1)
+            std = np.sqrt(np.maximum(var, 0.0))
+        else:
+            std = np.zeros_like(mean)
+        return mean.astype(np.float32), std.astype(np.float32)
+
+    def apply_stats(self, raw_mel: np.ndarray) -> np.ndarray:
+        """Normalise raw log-mel frames with the current running statistics."""
+        mean, std = self.current_stats()
+        return ((raw_mel - mean) / (std + 1e-10)).astype(np.float32)
+
+    @property
+    def frames_extracted(self) -> int:
+        """Mel frames extracted so far (feed and finish)."""
+        return self._next_frame
+
+    def stats_at(self, k: int):
+        """(mean, std) over raw frames [0, k): unbiased std, fp32. k past the
+        frames extracted is clamped; trimmed frames count through the
+        running sums."""
+        k = min(k, self._raw_mel_start + self._raw_mel.shape[0])
+        if k < self._raw_mel_start:
+            raise ValueError(f"stats_at({k}): raw frames before {self._raw_mel_start} "
+                             "were trimmed")
+        part = self._raw_mel[: k - self._raw_mel_start].astype(np.float64)
+        count = self._trim_count + part.shape[0]
+        s = self._trim_sum + part.sum(axis=0)
+        s2 = self._trim_sumsq + (part**2).sum(axis=0)
+        c = max(count, 1)
+        mean = s / c
+        if count > 1:
+            var = (s2 - c * mean**2) / (c - 1)
+            std = np.sqrt(np.maximum(var, 0.0))
+        else:
+            std = np.zeros_like(mean)
+        return mean.astype(np.float32), std.astype(np.float32)
+
+    def normalize_span(self, start: int, count: int, upto: int) -> np.ndarray:
+        """Frames [start, start+count) normalised with stats_at(upto): a
+        frame of chunk c uses the statistics over [0, chunk c's end)."""
+        mean, std = self.stats_at(upto)
+        return ((self.raw_frames(start, count) - mean) / (std + 1e-10)).astype(np.float32)
+
+    def raw_frames(self, start: int, count: int) -> np.ndarray:
+        """Un-normalised log-mel of frames [start, start+count)."""
+        if start < self._raw_mel_start:
+            raise ValueError(f"raw mel frames before {self._raw_mel_start} were trimmed")
+        lo = start - self._raw_mel_start
+        return self._raw_mel[lo : lo + count]
+
+    def trim_raw_mel(self, before_frame: int) -> None:
+        """Drop the raw log-mel history before `before_frame` (a live
+        session only re-decodes its lookahead window)."""
+        drop = before_frame - self._raw_mel_start
+        if drop > 0:
+            dropped = self._raw_mel[:drop].astype(np.float64)
+            self._trim_count += dropped.shape[0]
+            self._trim_sum += dropped.sum(axis=0)
+            self._trim_sumsq += (dropped**2).sum(axis=0)
+            self._raw_mel = self._raw_mel[drop:]
+            self._raw_mel_start = before_frame
+
+    def _drop_consumed(self) -> None:
+        """Drop padded-signal samples before the next frame's window."""
+        keep_from = self._next_frame * self.hop - self._padded_start
+        if keep_from > 0:
+            self._padded = self._padded[keep_from:]
+            self._padded_start += keep_from
+
+    def feed(self, samples: np.ndarray) -> np.ndarray:
+        """Append samples; return the newly available mel frames (m, n_mels)."""
+        samples = np.asarray(samples, np.float32)
+        self._raw_len += len(samples)
+        if len(samples) >= self.pad + 1:
+            self._tail = samples[-(self.pad + 1) :]
+        else:
+            self._tail = np.concatenate([self._tail, samples])[-(self.pad + 1) :]
+        if self._padded is None:
+            self._head = np.concatenate([self._head, samples])
+            if self._raw_len <= self.pad:
+                return np.zeros((0, self.fb.shape[0]), np.float32)
+            front = self._head[1 : self.pad + 1][::-1]  # reflect
+            self._padded = np.concatenate([front, self._head])
+            self._head = self._head[: self.pad + 1]
+        else:
+            self._padded = np.concatenate([self._padded, samples])
+        total = self._frames_available(self.pad + self._raw_len)
+        count = total - self._next_frame
+        if count <= 0:
+            return np.zeros((0, self.fb.shape[0]), np.float32)
+        mel = self._extract(self._padded, self._next_frame, count)
+        self._next_frame = total
+        self._drop_consumed()
+        return mel
+
+    def finish(self) -> np.ndarray:
+        """Emit the trailing frames that need the right reflect padding."""
+        if self._raw_len == 0:
+            return np.zeros((0, self.fb.shape[0]), np.float32)
+        if self._padded is None:
+            # Short utterance (no frame yet): the offline reflect padding,
+            # repeated reflection included.
+            self._padded = np.pad(self._head, (self.pad, 0), mode="reflect")
+        if self._raw_len < 2:
+            # repeated reflection of a single sample is that sample
+            back = np.full(self.pad, self._tail[-1], np.float32)
+        elif self._raw_len > self.pad:
+            back = self._tail[-(self.pad + 1) : -1][::-1]  # single reflection
+        else:
+            back = np.pad(self._tail, (0, self.pad), mode="reflect")[-self.pad :]
+        signal = np.concatenate([self._padded, back.astype(np.float32)])
+        total = 1 + self._raw_len // self.hop  # the offline frame count
+        count = total - self._next_frame
+        if count <= 0:
+            return np.zeros((0, self.fb.shape[0]), np.float32)
+        mel = self._extract(signal, self._next_frame, count)
+        self._next_frame = total
+        return mel
+
+
+def _model_device(model: VelocityASR) -> torch.device:
+    return next(model.parameters()).device
+
+
+class StreamingTranscriber:
+    """Live chunked transcription with carried model state, greedy.
+
+    feed(samples) returns the newly finalised text; finish() flushes the
+    trailing audio. Chunks are ``chunk_frames`` mel frames (even; 200 =
+    2 s); the final partial chunk is zero-padded and only its valid
+    output frames are decoded.
+
+    lookahead_chunks (default 0): delay each chunk's emission by N chunks
+    and re-decode it with its mel re-normalised by the statistics
+    available N chunks later and the global memory that by then holds
+    the N later chunks' summaries (the model's frozen_mem pass), from the
+    chunk's own entry local state. The advancing steps, and so the
+    carried state, are those of lookahead 0.
+    """
+
+    def __init__(self, model: VelocityASR, decoder: CTCDecoder, chunk_frames: int = 200,
+                 lookahead_chunks: int = 0, beam_width: int = 0):
+        if chunk_frames % 2:
+            raise ValueError(f"chunk_frames must be even, got {chunk_frames}")
+        if beam_width and beam_width > 1:
+            raise NotImplementedError(BEAM_NOT_PORTED)
+        self.model = model.eval()
+        self.decoder = decoder
+        self.chunk_frames = chunk_frames
+        self.lookahead_chunks = lookahead_chunks
+        self.device = _model_device(model)
+        self.reset()
+
+    def reset(self) -> None:
+        """Start a new session."""
+        # normalize=False: chunks are normalised at decode time with the
+        # chunk-quantised statistics (normalize_span)
+        self.mel = StreamingMel(normalize=False)
+        self._state: Optional[dict] = None
+        self._time_offset = 0
+        self._frame_cursor = 0  # absolute mel frame of the next chunk
+        self._pending: List[dict] = []
+        self._prev_token = BLANK_TOKEN
+        self._tokens: List[int] = []
+        self._emitted_text = ""
+
+    def _init_state(self) -> dict:
+        return init_stream_state(self.model.config, 1, self.device)
+
+    @torch.inference_mode()
+    def _forward(self, chunk: np.ndarray, state: dict, offset: int,
+                 frozen: bool = False):
+        """One chunk step: (per-frame argmax on the host, new state)."""
+        mel = torch.from_numpy(np.ascontiguousarray(chunk[None])).to(self.device)
+        logits, new_state = self.model(mel, stream_state=state, time_offset=offset,
+                                       return_state=True, frozen_mem=frozen)
+        lsm = torch.log_softmax(logits[0].to(torch.float32), dim=-1)
+        return lsm.argmax(dim=-1).cpu().numpy(), new_state
+
+    def _advance_chunk(self, chunk: np.ndarray, offset: int) -> np.ndarray:
+        """Run one (chunk_frames, mels) chunk through the advancing step,
+        replacing the carried state; returns its per-frame argmax."""
+        if self._state is None:
+            self._state = self._init_state()
+        preds, self._state = self._forward(chunk, self._state, offset)
+        return preds
+
+    def _decode_tokens(self, preds: np.ndarray) -> None:
+        """Greedy collapse of one chunk's argmax; the previous token
+        carries across chunks, so a run crossing a boundary emits once."""
+        for tok in preds:
+            tok = int(tok)
+            if tok != self._prev_token and tok != BLANK_TOKEN:
+                self._tokens.append(tok)
+            self._prev_token = tok
+
+    def _pending_entry(self, valid: int) -> dict:
+        """The entry (pre-advance) local state of a lookahead chunk."""
+        return {
+            "mel_carry": self._state["mel_carry"],
+            "blocks": self._state["blocks"],
+            "offset": self._time_offset,
+            "valid": valid,
+            "frame_start": self._frame_cursor,
+        }
+
+    def _emit(self, p: dict) -> None:
+        """Lookahead emission of a pending chunk: its mel re-normalised
+        with the statistics at emission time (the end of the chunk whose
+        advance triggered it, or the utterance's end in the flush), then a
+        frozen-memory pass from its entry local state."""
+        chunk = self.mel.normalize_span(p["frame_start"], p["valid"], self._frame_cursor)
+        if chunk.shape[0] < self.chunk_frames:
+            chunk = np.pad(chunk, ((0, self.chunk_frames - chunk.shape[0]), (0, 0)))
+        state = {
+            "mel_carry": p["mel_carry"],
+            "blocks": p["blocks"],
+            "gc_mem": self._state["gc_mem"],
+            "gc_blocks": self._state["gc_blocks"],
+            "gc_init": self._state["gc_init"],
+        }
+        preds, _ = self._forward(chunk, state, p["offset"], frozen=True)
+        self._decode_tokens(preds[: (p["valid"] + 1) // 2])
+
+    def _run_chunks(self, flush: bool = False) -> str:
+        while True:
+            avail = self.mel.frames_extracted - self._frame_cursor
+            if avail >= self.chunk_frames:
+                valid = self.chunk_frames
+            elif flush and avail > 0:
+                valid = avail
+            else:
+                break
+            chunk = self.mel.normalize_span(self._frame_cursor, valid,
+                                            self._frame_cursor + valid)
+            if valid < self.chunk_frames:
+                # final partial chunk: zero frames pad it to the chunk length
+                chunk = np.pad(chunk, ((0, self.chunk_frames - valid), (0, 0)))
+            if self.lookahead_chunks > 0:
+                if self._state is None:
+                    self._state = self._init_state()
+                self._pending.append(self._pending_entry(valid))
+            preds = self._advance_chunk(chunk, self._time_offset)
+            out_valid = (valid + 1) // 2  # odd valid only on the final flush
+            self._time_offset += out_valid
+            self._frame_cursor += valid
+            if self.lookahead_chunks == 0:
+                self._decode_tokens(preds[:out_valid])
+            else:
+                while len(self._pending) > self.lookahead_chunks:
+                    self._emit(self._pending.pop(0))
+        if flush:
+            while self._pending:
+                self._emit(self._pending.pop(0))
+        # raw mel is only re-read for pending chunks: trim the rest
+        oldest = self._pending[0]["frame_start"] if self._pending else self._frame_cursor
+        self.mel.trim_raw_mel(oldest)
+        text = self.decoder.tokens_to_text(self._tokens)
+        new = text[len(self._emitted_text):]
+        self._emitted_text = text
+        return new
+
+    def feed(self, samples: np.ndarray) -> str:
+        """Feed raw audio samples; returns the newly finalised text."""
+        self.mel.feed(samples)
+        return self._run_chunks()
+
+    def finish(self) -> str:
+        """Flush the trailing audio and return the remaining text."""
+        self.mel.finish()
+        return self._run_chunks(flush=True)
+
+    @property
+    def text(self) -> str:
+        return self._emitted_text
+
+
+class BatchedStreamingTranscriber:
+    """Streaming evaluation batched across utterances, greedy.
+
+    Runs ``batch_size`` independent streams through one chunk step (the
+    carried state gains a batch axis) with the per-utterance semantics of
+    StreamingTranscriber: each utterance's mel is normalised chunk by
+    chunk with the statistics over raw frames [0, chunk c's end), chunks
+    are zero-padded to the chunk length, and the greedy collapse is per
+    stream. A group smaller than the batch runs padded with silent rows,
+    and frames past an utterance's own output length are dropped, so
+    neither padding changes a transcript.
+
+    lookahead_chunks: chunk c is re-decoded (frozen-memory emit pass)
+    with the memory after chunk min(c + L, last) and its mel re-normalised
+    with the statistics over [0, (c + 1 + L) * chunk_frames), clamped to
+    the utterance: the live transcriber's emission-time statistics.
+    """
+
+    def __init__(self, model: VelocityASR, decoder: CTCDecoder, chunk_frames: int = 200,
+                 batch_size: int = 8, lookahead_chunks: int = 0, beam_width: int = 0):
+        if chunk_frames % 2:
+            raise ValueError(f"chunk_frames must be even, got {chunk_frames}")
+        if beam_width and beam_width > 1:
+            raise NotImplementedError(BEAM_NOT_PORTED)
+        self.model = model.eval()
+        self.decoder = decoder
+        self.chunk_frames = chunk_frames
+        self.batch_size = batch_size
+        self.lookahead_chunks = lookahead_chunks
+        self.device = _model_device(model)
+
+    def _causal_mel_raw(self, audio: np.ndarray):
+        """(chunk-quantised causally normalised mel, raw log-mel), frame
+        aligned."""
+        sm = StreamingMel(normalize=False)
+        raw = np.concatenate([sm.feed(audio), sm.finish()])
+        F = self.chunk_frames
+        if raw.shape[0] == 0:
+            return raw, raw
+        normed = np.concatenate([
+            self._renormalize(raw, (c + 1) * F, c * F, (c + 1) * F)
+            for c in range(-(-raw.shape[0] // F))
+        ])
+        return normed, raw
+
+    @staticmethod
+    def _renormalize(raw: np.ndarray, upto: int, lo: int = 0,
+                     hi: Optional[int] = None) -> np.ndarray:
+        """raw[lo:hi] normalised with the statistics over raw's first
+        `upto` frames (a live stream's running statistics at emission)."""
+        k = max(min(upto, raw.shape[0]), 1)
+        x = raw[:k].astype(np.float64)
+        mean = x.mean(axis=0)
+        std = x.std(axis=0, ddof=1) if k > 1 else np.zeros_like(mean)
+        seg = raw[lo:hi]
+        return ((seg - mean.astype(np.float32))
+                / (std.astype(np.float32) + 1e-10)).astype(np.float32)
+
+    def transcribe_batch(self, audios: List[np.ndarray]) -> List[str]:
+        """Transcribe a list of utterances; one text per input."""
+        texts: List[str] = []
+        for s in range(0, len(audios), self.batch_size):
+            texts.extend(self._run_group(audios[s : s + self.batch_size]))
+        return texts
+
+    @torch.inference_mode()
+    def _run_group(self, audios: List[np.ndarray]) -> List[str]:
+        n, b, F = len(audios), self.batch_size, self.chunk_frames
+        mel_raw = [self._causal_mel_raw(a) for a in audios]
+        mels = [m for m, _ in mel_raw]
+        out_frames = [(m.shape[0] + 1) // 2 for m in mels]
+        num_chunks = -(-max(m.shape[0] for m in mels) // F)
+        padded = np.zeros((b, num_chunks * F, mels[0].shape[1]), np.float32)
+        for i, m in enumerate(mels):
+            padded[i, : m.shape[0]] = m
+
+        L = self.lookahead_chunks
+        model, device = self.model, self.device
+        state = init_stream_state(model.config, b, device)
+        chunk_out = F // 2
+        pending = []  # (chunk index, entry mel_carry, entry blocks)
+        chunk_preds = []  # per chunk, (b, chunk_out) argmax token ids on the device
+
+        def step(chunk: np.ndarray, st: dict, offset: int, frozen: bool = False):
+            mel = torch.from_numpy(np.ascontiguousarray(chunk)).to(device)
+            logits, new_state = model(mel, stream_state=st, time_offset=offset,
+                                      return_state=True, frozen_mem=frozen)
+            return logits.argmax(dim=-1), new_state
+
+        def emit(c, mel_carry, blocks, stats_upto_chunk):
+            # chunk c from its entry local state, with the current memory
+            # and the statistics available at this point
+            buf = np.zeros((b, F, padded.shape[2]), np.float32)
+            for i, (_, raw) in enumerate(mel_raw):
+                seg = self._renormalize(raw, (stats_upto_chunk + 1) * F, c * F, (c + 1) * F)
+                buf[i, : seg.shape[0]] = seg
+            st = {"mel_carry": mel_carry, "blocks": blocks, "gc_mem": state["gc_mem"],
+                  "gc_blocks": state["gc_blocks"], "gc_init": state["gc_init"]}
+            chunk_preds.append(step(buf, st, c * chunk_out, frozen=True)[0])
+
+        for c in range(num_chunks):
+            if L > 0:
+                pending.append((c, state["mel_carry"], state["blocks"]))
+            preds_c, state = step(padded[:, c * F : (c + 1) * F], state, c * chunk_out)
+            if L == 0:
+                chunk_preds.append(preds_c)
+            elif len(pending) > L:
+                emit(*pending.pop(0), stats_upto_chunk=c)
+        while pending:
+            emit(*pending.pop(0), stats_upto_chunk=num_chunks - 1)
+
+        preds = torch.cat(chunk_preds, dim=1).cpu().numpy()  # (b, num_chunks * chunk_out)
+        texts = []
+        for i in range(n):
+            tokens, prev = [], BLANK_TOKEN
+            for tok in preds[i, : out_frames[i]]:
+                tok = int(tok)
+                if tok != BLANK_TOKEN and tok != prev:
+                    tokens.append(tok)
+                prev = tok
+            texts.append(self.decoder.tokens_to_text(tokens))
+        return texts

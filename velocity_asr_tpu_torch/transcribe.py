@@ -1,6 +1,7 @@
-"""Offline transcription (the offline greedy path of scripts/transcribe.py).
+"""Transcription (the greedy paths of scripts/transcribe.py).
 
-    python -m velocity_asr_tpu_torch.transcribe utt.wav --checkpoint DIR
+    python -m velocity_asr_tpu_torch.transcribe utt.wav --checkpoint DIR \
+        [--streaming [--chunk-seconds 2.0] [--lookahead N]] [--json] [--device cuda]
 
 Per utterance: reflect-pad the audio to its frame bucket (multiples of
 ``frame_bucket`` frames), round it to int16 as the JAX pipeline's wire
@@ -8,6 +9,10 @@ format does, then on the device: log-mel (CUDA kernel), per-bin
 normalisation over the valid frames only, the model, blank forced beyond
 the valid output frames, and greedy CTC decode. The global context pools
 over the padded length, so the bucketing is part of the result.
+
+``--streaming`` feeds the file chunk by chunk through a
+``streaming.StreamingTranscriber`` instead (carried model state, host mel
+with causal statistics); ``--lookahead N`` emits each chunk N chunks late.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from .decode import (CTCDecoder, create_default_vocabulary, ctc_greedy_decode_to
 from .device import resolve_device
 from .models.model import VelocityASR, from_pretrained
 from .ops.mel import compute_mel_spectrogram
+from .streaming import StreamingTranscriber
 
 
 def padded_frames(n_samples: int, frame_bucket: int = 200, hop: int = HOP_LENGTH) -> int:
@@ -115,17 +121,53 @@ def checkpoint_decoder(checkpoint: str, vocab_size: int) -> CTCDecoder:
     return CTCDecoder(create_default_vocabulary(vocab_size))
 
 
+def chunk_frames_of(chunk_seconds: float) -> int:
+    """Mel frames per streaming chunk: round(s * 100), made even."""
+    frames = round(chunk_seconds * 100)
+    return frames + frames % 2
+
+
+def transcribe_streaming(st: StreamingTranscriber, path: str) -> dict:
+    """Feed one file through a live session, one chunk of samples at a time."""
+    st.reset()
+    t0 = time.perf_counter()
+    audio = load_audio(path)
+    block = st.chunk_frames * HOP_LENGTH
+    text = "".join(st.feed(audio[i:i + block]) for i in range(0, len(audio), block))
+    text += st.finish()
+    duration = len(audio) / SAMPLE_RATE
+    return {"file": path, "text": text, "duration": duration,
+            "rtf": (time.perf_counter() - t0) / max(duration, 1e-9), "streaming": True}
+
+
 def main(argv: List[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description="Transcribe WAV files with the PyTorch port")
     parser.add_argument("audio", nargs="+", help="WAV file(s) to transcribe")
     parser.add_argument("--checkpoint", required=True, help="pretrained checkpoint dir")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--json", action="store_true", help="one JSON object per file")
+    parser.add_argument("--streaming", action="store_true",
+                        help="chunked streaming decode with carried model state")
+    parser.add_argument("--chunk-seconds", type=float, default=2.0,
+                        help="streaming chunk size in seconds")
+    parser.add_argument("--lookahead", type=int, default=0,
+                        help="streaming: emit each chunk N chunks late, re-decoded with "
+                             "the later chunks' global context and statistics")
     args = parser.parse_args(argv)
+    if args.lookahead and not args.streaming:
+        parser.error("--lookahead requires --streaming")
 
     pipeline = load_transcriber(args.checkpoint, device=args.device)
+    streamer = None
+    if args.streaming:  # one live session; each file resets it
+        streamer = StreamingTranscriber(pipeline.model, pipeline.decoder,
+                                        chunk_frames=chunk_frames_of(args.chunk_seconds),
+                                        lookahead_chunks=args.lookahead)
     for path in args.audio:
-        result = pipeline.transcribe_file(path)
+        if streamer is not None:
+            result = transcribe_streaming(streamer, path)
+        else:
+            result = pipeline.transcribe_file(path)
         print(json.dumps(result) if args.json else f"{path}\t{result['text']}")
     return 0
 
