@@ -22,7 +22,14 @@ its seconds:
      the log-mel; and both int8 dense kernels at every shape of the
      batched int8 path plus the 400-frame shapes at batch 1 and 16, one
      128-aligned shape, one off every tile and K = 1012, the widest the
-     kernels take (identical codes, output within 1e-5 of max|out|);
+     kernels take (identical codes, output within 1e-5 of max|out|); the
+     training scans at every training shape (batch 16, L = 100-400 at
+     N=64 and L = 64 at N=32, and phase 8a's batch 4 at L = 200): the
+     bounds-saving forward (y bit-equal to the no-bounds kernel's, bounds
+     within 1e-6 of the plain chunk-entry states) and the backward (dx,
+     ddt, dB, dC within 1e-5 of each output's max|ref|, dA within 1e-4,
+     two launches bit-identical), the backward also for N in {4, 8, 16,
+     32, 64, 200, 300} at batch 1 and 4 with L = 37 and 100;
   4. offline path: load checkpoints/synth_run/final_pretrained, transcribe
      every WAV through
      the port's Transcriber, and hold the WER against the JAX package's
@@ -48,8 +55,25 @@ its seconds:
      batched lookahead-0 transcripts (at least 15 of 16 identical), with
      its per-chunk step latency; two chunks of one utterance at fp32,
      card against CPU (logits and every state leaf);
-  6. (after 7, whose launch counts it reports) kernel timings beside their
-     bounds and a library call: device time from CUDA graphs of many
+  8. training: (a) one update of the checkpoint's full-width model at
+     fp32, dropout and SpecAugment off, on one batch of 4 x 400 frames,
+     card against CPU (loss within 1e-5 relative, every parameter's
+     gradient within 1e-3 of its max|grad|, but the key projection's bias,
+     whose exact gradient is 0: below 1e-5 of the largest); (b) the CLI
+     (velocity_asr_tpu_torch.train) from scratch on configs/train_synth.yaml
+     and model_synth.yaml, --synthetic 3200 --max-steps 200, bf16 with
+     SpecAugment and dropout on: every logged loss finite, the mean loss of
+     micro-steps 151-200 at most 4.5 and at most half the mean of the
+     first 10, exactly 10 bounds-forward and 20 backward launches (the
+     scan and its reduction) per micro-step and no other kernel, ms per
+     micro-step (p50, p95) per frame bucket, the host's data-wait share,
+     and the card's busy share from a torch.profiler trace of micro-steps
+     101-105 (device time by kernel); (c) the CLI fine-tunes the checkpoint for 20 micro-steps
+     (--init-from), its final_pretrained/params.msgpack reads back equal to
+     the trained weights bit for bit, and its bf16 WER over the same
+     utterances is within 0.5 point of phase 5's;
+  6. (after 7 and 8, whose launch counts it reports) kernel timings beside
+     their bounds and a library call: device time from CUDA graphs of many
      calls (what the JSON line reports), and CUDA events around eager
      calls, which include the host's launch.
 
@@ -108,6 +132,24 @@ LOGITS_FP32_MAX_ABS = 1e-2  # card against CPU, fp32 model, one utterance
 # (conv tails, scan states, global memory) after each chunk
 STATE_FP32_MAX_ABS = 1e-2
 INT8_MAX_REL = 1e-5  # max|kernel - plain| / max|plain|, with identical codes
+# the training scans against their plain versions: the bounds are the
+# forward's own states, stored (fp32, the same recurrence); the backward
+# sums in another order than the plain version (dA over every (b, t, d))
+BOUNDS_MAX_REL = 1e-6
+BWD_MAX_REL = 1e-5  # dx, ddt, dB, dC: max|kernel - plain| / max|plain|
+BWD_DA_MAX_REL = 1e-4
+# phase 8a, card against CPU, fp32: the loss, and each parameter's
+# gradient relative to its max|grad|
+TRAIN_LOSS_MAX_REL = 1e-5
+TRAIN_GRAD_MAX_REL = 1e-3
+# The key projection's bias has an exact gradient of 0 (softmax ignores a
+# shift of every key), so its computed gradient is round-off on both
+# devices and has no scale of its own to compare at: it is held below
+# this fraction of the model's largest gradient instead.
+ZERO_GRAD_PARAMS = ("global_context.cross_attention.k_proj.bias",)
+ZERO_GRAD_MAX_REL = 1e-5
+TRAIN_LOSS_BOUND = 4.5  # phase 8b: mean loss of micro-steps 151-200 at most this
+FINETUNE_WER_MAX_DIFF = 0.005  # phase 8c: within 0.5 point of phase 5's bf16 WER
 # Card against CPU, int8-dynamic model at fp32: an fp32 difference of a
 # few ulps upstream can move an activation across a rounding boundary,
 # and that code then differs by one, shifting its row's outputs by one
@@ -123,6 +165,8 @@ PEAK_FP32_OPS_PER_S = 67e12
 PEAK_INT8_OPS_PER_S = 1979e12
 
 SCAN_SOURCE = "velocity_asr_tpu_torch/csrc/scan_fwd.cu"
+SCAN_BWD_SOURCE = "velocity_asr_tpu_torch/csrc/scan_bwd.cu"
+SCAN_BWD_REPLACES = "velocity_asr_tpu/ops/scan_pallas.py:288"
 MEL_SOURCE = "velocity_asr_tpu_torch/csrc/log_mel.cu"
 INT8_SOURCE = "velocity_asr_tpu_torch/csrc/int8_dense.cu"
 SCAN_REPLACES = "velocity_asr_tpu/ops/scan_pallas.py:79"
@@ -134,6 +178,26 @@ INT8_STATIC_REPLACES = "velocity_asr_tpu/ops/int8_matmul.py:70"
 # lanes; 24 fills 3/4 of its lanes; 300: two passes of 256 states)
 SCAN_STATE_DIMS = (4, 8, 16, 24, 32, 64, 128, 200, 300)
 STATE_SCAN_DIMS = (4, 8, 16, 32, 64, 200, 300)  # the carried-state scan's widths
+BWD_SCAN_DIMS = (4, 8, 16, 32, 64, 200, 300)  # the backward's widths (64 a pass)
+
+# Training (phase 8): the recipe, its run and the scans it launches.
+TRAIN_CONFIG = os.path.join(ROOT, "configs", "train_synth.yaml")
+TRAIN_MODEL_CONFIG = os.path.join(ROOT, "configs", "model_synth.yaml")
+TRAIN_SYNTH = 3200  # train utterances
+TRAIN_STEPS = 200  # micro-steps from scratch (batch 16, accumulation 2)
+FINETUNE_STEPS = 20
+TRAIN_BATCH = 16
+CHECK_BATCH = 4  # phase 8a: 4 x 400 frames
+CHECK_FRAMES = 400
+# (batch, L, N) of the training scans: frame buckets of 200 give local
+# blocks L = 100..400 (a clip past 6 s pads to 800 frames) at N=64; the
+# global blocks pool to K1 = max(64, L // 8) = 64 at N=32; phase 8a's
+# batch 4 at 400 frames
+TRAIN_SCAN_SHAPES = sorted({(TRAIN_BATCH, f // 2, 64) for f in (200, 400, 600, 800)}
+                           | {(TRAIN_BATCH, 64, 32), (CHECK_BATCH, CHECK_FRAMES // 2, 64),
+                              (CHECK_BATCH, 64, 32)})
+SCANS_PER_STEP = 10  # 8 local + 2 global blocks
+TRAIN_TRACED = (100, 5)  # phase 8b: micro-steps 101-105 under torch.profiler
 
 
 def int8_shapes(batch: int, frames: int = 400):
@@ -234,6 +298,30 @@ def scan_cost(batch, length, d_inner, state_dim):
     return n_bytes, n_ops
 
 
+def n_chunks(length):
+    return -(-length // 16)
+
+
+def scan_bounds_cost(batch, length, d_inner, state_dim):
+    """The bounds-saving forward: the forward's bytes and operations plus
+    the bounds written once, (batch, ceil(L/16), D, N) fp32."""
+    n_bytes, n_ops = scan_cost(batch, length, d_inner, state_dim)
+    return n_bytes + 4 * batch * n_chunks(length) * d_inner * state_dim, n_ops
+
+
+def scan_bwd_cost(batch, length, d_inner, state_dim):
+    """The backward: bytes of x, dt, g (batch, L, D), B, C (batch, L, N),
+    A and the bounds read once, and dx, ddt, dB, dC, dA written once; 20
+    operations per (b, t, d, n): the decay (dt*A, exp), the state (decay*h,
+    B*u, +), the adjoint (C*g, +; lam *= decay), the decay's cotangent
+    (lam*h*decay: 2) and its sums into dA (*dt, +) and ddt (*A, +), and
+    the sums into ds (B*lam, +), dB (u*lam, +) and dC (g*h, +)."""
+    seq_d, seq_n = batch * length * d_inner, batch * length * state_dim
+    bounds = batch * n_chunks(length) * d_inner * state_dim
+    n_bytes = 4 * (5 * seq_d + 4 * seq_n + bounds + 2 * state_dim)
+    return n_bytes, 20 * batch * length * d_inner * state_dim
+
+
 def int8_cost(m, k, n):
     """Bytes (x fp32 read once, codes and channel scales read once, out
     fp32 written once) and operations per type: 2*M*N*K int8 (products
@@ -316,6 +404,37 @@ def compare_seam(rng, state_dim, batch, length=200):
     vs_plain = max(rel_err(y_seam, ref_y), rel_err(h2, ref_h), key=lambda e: e[1])
     vs_one = max(rel_err(y_seam, y_one)[1], rel_err(h2, h_one)[1])
     return vs_plain[0], vs_plain[1], vs_one
+
+
+def compare_train_scans(rng, state_dim, batch, length, forward=True):
+    """The training kernels against their plain versions on one shape:
+    (bounds forward's y bit-equal to scan_fwd's, bounds max_rel, bounds
+    max_abs) and the backward's per-output (max_abs, max_rel) and whether
+    two launches gave the same bits. forward=False checks the backward
+    only (from the plain bounds)."""
+    import torch
+
+    from velocity_asr_tpu_torch.ops.scan import (scan_bwd, scan_bwd_plain, scan_fwd,
+                                                 scan_fwd_bounds, scan_fwd_bounds_plain)
+
+    x, dt, A, B, C = scan_inputs(rng, length, state_dim, batch=batch)
+    g = torch.tensor(rng.standard_normal((batch, length, 384)).astype(np.float32),
+                     device="cuda")
+    fwd = None
+    ref_y, ref_bounds = scan_fwd_bounds_plain(x, dt, A, B, C)
+    if forward:
+        y, bounds = scan_fwd_bounds(x, dt, A, B, C)
+        y0 = scan_fwd(x, dt, A, B, C)
+        torch.cuda.synchronize()
+        b_abs, b_rel = rel_err(bounds, ref_bounds)
+        fwd = (torch.equal(y, y0), b_rel, b_abs)
+    outs = scan_bwd(x, dt, A, B, C, ref_bounds, g)
+    again = scan_bwd(x, dt, A, B, C, ref_bounds, g)
+    torch.cuda.synchronize()
+    refs = scan_bwd_plain(x, dt, A, B, C, ref_bounds, g)
+    errs = {name: rel_err(o, r) for name, o, r in zip(("dx", "ddt", "dA", "dB", "dC"), outs, refs)}
+    same = all(torch.equal(a, b) for a, b in zip(outs, again))
+    return fwd, errs, same
 
 
 def mel_inputs(rng, n_frames):
@@ -413,7 +532,8 @@ def phase_compare(plan):
 
     rng = np.random.default_rng(20261017)
     errs = dict.fromkeys(("scan_fwd_f32", "scan_fwd_state_f32", "log_mel_f32",
-                          "int8_dense_dynamic_f32", "int8_dense_static_f32"), 0.0)
+                          "int8_dense_dynamic_f32", "int8_dense_static_f32",
+                          "scan_fwd_bounds_f32", "scan_bwd_f32"), 0.0)
     for state_dim, batch, length in scan_cases(plan):
         args = scan_inputs(rng, length, state_dim, batch=batch)
         ker = scan_fwd(*args)
@@ -450,6 +570,30 @@ def phase_compare(plan):
             if not ok:
                 raise AssertionError("carried-state scan breaks across a seam")
             errs["scan_fwd_state_f32"] = max(errs["scan_fwd_state_f32"], max_abs)
+    # the training scans: every training shape (forward and backward),
+    # then the backward's widths at batch 1 and 4, L off the 16-step chunk
+    bwd_widths = {(b, length, n) for n in BWD_SCAN_DIMS for b in (1, 4) for length in (37, 100)}
+    for batch, length, state_dim in TRAIN_SCAN_SHAPES + sorted(bwd_widths):
+        training = (batch, length, state_dim) in TRAIN_SCAN_SHAPES
+        fwd, bwd, same = compare_train_scans(rng, state_dim, batch, length, forward=training)
+        worst = max(e[1] for name, e in bwd.items() if name != "dA")
+        ok = (same and math.isfinite(worst) and worst <= BWD_MAX_REL
+              and bwd["dA"][1] <= BWD_DA_MAX_REL)
+        line = (f"train scan N={state_dim} B={batch} L={length} D=384"
+                f"{' (training path)' if training else ''}: ")
+        if fwd is not None:
+            y_same, b_rel, b_abs = fwd
+            ok = ok and y_same and b_rel <= BOUNDS_MAX_REL
+            line += (f"bounds fwd y {'bit-equal to' if y_same else 'DIFFERS from'} scan_fwd, "
+                     f"bounds max_rel {b_rel:.3e} (tol {BOUNDS_MAX_REL:g}); ")
+            errs["scan_fwd_bounds_f32"] = max(errs["scan_fwd_bounds_f32"], b_abs)
+        line += ("bwd max_rel " + " ".join(f"{k} {e[1]:.2e}" for k, e in bwd.items())
+                 + f" (tol {BWD_MAX_REL:g}, dA {BWD_DA_MAX_REL:g}), two launches "
+                 f"{'bit-identical' if same else 'DIFFER'} {'ok' if ok else 'FAIL'}")
+        log(line)
+        if not ok:
+            raise AssertionError("a training scan kernel disagrees with its plain version")
+        errs["scan_bwd_f32"] = max([errs["scan_bwd_f32"]] + [e[0] for e in bwd.values()])
     mats = _device_matrices(torch.device("cuda"), 400, 80, 16000)
     for n_frames in (200, 600):
         frames, _ = mel_inputs(rng, n_frames)
@@ -696,7 +840,7 @@ def phase_batched(manifest: str, plan):
             raise AssertionError(f"[{mode}] WER {res['wer']:.4f} is more than {WER_MAX_DIFF} "
                                  f"from JAX {jax_wer:.4f}")
         out[mode] = {"counts": counts, "batches": n_batches,
-                     "bucket": buckets.most_common(1)[0][0]}
+                     "bucket": buckets.most_common(1)[0][0], "wer": res["wer"]}
 
     # int8-dynamic logits at fp32, one 400-frame batch of 4: card vs CPU
     items = [ds[i] for i in range(n) if mel_lens[i] <= 400][:4]
@@ -843,6 +987,241 @@ def phase_streaming(manifest: str, plan):
     return out
 
 
+def check_batch():
+    """Phase 8a's batch: the first CHECK_BATCH train-split utterances of at
+    most CHECK_FRAMES mel frames, padded to CHECK_FRAMES."""
+    from velocity_asr_tpu_torch.data import ASRCollator
+    from velocity_asr_tpu_torch.synth import SyntheticSpeechDataset
+
+    ds = SyntheticSpeechDataset(TRAIN_SYNTH, split="train", seed=1234)
+    items = []
+    for i in range(len(ds)):
+        item = ds[i]
+        if item["mel_spectrogram"].shape[0] <= CHECK_FRAMES:
+            items.append(item)
+        if len(items) == CHECK_BATCH:
+            break
+    batch = ASRCollator(frame_bucket=CHECK_FRAMES)(items)
+    assert batch["mel_spectrogram"].shape == (CHECK_BATCH, CHECK_FRAMES, 80)
+    return batch
+
+
+def train_card_vs_cpu():
+    """8a: the loss and every gradient of one micro-batch, card against
+    CPU, at fp32 with dropout and SpecAugment off; then one optimizer
+    update on each (its largest weight difference is reported)."""
+    import torch
+
+    from velocity_asr_tpu_torch.models.model import from_pretrained
+    from velocity_asr_tpu_torch.training import Trainer, TrainingConfig
+
+    batch = check_batch()
+    results = []
+    for device in ("cuda", "cpu"):
+        model = from_pretrained(CHECKPOINT, device=device, dtype="float32", dropout=0.0)
+        trainer = Trainer(model, TrainingConfig(learning_rate=3e-4, warmup_steps=1), iter(()))
+        model.train()
+        loss = trainer._loss(trainer._to_device(batch), None)
+        grads = torch.autograd.grad(loss, trainer.params)
+        trainer.optimizer.step(list(grads))
+        results.append((loss.item(), [g.cpu() for g in grads],
+                        [p.detach().cpu() for p in trainer.params]))
+    (loss_card, g_card, p_card), (loss_cpu, g_cpu, p_cpu) = results
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    names = [n for n, _ in from_pretrained(CHECKPOINT, device="cpu").named_parameters()]
+    top = max(g.abs().max().item() for g in g_cpu)
+    grad_rel, zero_rel = {}, {}
+    for n, a, b in zip(names, g_card, g_cpu):
+        if n in ZERO_GRAD_PARAMS:
+            zero_rel[n] = max(a.abs().max().item(), b.abs().max().item()) / top
+        else:
+            grad_rel[n] = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+    worst = sorted(grad_rel, key=grad_rel.get)[-3:][::-1]
+    upd = max((a - b).abs().max().item() for a, b in zip(p_card, p_cpu))
+    finite = all(torch.isfinite(g).all() for g in g_card) and math.isfinite(loss_card)
+    log(f"[train 8a] fp32, {CHECK_BATCH} x {CHECK_FRAMES} frames, card vs CPU: loss "
+        f"{loss_card:.6f} vs {loss_cpu:.6f} (rel {loss_rel:.3e}, tol {TRAIN_LOSS_MAX_REL:g}); "
+        f"gradients of {len(grad_rel)} parameters, max_abs / max|grad|: worst "
+        + ", ".join(f"{grad_rel[n]:.3e} ({n})" for n in worst)
+        + f" (tol {TRAIN_GRAD_MAX_REL:g}); exact-zero gradients "
+        + ", ".join(f"{n} max|grad| {v:.3e} of the largest" for n, v in zero_rel.items())
+        + f" (tol {ZERO_GRAD_MAX_REL:g}); largest gradient {top:.3e}; after one update, "
+        f"weights max_abs {upd:.3e}")
+    if not (finite and loss_rel <= TRAIN_LOSS_MAX_REL
+            and grad_rel[worst[0]] <= TRAIN_GRAD_MAX_REL
+            and all(v <= ZERO_GRAD_MAX_REL for v in zero_rel.values())):
+        raise AssertionError("training on the card disagrees with the CPU")
+
+
+def run_train_cli(ckpt_dir, argv, traced=None):
+    """velocity_asr_tpu_torch.train's main with these arguments, each
+    micro-step timed to a synchronise (frames, ms, loss, traced), and the
+    launch counts of the run. traced = (first, count): a torch.profiler
+    window over those micro-steps, whose device time by kernel is logged
+    (those steps carry the profiler's cost and are marked)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from velocity_asr_tpu_torch import train as cli
+    from velocity_asr_tpu_torch import training
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+
+    steps = []
+    step = training.Trainer._step
+    first, count = traced or (0, 0)
+    prof = count and profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                             schedule=schedule(wait=first, warmup=0, active=count, repeat=1))
+
+    def timed_step(self, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(self, batch)
+        value = loss.item()  # the step's end on the card
+        n = len(steps)
+        steps.append((batch["mel_spectrogram"].shape[1], (time.perf_counter() - t0) * 1e3,
+                      value, first <= n < first + count))
+        if count:
+            prof.step()
+        return loss
+
+    training.Trainer._step = timed_step
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        if count:
+            prof.start()
+        out = cli.main(["--config", TRAIN_CONFIG, "--model-config", TRAIN_MODEL_CONFIG,
+                        "--synthetic", str(TRAIN_SYNTH), "--checkpoint-dir", ckpt_dir,
+                        "--device", "cuda", *argv])
+    finally:
+        training.Trainer._step = step
+        if count:
+            prof.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if count:
+        report_trace(prof, steps, count)
+    return out["trainer"], steps, dict(launch_counts), wall
+
+
+def report_trace(prof, steps, count):
+    """Device time per traced micro-step, by kernel, beside the untraced
+    steps' host time: the card's busy share of a micro-step."""
+    from torch.autograd import DeviceType
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # the kernels and copies on the card (CPU operators also carry the
+    # device time of what they launched, and the ProfilerStep annotation
+    # spans the whole step on the device's timeline: either would count
+    # the kernels twice)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0
+              and not e.key.startswith("ProfilerStep")]
+    total = sum(device_us(e) for e in events) / 1e3 / count
+    launches = sum(e.count for e in events) / count
+    top = sorted(events, key=device_us, reverse=True)[:8]
+    wall = np.percentile([ms for _, ms, _, traced in steps if not traced], 50)
+    if not events:
+        log(f"[train trace] {count} micro-steps traced: the profiler recorded no device time; "
+            "the card's busy share is not measured")
+        return
+    log(f"[train trace] {count} micro-steps traced: device time {total:.3f} ms per micro-step "
+        f"over {launches:.0f} device operations, against a p50 of {wall:.3f} ms for an untraced "
+        f"micro-step (card busy {total / wall * 100:.1f}%); by kernel, ms per micro-step: "
+        + "; ".join(f"{e.key[:60]} {device_us(e) / 1e3 / count:.3f} (x{e.count / count:g})"
+                    for e in top))
+
+
+def report_steps(tag, steps, trainer, wall):
+    """ms per micro-step (p50, p95) overall and per frame bucket, traced
+    steps left out, and the host's data-wait share of the run."""
+    by_bucket = collections.defaultdict(list)
+    for frames, ms, _, traced in steps:
+        if not traced:
+            by_bucket[frames].append(ms)
+    per = "; ".join(f"{f} frames x{len(v)}: p50 {np.percentile(v, 50):.3f} ms, p95 "
+                    f"{np.percentile(v, 95):.3f} ms" for f, v in sorted(by_bucket.items()))
+    all_ms = [ms for v in by_bucket.values() for ms in v]
+    log(f"[train {tag}] {len(all_ms)} untraced micro-steps at batch {TRAIN_BATCH} "
+        f"({len(steps)} in all, {wall:.3f} s): "
+        f"p50 {np.percentile(all_ms, 50):.3f} ms, p95 {np.percentile(all_ms, 95):.3f} ms per "
+        f"micro-step; by frame bucket: {per}; host data wait {trainer.data_wait_seconds:.3f} s "
+        f"({trainer.data_wait_seconds / wall * 100:.2f}% of the run)")
+
+
+def check_train_launches(tag, counts, n_steps):
+    want = {"scan_fwd_bounds_f32": SCANS_PER_STEP * n_steps,
+            "scan_bwd_f32": 2 * SCANS_PER_STEP * n_steps}
+    log(f"[train {tag}] launches {counts}, planned {want} ({SCANS_PER_STEP} bounds forwards "
+        f"and {SCANS_PER_STEP} backwards of 2 launches per micro-step)")
+    if counts != want:
+        raise AssertionError(f"[train {tag}] launches {counts}, expected {want}")
+
+
+def phase_training(manifest, batched):
+    """8a card against CPU, 8b from scratch through the CLI, 8c fine-tune
+    through the CLI and evaluate; returns 8b's launch counts."""
+    import torch
+
+    from velocity_asr_tpu_torch import evaluate as ev
+    from velocity_asr_tpu_torch.checkpoint import params_from_numpy, read_params
+    from velocity_asr_tpu_torch.data import ASRCollator
+    from velocity_asr_tpu_torch.models.model import from_pretrained
+    from velocity_asr_tpu_torch.transcribe import checkpoint_decoder
+
+    train_card_vs_cpu()
+    tmp = tempfile.mkdtemp(prefix="velocity_asr_train_")
+    try:
+        # 8b: from scratch, the recipe as the CLI runs it
+        trainer, steps, counts, wall = run_train_cli(
+            os.path.join(tmp, "scratch"), ["--max-steps", str(TRAIN_STEPS)], TRAIN_TRACED)
+        losses = [loss for _, _, loss, _ in steps]
+        with open(os.path.join(tmp, "scratch", "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        late, first = np.mean(losses[150:200]), np.mean(losses[:10])
+        log(f"[train 8b] loss: first 10 mean {first:.4f}, micro-steps 151-200 mean {late:.4f} "
+            f"(bound {TRAIN_LOSS_BOUND:g} and half the first 10's); metrics.jsonl "
+            + ", ".join(f"step {r['step']} loss {r['loss']:.4f} lr {r['lr']:.3e}"
+                        for r in logged))
+        report_steps("8b", steps, trainer, wall)
+        check_train_launches("8b", counts, TRAIN_STEPS)
+        if not (all(math.isfinite(v) for v in losses + [r["loss"] for r in logged])
+                and len(logged) == TRAIN_STEPS // 50 and len(losses) == TRAIN_STEPS):
+            raise AssertionError("[train 8b] a loss is not finite or a step is missing")
+        if not (late <= TRAIN_LOSS_BOUND and late <= first / 2):
+            raise AssertionError(f"[train 8b] micro-steps 151-200 mean loss {late:.4f}")
+
+        # 8c: fine-tune the checkpoint, save, load and evaluate
+        out_dir = os.path.join(tmp, "finetune")
+        ft, ft_steps, ft_counts, ft_wall = run_train_cli(
+            out_dir, ["--init-from", CHECKPOINT, "--max-steps", str(FINETUNE_STEPS)])
+        report_steps("8c", ft_steps, ft, ft_wall)
+        check_train_launches("8c", ft_counts, FINETUNE_STEPS)
+        pretrained = os.path.join(out_dir, "final_pretrained")
+        back = params_from_numpy(read_params(os.path.join(pretrained, "params.msgpack")))
+        trained = {k: v.cpu() for k, v in ft.model.state_dict().items()}
+        same = set(back) == set(trained) and all(torch.equal(back[k], trained[k])
+                                                 for k in trained)
+        model = from_pretrained(pretrained, device="cuda")
+        ds, n = ev.load_test_set(manifest)
+        res = ev.evaluate(model, checkpoint_decoder(pretrained, model.config.vocab_size), ds,
+                          n, ASRCollator(frame_bucket=FRAME_BUCKET, target_bucket=1), BATCH)
+        base = batched["bf16"]["wer"]
+        log(f"[train 8c] params.msgpack read back {'equals' if same else 'DIFFERS from'} the "
+            f"trained weights; fine-tuned {FINETUNE_STEPS} micro-steps, bf16 WER "
+            f"{res['wer'] * 100:.4f}% CER {res['cer'] * 100:.4f}% over {n} utterances against "
+            f"phase 5's {base * 100:.4f}% (tol {FINETUNE_WER_MAX_DIFF * 100:g} point)")
+        if not same:
+            raise AssertionError("[train 8c] the saved params differ from the trained ones")
+        if abs(res["wer"] - base) > FINETUNE_WER_MAX_DIFF:
+            raise AssertionError(f"[train 8c] WER {res['wer']:.4f} vs phase 5's {base:.4f}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"counts": counts, "steps": TRAIN_STEPS}
+
+
 def time_int8(rng, m, k, n):
     """Times of both int8 kernels, their plain version and torch._int_mm
     (int8 x int8 -> int32 on pre-quantized operands, where its shape rules
@@ -874,13 +1253,15 @@ def time_int8(rng, m, k, n):
     return times
 
 
-def phase_timing(counts, bucket: int, errs, batched, streaming):
+def phase_timing(counts, bucket: int, errs, batched, streaming, training):
     import torch
 
     from velocity_asr_tpu_torch.audio import mel_filterbank
     from velocity_asr_tpu_torch.ops.mel import _device_matrices, log_mel, log_mel_plain
     from velocity_asr_tpu_torch.ops.pooling import pool_size_level1
-    from velocity_asr_tpu_torch.ops.scan import scan_fwd, scan_fwd_plain, scan_fwd_state
+    from velocity_asr_tpu_torch.ops.scan import (scan_bwd, scan_bwd_plain, scan_fwd,
+                                                 scan_fwd_bounds, scan_fwd_bounds_plain,
+                                                 scan_fwd_plain, scan_fwd_state)
 
     rng = np.random.default_rng(7)
     local_len = bucket // 2
@@ -923,6 +1304,35 @@ def phase_timing(counts, bucket: int, errs, batched, streaming):
     state_launches = sum(per_run.values())
     log(f"state scan launches on the streaming path: {state_launches} (per run: lookahead "
         f"0, lookahead 1, live: {per_run})")
+
+    # the training scans at the recipe's main shapes: local blocks at batch
+    # 16 and 600 frames (L = 300, N = 64), global blocks (L = 64, N = 32)
+    train_rows = {}
+    for state_dim, length in ((64, 300), (32, 64)):
+        x, dt, A, B, C = scan_inputs(rng, length, state_dim, batch=TRAIN_BATCH)
+        g = torch.tensor(rng.standard_normal((TRAIN_BATCH, length, 384)).astype(np.float32),
+                         device="cuda")
+        _, bounds = scan_fwd_bounds(x, dt, A, B, C)
+        cases = {
+            "scan_fwd_bounds_f32": (lambda: scan_fwd_bounds(x, dt, A, B, C),
+                                    lambda: scan_fwd_bounds_plain(x, dt, A, B, C),
+                                    scan_bounds_cost),
+            "scan_bwd_f32": (lambda: scan_bwd(x, dt, A, B, C, bounds, g),
+                             lambda: scan_bwd_plain(x, dt, A, B, C, bounds, g), scan_bwd_cost),
+        }
+        for name, (kernel, plain, cost) in cases.items():
+            ms = graph_time_ms(kernel, iters=20)
+            eager = cuda_time_ms(kernel, iters=20)
+            plain_ms = graph_time_ms(plain, iters=2)
+            b_ms, b_by = bound_ms(*cost(TRAIN_BATCH, length, 384, state_dim))
+            log(f"time {name} N={state_dim} L={length} B={TRAIN_BATCH} D=384 (device, CUDA "
+                f"graph): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+                f"({b_by}); eager (host launch included) {eager:.4f} ms")
+            train_rows.setdefault(name, (ms, plain_ms, b_ms, b_by))
+    t_counts = training["counts"]
+    log(f"training launches over {training['steps']} micro-steps (phase 8b): {t_counts}; per "
+        f"micro-step: bounds forward {t_counts.get('scan_fwd_bounds_f32', 0) / training['steps']:g}"
+        f", backward {t_counts.get('scan_bwd_f32', 0) / training['steps']:g} (2 per scan)")
 
     frames, padded = mel_inputs(rng, bucket)
     mats = _device_matrices(torch.device("cuda"), 400, 80, 16000)
@@ -989,6 +1399,14 @@ def phase_timing(counts, bucket: int, errs, batched, streaming):
          "bound_ms": mb_ms, "bound_by": mb_by, "library_ms": lib_ms},
         int8_entry("int8_dense_dynamic_f32", INT8_DYNAMIC_REPLACES, "int8", "dynamic"),
         int8_entry("int8_dense_static_f32", INT8_STATIC_REPLACES, "int8_static", "static"),
+    ] + [
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": t_counts.get(name, 0), "max_abs_err": errs[name],
+         "ms": train_rows[name][0], "plain_ms": train_rows[name][1],
+         "bound_ms": train_rows[name][2], "bound_by": train_rows[name][3], "library_ms": None}
+        for name, source, replaces in (
+            ("scan_fwd_bounds_f32", SCAN_SOURCE, SCAN_REPLACES),
+            ("scan_bwd_f32", SCAN_BWD_SOURCE, SCAN_BWD_REPLACES))
     ]}
 
 
@@ -1021,8 +1439,11 @@ def main(argv=None) -> int:
         batched = run_phase("5 batched int8 path", lambda: phase_batched(manifest, plan), t_start)
         streaming = run_phase(
             "7 streaming path", lambda: phase_streaming(manifest, plan), t_start)
+        training = run_phase(
+            "8 training", lambda: phase_training(manifest, batched), t_start)
         kernels = run_phase(
-            "6 timing", lambda: phase_timing(counts, bucket, errs, batched, streaming), t_start)
+            "6 timing",
+            lambda: phase_timing(counts, bucket, errs, batched, streaming, training), t_start)
     except PhaseFailed as e:
         print(f"chip_smoke: phase {e} failed", file=sys.stderr)
         return 1

@@ -1,4 +1,5 @@
-"""The PyTorch port imports neither JAX, flax, msgpack nor the JAX package."""
+"""The PyTorch port imports neither JAX, flax, msgpack, optax, PyYAML nor the
+JAX package."""
 
 import ast
 import os
@@ -9,7 +10,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "velocity_asr_tpu_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "optax", "velocity_asr_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "optax", "yaml", "velocity_asr_tpu"}
 
 
 def _port_files():
@@ -49,6 +50,17 @@ def test_no_forbidden_import_statement(path):
 def test_batched_int8_modules_are_checked(module):
     """The evaluation and int8 modules are among those both checks above
     and below walk."""
+    assert module in _modules()
+
+
+@pytest.mark.parametrize("module", [
+    "velocity_asr_tpu_torch.augment", "velocity_asr_tpu_torch.config",
+    "velocity_asr_tpu_torch.train", "velocity_asr_tpu_torch.training",
+    "velocity_asr_tpu_torch.synth", "velocity_asr_tpu_torch.checkpoint",
+    "velocity_asr_tpu_torch.ops.scan", "velocity_asr_tpu_torch.models.model",
+])
+def test_training_modules_are_checked(module):
+    """The training modules are among those both checks walk."""
     assert module in _modules()
 
 

@@ -6,7 +6,9 @@ batched evaluation over a manifest (``evaluate.py``), optionally with
 int8 projections (int8 dense CUDA kernels, ``quantize.py``); and greedy
 chunked streaming (``streaming.py``: a live ``StreamingTranscriber`` and
 the batched ``BatchedStreamingTranscriber``), whose SSM blocks run the
-carried-state scan kernel every chunk.
+carried-state scan kernel every chunk; and training of the offline CTC
+objective (``train.py``, ``training.Trainer``), whose SSM blocks run the
+bounds-saving scan forward and the scan backward kernels.
 Nothing here imports JAX or the JAX package.
 """
 

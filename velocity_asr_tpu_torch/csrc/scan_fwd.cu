@@ -1,9 +1,12 @@
-// Selective-scan forward for the SSM blocks, offline and streaming.
+// Selective-scan forward for the SSM blocks: offline, streaming and the
+// forward half of training.
 //
-// Replaces: velocity_asr_tpu/ops/scan_pallas.py `_make_fwd_kernel`
-// (save_bounds=False), both with_state=False, launched by
-// `_pallas_scan_fwd` (entry `scan_fwd_f32`), and with_state=True,
-// launched by `_pallas_scan_fwd_state` (entry `scan_fwd_state_f32`).
+// Replaces: velocity_asr_tpu/ops/scan_pallas.py `_make_fwd_kernel`:
+// save_bounds=False with with_state=False, launched by `_pallas_scan_fwd`
+// (entry `scan_fwd_f32`); save_bounds=False with with_state=True,
+// launched by `_pallas_scan_fwd_state` (entry `scan_fwd_state_f32`); and
+// save_bounds=True with with_state=False, launched by `_pallas_scan_fwd`
+// under the training VJP (entry `scan_fwd_bounds_f32`).
 //
 // Computes, in fp32, per batch element b and channel d:
 //   h[t] = exp(dt[t,d] * A) * h[t-1] + B[t] * (dt[t,d] * x[t,d])
@@ -14,6 +17,14 @@
 // the JAX oracle's carry (the Pallas kernel's (batch, N, D) is its VMEM
 // choice; the JAX wrapper swaps it back). The D*x skip is added by the
 // caller, as on the TPU.
+//
+// The training entry also stores the state entering every chunk of
+// kTrainChunk = 16 steps (the JAX TRAIN_CHUNK), bounds[b, c] = h[16c - 1]
+// (zeros for chunk 0), as (batch, ceil(L/16), D, N) fp32: the residuals
+// from which scan_bwd.cu recomputes each chunk's states. A last chunk
+// shorter than 16 steps needs no padding: its entry state is stored like
+// any other. The bounds add batch * ceil(L/16) * D * N * 4 bytes of
+// writes (30 MB at (16, 300, 384, 64), more than x, dt and y together).
 //
 // What bounds it on an H100: not bytes and not FLOPs but the serial chain
 // over t. At the main path's shapes (batch 1, D=384, L=100..300) the
@@ -48,16 +59,18 @@
 namespace {
 
 constexpr int kThreads = 64;  // threads per block
+constexpr int kTrainChunk = 16;  // steps between saved bounds (TRAIN_CHUNK)
 
 // G lanes share one channel, S states per lane; kWithState seeds h from
-// h0 and stores h_final (both (batch, D, N)), else h starts at 0.
-template <int G, int S, bool kWithState>
+// h0 and stores h_final (both (batch, D, N)), else h starts at 0;
+// kSaveBounds stores the state entering every kTrainChunk steps.
+template <int G, int S, bool kWithState, bool kSaveBounds>
 __global__ void __launch_bounds__(kThreads) scan_fwd_kernel(
     const float* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ Bm,
     const float* __restrict__ Cm, const float* __restrict__ h0,
-    float* __restrict__ y, float* __restrict__ h_final, int L, int D,
-    int N) {
+    float* __restrict__ y, float* __restrict__ h_final,
+    float* __restrict__ bounds, int L, int D, int N) {
   constexpr int NP = G * S;  // states per pass
   // Time steps staged per tile: 32, fewer for the widest passes, so that
   // B and C stay within 16 KB of static shared memory.
@@ -111,6 +124,20 @@ __global__ void __launch_bounds__(kThreads) scan_fwd_kernel(
       __syncthreads();
 
       for (int tt = 0; tt < steps; ++tt) {
+        if constexpr (kSaveBounds) {
+          const int t = t0 + tt;
+          if (t % kTrainChunk == 0 && d < D) {
+            // (batch, ceil(L/16), D, N): lane g's states are neighbours
+            const int n_chunks = (L + kTrainChunk - 1) / kTrainChunk;
+            float* bound = bounds + ((static_cast<size_t>(b) * n_chunks +
+                                      t / kTrainChunk) * D + d) * N + n0;
+#pragma unroll
+            for (int j = 0; j < S; ++j) {
+              const int n = j * G + g;
+              if (n < live) bound[n] = h[j];
+            }
+          }
+        }
         const float delta = s_dt[tt][c];
         const float u = delta * s_x[tt][c];
         float acc = 0.f;
@@ -144,15 +171,15 @@ __global__ void __launch_bounds__(kThreads) scan_fwd_kernel(
   }
 }
 
-template <int G, int S, bool kWithState>
+template <int G, int S, bool kWithState, bool kSaveBounds>
 cudaError_t launch(const float* x, const float* dt, const float* A,
                    const float* B, const float* C, const float* h0, float* y,
-                   float* h_final, int batch, int L, int D, int N,
-                   cudaStream_t stream) {
+                   float* h_final, float* bounds, int batch, int L, int D,
+                   int N, cudaStream_t stream) {
   constexpr int kChannels = kThreads / G;
   dim3 grid((D + kChannels - 1) / kChannels, batch);
-  scan_fwd_kernel<G, S, kWithState><<<grid, kThreads, 0, stream>>>(
-      x, dt, A, B, C, h0, y, h_final, L, D, N);
+  scan_fwd_kernel<G, S, kWithState, kSaveBounds><<<grid, kThreads, 0, stream>>>(
+      x, dt, A, B, C, h0, y, h_final, bounds, L, D, N);
   return cudaGetLastError();
 }
 
@@ -160,14 +187,15 @@ cudaError_t launch(const float* x, const float* dt, const float* A,
 // and passes of 256 states beyond that. N = 16, 32 and 64 (the repo's
 // model configs) fill their lanes exactly. Returns cudaErrorInvalidValue
 // for an empty or negative size and otherwise the launch's error code.
-template <bool kWithState>
+template <bool kWithState, bool kSaveBounds>
 cudaError_t dispatch(const float* x, const float* dt, const float* A,
                      const float* B, const float* C, const float* h0,
-                     float* y, float* h_final, int batch, int L, int D, int N,
-                     cudaStream_t stream) {
+                     float* y, float* h_final, float* bounds, int batch,
+                     int L, int D, int N, cudaStream_t stream) {
   if (batch <= 0 || L <= 0 || D <= 0 || N <= 0) return cudaErrorInvalidValue;
-#define VELOCITY_SCAN_LAUNCH(G, S) \
-  launch<G, S, kWithState>(x, dt, A, B, C, h0, y, h_final, batch, L, D, N, stream)
+#define VELOCITY_SCAN_LAUNCH(G, S)                                          \
+  launch<G, S, kWithState, kSaveBounds>(x, dt, A, B, C, h0, y, h_final,     \
+                                        bounds, batch, L, D, N, stream)
   if (N <= 4) return VELOCITY_SCAN_LAUNCH(1, 4);
   if (N <= 8) return VELOCITY_SCAN_LAUNCH(1, 8);
   if (N <= 16) return VELOCITY_SCAN_LAUNCH(2, 8);
@@ -185,8 +213,8 @@ extern "C" cudaError_t scan_fwd_f32(const float* x, const float* dt,
                                     const float* A, const float* B,
                                     const float* C, float* y, int batch,
                                     int L, int D, int N, cudaStream_t stream) {
-  return dispatch<false>(x, dt, A, B, C, nullptr, y, nullptr, batch, L, D, N,
-                         stream);
+  return dispatch<false, false>(x, dt, A, B, C, nullptr, y, nullptr, nullptr,
+                                batch, L, D, N, stream);
 }
 
 // The streaming scan: h[-1] = h0, h_final = h[L-1]; h0 and h_final are
@@ -197,6 +225,17 @@ extern "C" cudaError_t scan_fwd_state_f32(const float* x, const float* dt,
                                           float* y, float* h_final, int batch,
                                           int L, int D, int N,
                                           cudaStream_t stream) {
-  return dispatch<true>(x, dt, A, B, C, h0, y, h_final, batch, L, D, N,
-                        stream);
+  return dispatch<true, false>(x, dt, A, B, C, h0, y, h_final, nullptr, batch,
+                               L, D, N, stream);
+}
+
+// The training forward: h[-1] = 0, and bounds (batch, ceil(L/16), D, N)
+// fp32 receives the state entering each 16-step chunk (chunk 0: zeros).
+extern "C" cudaError_t scan_fwd_bounds_f32(const float* x, const float* dt,
+                                           const float* A, const float* B,
+                                           const float* C, float* y,
+                                           float* bounds, int batch, int L,
+                                           int D, int N, cudaStream_t stream) {
+  return dispatch<false, true>(x, dt, A, B, C, nullptr, y, nullptr, bounds,
+                               batch, L, D, N, stream);
 }

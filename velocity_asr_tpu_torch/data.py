@@ -1,21 +1,26 @@
-"""Evaluation data pipeline (mirrors velocity_asr_tpu/data.py, host-mel path).
+"""Data pipeline (mirrors velocity_asr_tpu/data.py, host-mel path).
 
 ``ASRDataset`` reads a JSONL manifest and computes each item's log-mel on
 the host (numpy, normalised over the utterance); ``ASRCollator`` pads a
 batch to a multiple of ``frame_bucket`` frames with ``mel_pad_value``, so
 batch shapes repeat; ``calibration_batches`` draws the mel batches that
 calibrate static int8 scales. The global context pools over the padded
-length, so the padding is part of every result. Raw-audio (device-mel)
-items, language labels and the training loader are not ported yet.
+length, so the padding is part of every result. ``DataLoader`` batches a
+dataset for training on ``torch.utils.data.DataLoader`` worker processes
+(shuffled from an explicit generator, a new order each epoch) and
+``cycle`` repeats it. Raw-audio (device-mel) items and language labels
+are not ported yet.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
+import torch
+import torch.utils.data
 
 from .audio import SAMPLE_RATE, compute_mel_spectrogram_np, load_audio
 
@@ -134,6 +139,62 @@ class ASRCollator:
             "target_lengths": target_lengths,
             "texts": texts,
         }
+
+
+class DataLoader:
+    """Collated batches of a dataset, in worker processes.
+
+    Each epoch shuffles (when `shuffle`) with a ``torch.Generator`` seeded
+    by ``seed + epoch``, so a run's order is fixed by its seed; items are
+    loaded by `num_workers` processes (0: in this process) and collated by
+    `collate_fn` (default ``ASRCollator()``), `prefetch` batches ahead per
+    worker. `drop_last` drops a final short batch.
+    """
+
+    def __init__(self, dataset, batch_size: int = 8, shuffle: bool = True,
+                 num_workers: int = 4, collate_fn: Optional[Callable] = None,
+                 drop_last: bool = False, seed: int = 0, prefetch: int = 2):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_workers = max(num_workers, 0)
+        self.collate_fn = collate_fn or ASRCollator()
+        self.drop_last = drop_last
+        self.seed = seed
+        self.prefetch = prefetch
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        generator = torch.Generator().manual_seed(self.seed + self._epoch)
+        self._epoch += 1
+        if len(self) == 0:
+            return
+        workers = min(self.num_workers, len(self))
+        loader = torch.utils.data.DataLoader(
+            self.dataset, batch_size=self.batch_size, shuffle=self.shuffle,
+            generator=generator, num_workers=workers, collate_fn=self.collate_fn,
+            drop_last=self.drop_last,
+            prefetch_factor=self.prefetch if workers else None,
+        )
+        yield from loader
+
+
+def cycle(loader: DataLoader) -> Iterator[Dict[str, Any]]:
+    """Repeat a loader forever; raise if one pass yields nothing (nothing
+    to train on)."""
+    while True:
+        n = 0
+        for batch in loader:
+            n += 1
+            yield batch
+        if n == 0:
+            raise RuntimeError(
+                "DataLoader yielded no batches (empty dataset after filtering, or "
+                "fewer samples than one batch with drop_last): nothing to train on")
 
 
 def calibration_batches(ds: Any, collator: ASRCollator, batch_size: int, num_batches: int,

@@ -5,6 +5,8 @@ Pool sizes follow the (bucketed) sequence length; pooling is an
 averaging matmul (ops/pooling.py). The cross-attention is small (<= 64
 keys) and runs as plain matmuls with the softmax in fp32. With int8 set,
 the ten projections here are int8 Dense layers (``layers.quant_dense``).
+In training mode the attention weights and the global SSM's blocks apply
+dropout, their masks drawn from the ``rng`` passed in.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.pooling import adaptive_avg_pool1d, pool_size_level1, pool_size_level2
-from .layers import LayerNorm, quant_dense, quant_mode
+from .layers import Dropout, LayerNorm, quant_dense, quant_mode
 from .ssm import GlobalSSM
 
 
@@ -48,11 +50,12 @@ class AdaptivePool(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Cross-attention with reduced attention dim: softmax(q k^T / sqrt(hd)) v."""
+    """Cross-attention with reduced attention dim: softmax(q k^T / sqrt(hd)) v,
+    dropout on the attention weights."""
 
     def __init__(self, d_model: int = 192, num_heads: int = 4, attention_dim: int = 48,
                  dtype: torch.dtype = torch.float32, int8: bool = False,
-                 int8_static: bool = False):
+                 int8_static: bool = False, dropout: float = 0.0):
         super().__init__()
         if attention_dim % num_heads:
             raise ValueError(
@@ -66,8 +69,10 @@ class MultiHeadAttention(nn.Module):
         self.k_proj = quant_dense(mode, d_model, attention_dim, dtype, static=int8_static)
         self.v_proj = quant_dense(mode, d_model, attention_dim, dtype, static=int8_static)
         self.out_proj = quant_dense(mode, attention_dim, d_model, dtype, static=int8_static)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor):
+    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+                rng: torch.Generator | None = None):
         batch, q_len, _ = query.shape
         kv_len = key.shape[1]
         hd = self.attention_dim // self.num_heads
@@ -80,6 +85,7 @@ class MultiHeadAttention(nn.Module):
         v = heads(self.v_proj(value), kv_len)
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
         attn = torch.softmax(scores.to(torch.float32), dim=-1).to(self.dtype)
+        attn = self.dropout(attn, rng)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(batch, q_len, self.attention_dim)
         return self.out_proj(out)
 
@@ -121,21 +127,23 @@ class HierarchicalGlobalContext(nn.Module):
     def __init__(self, d_model: int = 192, num_heads: int = 4, attention_dim: int = 48,
                  global_ssm_layers: int = 2, global_ssm_state_dim: int = 32,
                  scan_mode: str = "parallel", dtype: torch.dtype = torch.float32,
-                 int8: bool = False, int8_static: bool = False):
+                 int8: bool = False, int8_static: bool = False, dropout: float = 0.0):
         super().__init__()
         q = {"int8": int8, "int8_static": int8_static}
         self.dtype = dtype
         self.pool1 = AdaptivePool(1, d_model, dtype, **q)
         self.global_ssm = GlobalSSM(d_model, global_ssm_layers, global_ssm_state_dim,
-                                    scan_mode, dtype)
+                                    scan_mode, dtype, dropout)
         self.pool2 = AdaptivePool(2, d_model, dtype, **q)
         self.norm1 = LayerNorm(d_model, dtype)
         self.norm2 = LayerNorm(d_model, dtype)
-        self.cross_attention = MultiHeadAttention(d_model, num_heads, attention_dim, dtype, **q)
+        self.cross_attention = MultiHeadAttention(d_model, num_heads, attention_dim, dtype,
+                                                  dropout=dropout, **q)
         self.fusion = GatedFusion(d_model, dtype, **q)
 
     def forward(self, local_features: torch.Tensor, summary: torch.Tensor | None = None,
-                gc_state: dict | None = None, frozen: bool = False):
+                gc_state: dict | None = None, frozen: bool = False,
+                rng: torch.Generator | None = None):
         streaming = summary is not None
         if streaming and gc_state is None:
             raise ValueError(
@@ -161,10 +169,10 @@ class HierarchicalGlobalContext(nn.Module):
                             "init": torch.ones_like(gc_state["init"])}
         else:
             x_pool1, pool_size1 = self.pool1(local_features)
-            x_ssm = self.global_ssm(x_pool1)
+            x_ssm = self.global_ssm(x_pool1, rng=rng)
         x_pool2, _ = self.pool2(x_ssm, prev_pool_size=pool_size1)
         x_pool2 = self.norm1(x_pool2)
         query = self.norm2(local_features)
-        global_context = self.cross_attention(query, x_pool2, x_pool2)
+        global_context = self.cross_attention(query, x_pool2, x_pool2, rng=rng)
         fused = self.fusion(local_features, global_context)
         return (fused, new_gc_state) if streaming else fused

@@ -5,7 +5,10 @@ Parameters are fp32. ``Dense`` casts its input, weight and bias to the
 compute dtype, as flax's ``nn.Dense(dtype=...)`` does; LayerNorms run in
 fp32 with eps 1e-5 and cast back. ``quant_dense`` builds each
 quantizable projection (attention, fusion, pooling, CTC head) as a Dense
-or an int8 Dense; QAT is not ported yet.
+or an int8 Dense; QAT is not ported yet. ``Dropout`` is flax's
+(``nn.Dropout``: keep with probability 1 - rate, scale by 1 / (1 - rate))
+in training mode, drawing its mask from a ``torch.Generator`` that the
+caller passes to each forward; in eval mode it is the identity.
 """
 
 from __future__ import annotations
@@ -57,6 +60,29 @@ def quant_dense(mode: str, in_features: int, out_features: int,
     raise NotImplementedError(f"projection mode {mode!r} is not ported yet")
 
 
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training mode, zero each element with
+    probability `rate` and scale the rest by 1 / (1 - rate), the mask drawn
+    from `rng` (a ``torch.Generator`` on x's device); the identity in eval
+    mode or at rate 0."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, rng: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if rng is None:
+            raise ValueError("dropout in training mode draws its mask from an explicit "
+                             "torch.Generator: pass rng")
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class LayerNorm(nn.LayerNorm):
     """LayerNorm in fp32 (eps 1e-5), cast back to a compute dtype."""
 
@@ -83,7 +109,10 @@ def sinusoidal_time_encoding(max_len: int, dim: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=16)
 def _time_encoding(seq_len: int, dim: int, device: torch.device) -> torch.Tensor:
-    return torch.tensor(sinusoidal_time_encoding(seq_len, dim), device=device)
+    # a normal tensor even when first asked for under inference mode, so a
+    # later training step can use the cached table under autograd
+    with torch.inference_mode(False):
+        return torch.tensor(sinusoidal_time_encoding(seq_len, dim), device=device)
 
 
 def time_encoding(time_offset: int, seq_len: int, dim: int,
@@ -174,15 +203,16 @@ class TemporalBindingLayer(nn.Module):
 
 
 class CTCOutputHead(nn.Module):
-    """LayerNorm -> Linear(vocab); dropout is off at inference."""
+    """LayerNorm -> Dropout -> Linear(vocab)."""
 
     def __init__(self, d_model: int = 192, vocab_size: int = 1000,
                  dtype: torch.dtype = torch.float32, int8: bool = False,
-                 int8_static: bool = False):
+                 int8_static: bool = False, dropout: float = 0.0):
         super().__init__()
         self.norm = LayerNorm(d_model, dtype)
+        self.dropout = Dropout(dropout)
         self.proj = quant_dense(quant_mode(int8), d_model, vocab_size, dtype,
                                 static=int8_static)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj(self.norm(x))
+    def forward(self, x: torch.Tensor, rng: torch.Generator | None = None) -> torch.Tensor:
+        return self.proj(self.dropout(self.norm(x), rng))

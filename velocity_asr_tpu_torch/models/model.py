@@ -1,10 +1,12 @@
 """VELOCITY-ASR model assembly (mirrors velocity_asr_tpu/models/model.py),
-offline and streaming inference.
+offline and streaming inference, and the offline forward of training.
 
 ``create_model`` initialises every parameter from the distributions the
 JAX package's ``init_params`` draws from; ``from_pretrained`` reads the
 JAX package's checkpoint directory (``config.json`` + flax
-``params.msgpack``) with no JAX or flax.
+``params.msgpack``) with no JAX or flax, and ``save_pretrained`` writes
+one that the JAX package's ``from_pretrained`` reads. ``module.train()``
+turns dropout on; its masks come from the generator passed as ``rng``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ..checkpoint import params_from_numpy, read_params
+from ..checkpoint import params_from_numpy, params_to_numpy, read_params, write_params
 from ..device import resolve_device
 from ..ops.pooling import adaptive_avg_pool1d
 from .attention import HierarchicalGlobalContext
@@ -47,20 +49,23 @@ class VelocityASR(nn.Module):
         self.temporal_binding = TemporalBindingLayer(cfg.mel_bins, cfg.d_model, dtype=dtype)
         self.local_ssm = LocalSSMProcessor(
             cfg.d_model, cfg.ssm_layers, cfg.ssm_state_dim, cfg.ssm_expand_ratio,
-            cfg.ssm_kernel_size, cfg.scan_mode, dtype,
+            cfg.ssm_kernel_size, cfg.scan_mode, dtype, cfg.dropout,
         )
         int8 = {"int8": cfg.int8_inference, "int8_static": cfg.int8_static}
         self.global_context = HierarchicalGlobalContext(
             cfg.d_model, cfg.attention_heads, cfg.attention_dim, cfg.global_ssm_layers,
-            cfg.global_ssm_state_dim, cfg.scan_mode, dtype, **int8,
+            cfg.global_ssm_state_dim, cfg.scan_mode, dtype, dropout=cfg.dropout, **int8,
         )
-        self.ctc_head = CTCOutputHead(cfg.d_model, cfg.vocab_size, dtype, **int8)
+        self.ctc_head = CTCOutputHead(cfg.d_model, cfg.vocab_size, dtype, dropout=cfg.dropout,
+                                      **int8)
 
     def forward(self, mel_spectrogram: torch.Tensor, stream_state: Optional[dict] = None,
                 time_offset: int = 0, return_state: bool = False, frozen_mem: bool = False,
-                return_features: bool = False):
+                return_features: bool = False, rng: Optional[torch.Generator] = None):
         """(batch, frames, mel_bins) -> fp32 logits (batch, (frames+1)//2, vocab)
-        [, features dict] offline.
+        [, features dict] offline. In training mode the offline forward
+        applies dropout with masks from `rng` (a ``torch.Generator`` on the
+        model's device); the streaming forward is inference only.
 
         Streaming (``stream_state`` given or ``return_state``): one chunk
         of an even number of frames, its first output frame at
@@ -82,11 +87,15 @@ class VelocityASR(nn.Module):
                 "frozen_mem requires a stream_state produced by at least "
                 "one advancing streaming step"
             )
+        if streaming and self.training:
+            raise NotImplementedError(
+                "training through the streaming forward is the streaming-aware "
+                "objective (ROADMAP module item 5)")
         if not streaming:
             x = self.temporal_binding(mel_spectrogram)
-            local_features = self.local_ssm(x)
-            fused_features = self.global_context(local_features)
-            logits = self.ctc_head(fused_features).to(torch.float32)
+            local_features = self.local_ssm(x, rng=rng)
+            fused_features = self.global_context(local_features, rng=rng)
+            logits = self.ctc_head(fused_features, rng=rng).to(torch.float32)
             if return_features:
                 return logits, {
                     "temporal_binding": x,
@@ -217,6 +226,21 @@ def create_model(config: Optional[VelocityASRConfig] = None, device="cuda",
 def forward(model: VelocityASR, mel: torch.Tensor, return_features: bool = False):
     """Inference forward pass (no gradients; dropout is never applied)."""
     return model(mel, return_features=return_features)
+
+
+def save_pretrained(path: str, config: VelocityASRConfig, model: nn.Module,
+                    extra: Optional[dict] = None) -> None:
+    """Write ``config.json`` ({"config": ..., **extra}) and a flax-format
+    ``params.msgpack`` of `model`'s parameters into the directory `path`:
+    what the JAX package's ``save_pretrained`` writes, so both packages'
+    ``from_pretrained`` read it."""
+    os.makedirs(path, exist_ok=True)
+    payload = {"config": config.to_dict()}
+    if extra:
+        payload.update(extra)
+    with open(os.path.join(path, CONFIG_FILE), "w") as f:
+        json.dump(payload, f, indent=2)
+    write_params(os.path.join(path, PARAMS_FILE), params_to_numpy(model))
 
 
 def from_pretrained(path: str, device="cuda", **overrides) -> VelocityASR:

@@ -4,7 +4,9 @@ offline and streaming.
 The recurrence always runs in fp32; the Dense layers run in the compute
 dtype. A streaming block carries, per stream, its last (k-1) normed
 frames (the causal conv's tail, fp32) and the scan state (batch,
-d_inner, state_dim) fp32: ``{"conv": ..., "ssm": ...}``.
+d_inner, state_dim) fp32: ``{"conv": ..., "ssm": ...}``. In training
+mode each block applies dropout after the SSM, after the FFN's GELU and
+after the FFN (the JAX sites), its masks drawn from the ``rng`` passed in.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch.nn.functional as F
 
 from ..ops.conv import causal_depthwise_conv1d
 from ..ops.scan import selective_scan
-from .layers import Dense, LayerNorm
+from .layers import Dense, Dropout, LayerNorm
 
 
 class SelectiveSSM(nn.Module):
@@ -55,11 +57,12 @@ class SelectiveSSM(nn.Module):
 
 class SSMBlock(nn.Module):
     """Pre-norm block: norm1 -> causal depthwise conv -> SelectiveSSM ->
-    +residual; norm2 -> FFN (d -> expand*d, exact GELU, -> d) -> +residual."""
+    dropout -> +residual; norm2 -> FFN (d -> expand*d, exact GELU, dropout,
+    -> d) -> dropout -> +residual."""
 
     def __init__(self, d_model: int = 192, state_dim: int = 64, expand_ratio: int = 2,
                  kernel_size: int = 4, scan_mode: str = "parallel",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.kernel_size = kernel_size
@@ -71,12 +74,14 @@ class SSMBlock(nn.Module):
         self.norm2 = LayerNorm(d_model, dtype)
         self.ffn_in = Dense(d_model, d_model * expand_ratio, dtype=dtype)
         self.ffn_out = Dense(d_model * expand_ratio, d_model, dtype=dtype)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, state: dict | None = None,
-                return_state: bool = False):
+                return_state: bool = False, rng: torch.Generator | None = None):
         """out, or (out, new state) with return_state. A passed state is
         spliced in either way: the carried conv tail goes in front of the
-        chunk, so the causal conv is exact across chunk boundaries."""
+        chunk, so the causal conv is exact across chunk boundaries. `rng`
+        draws the dropout masks in training mode."""
         h = self.norm1(x)
         if return_state and state is None:
             state = self.init_stream_state(x.shape[0], x.device)
@@ -93,8 +98,9 @@ class SSMBlock(nn.Module):
             h, ssm_final = self.ssm(h, ssm_state, return_state=True)
         else:
             h = self.ssm(h, ssm_state)
-        x = h + x
-        out = self.ffn_out(F.gelu(self.ffn_in(self.norm2(x)))) + x
+        x = self.dropout(h, rng) + x
+        h = self.dropout(F.gelu(self.ffn_in(self.norm2(x))), rng)
+        out = self.dropout(self.ffn_out(h), rng) + x
         if return_state:
             return out, {"conv": new_tail.to(torch.float32), "ssm": ssm_final}
         return out
@@ -114,16 +120,17 @@ class LocalSSMProcessor(nn.Module):
 
     def __init__(self, d_model: int = 192, num_layers: int = 8, state_dim: int = 64,
                  expand_ratio: int = 2, kernel_size: int = 4,
-                 scan_mode: str = "parallel", dtype: torch.dtype = torch.float32):
+                 scan_mode: str = "parallel", dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            SSMBlock(d_model, state_dim, expand_ratio, kernel_size, scan_mode, dtype)
+            SSMBlock(d_model, state_dim, expand_ratio, kernel_size, scan_mode, dtype, dropout)
             for _ in range(num_layers)
         )
         self.norm = LayerNorm(d_model, dtype)
 
     def forward(self, x: torch.Tensor, states: list | None = None,
-                return_state: bool = False):
+                return_state: bool = False, rng: torch.Generator | None = None):
         """out, or (out, per-block states) with return_state. Passed
         states are spliced in even when no state is asked back (running
         stateless would decode the chunk as a fresh stream)."""
@@ -131,10 +138,10 @@ class LocalSSMProcessor(nn.Module):
         for i, block in enumerate(self.layers):
             state = None if states is None else states[i]
             if return_state:
-                x, st = block(x, state, return_state=True)
+                x, st = block(x, state, return_state=True, rng=rng)
                 new_states.append(st)
             else:
-                x = block(x, state)
+                x = block(x, state, rng=rng)
         out = self.norm(x)
         return (out, new_states) if return_state else out
 
@@ -144,6 +151,7 @@ class GlobalSSM(LocalSSMProcessor):
     fixed as in the JAX package."""
 
     def __init__(self, d_model: int = 192, num_layers: int = 2, state_dim: int = 32,
-                 scan_mode: str = "parallel", dtype: torch.dtype = torch.float32):
+                 scan_mode: str = "parallel", dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__(d_model, num_layers, state_dim, expand_ratio=2, kernel_size=4,
-                         scan_mode=scan_mode, dtype=dtype)
+                         scan_mode=scan_mode, dtype=dtype, dropout=dropout)

@@ -8,7 +8,8 @@ loaded with ``ctypes``; every pointer and the stream pass as
 import, and a failed build raises.
 
 ``launch_counts`` counts the launches of each kernel: a wrapper adds one
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else (two for ``scan_bwd_f32``,
+whose C entry launches the scan and then the sum of its partials).
 """
 
 from __future__ import annotations
@@ -41,6 +42,11 @@ SIGNATURES = {
     "scan_fwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, dt, A, B, C, h0, y, h_final, batch, length, d_inner, state_dim, stream
     "scan_fwd_state_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, dt, A, B, C, y, bounds, batch, length, d_inner, state_dim, stream
+    "scan_fwd_bounds_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, dt, A, B, C, bounds, g, dx, ddt, dA, dB, dC, work, batch, length,
+    # d_inner, state_dim, stream (two launches: the scan, then its reduction)
+    "scan_bwd_f32": [_P] * 13 + [_I, _I, _I, _I, _P],
     # frames, dft_real, dft_imag, fb_t, out, n_frames, n_fft, n_freq, n_mels, stream
     "log_mel_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w_q, w_scale, out, x_q_out (or None), M, K, N, stream
@@ -70,15 +76,18 @@ class KernelLibrary:
             fn.restype = ctypes.c_int
         self.lib.kernel_error_string.argtypes = [ctypes.c_int]
         self.lib.kernel_error_string.restype = ctypes.c_char_p
+        self.lib.scan_bwd_workspace_floats.argtypes = [_I, _I, _I, _I]
+        self.lib.scan_bwd_workspace_floats.restype = ctypes.c_longlong
 
-    def launch(self, name: str, *args) -> None:
-        """Call one launcher on the current stream and raise on its error."""
+    def launch(self, name: str, *args, kernels: int = 1) -> None:
+        """Call one launcher on the current stream and raise on its error;
+        `kernels` is how many kernels the launcher starts."""
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(self.lib, name)(*args, stream)
         if rc != 0:
             msg = self.lib.kernel_error_string(rc).decode()
             raise RuntimeError(f"CUDA kernel {name} failed: {msg} (code {rc})")
-        launch_counts[name] += 1
+        launch_counts[name] += kernels
 
 
 _LIB: KernelLibrary | None = None

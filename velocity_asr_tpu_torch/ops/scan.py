@@ -13,6 +13,19 @@ dtype (a bf16 carry would degrade every later chunk).
 ``scan_fwd_state`` (carried state) are the CUDA kernel
 ``csrc/scan_fwd.cu`` on a CUDA tensor and ``scan_fwd_plain``, a loop over
 t, on a CPU tensor.
+
+Training: ``scan_fwd_bounds`` also returns the state entering every
+chunk of ``TRAIN_CHUNK`` steps, (batch, ceil(L/16), d_inner, state_dim)
+fp32 (the JAX kernel's (batch, chunks, N, d_inner), transposed to the
+port's state layout), and ``scan_bwd`` recomputes each chunk's states
+from them and runs the adjoint (``csrc/scan_fwd.cu`` and
+``csrc/scan_bwd.cu`` on CUDA tensors, ``scan_fwd_bounds_plain`` and
+``scan_bwd_plain`` on CPU tensors). ``SelectiveScanFn`` ties the two
+together as an autograd Function; ``selective_scan`` takes it whenever
+autograd records. The carried-state scan has no backward yet: under
+autograd it runs as ``CarriedStateScanFn``, whose backward raises. The
+raw wrappers refuse CUDA inputs that require grad while autograd
+records: their kernels' outputs carry no gradient.
 """
 
 from __future__ import annotations
@@ -20,6 +33,8 @@ from __future__ import annotations
 import torch
 
 from .cuda_lib import check_tensor, library
+
+TRAIN_CHUNK = 16  # steps between saved states (JAX ops/scan_pallas.py TRAIN_CHUNK)
 
 
 def scan_fwd_plain(x, dt, A, B, C, h0=None, return_state: bool = False):
@@ -42,6 +57,69 @@ def scan_fwd_plain(x, dt, A, B, C, h0=None, return_state: bool = False):
     if return_state:
         return y, h.clone() if h is h0 else h
     return y
+
+
+def scan_fwd_bounds_plain(x, dt, A, B, C):
+    """Plain version of the training forward: (y, bounds), h from 0, no
+    D*x skip. bounds[:, c] is the state entering step TRAIN_CHUNK * c
+    (zeros for c = 0), (batch, ceil(L/16), d_inner, state_dim), in x's
+    dtype."""
+    batch, length, d_inner = x.shape
+    h = torch.zeros(batch, d_inner, A.shape[0], dtype=x.dtype, device=x.device)
+    ys, bounds = [], []
+    for t in range(length):
+        if t % TRAIN_CHUNK == 0:
+            bounds.append(h)
+        h = torch.exp(dt[:, t, :, None] * A) * h + (dt[:, t] * x[:, t])[..., None] * B[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+    if not ys:
+        return torch.zeros_like(x), h.new_zeros(batch, 0, d_inner, A.shape[0])
+    return torch.stack(ys, dim=1), torch.stack(bounds, dim=1)
+
+
+def scan_bwd_plain(x, dt, A, B, C, bounds, g):
+    """Plain version of the backward: (dx, ddt, dA, dB, dC) of the scan
+    part (no D*x skip terms) for the cotangent g of y, written out as the
+    kernel computes it: chunks in reverse, each chunk's states recomputed
+    from its saved bound, then the adjoint
+
+        lam[t] = C[t] g[t] + exp(dt[t+1] A) lam[t+1]
+
+    over the chunk's steps in reverse. Works in the inputs' dtype (fp32 or
+    fp64)."""
+    batch, length, d_inner = x.shape
+    dx, ddt = torch.zeros_like(x), torch.zeros_like(x)
+    dB, dC = torch.zeros_like(B), torch.zeros_like(C)
+    dA = torch.zeros_like(A)
+    lam = torch.zeros(batch, d_inner, A.shape[0], dtype=x.dtype, device=x.device)
+    for c in reversed(range(bounds.shape[1])):
+        t0, t1 = c * TRAIN_CHUNK, min(length, (c + 1) * TRAIN_CHUNK)
+        hs = [bounds[:, c]]  # hs[i] = h[t0 + i - 1]
+        decs = []
+        for t in range(t0, t1):
+            decs.append(torch.exp(dt[:, t, :, None] * A))
+            hs.append(decs[-1] * hs[-1] + (dt[:, t] * x[:, t])[..., None] * B[:, t, None, :])
+        for t in reversed(range(t0, t1)):
+            i = t - t0
+            lam = lam + C[:, t, None, :] * g[:, t, :, None]
+            dd = lam * hs[i] * decs[i]  # dL/d(decay[t]) * decay[t]
+            ds = (lam * B[:, t, None, :]).sum(-1)
+            dx[:, t] = ds * dt[:, t]
+            ddt[:, t] = (dd * A).sum(-1) + ds * x[:, t]
+            dB[:, t] = (lam * (dt[:, t] * x[:, t])[..., None]).sum(1)
+            dC[:, t] = (hs[i + 1] * g[:, t, :, None]).sum(1)
+            dA = dA + (dd * dt[:, t, :, None]).sum((0, 1))
+            lam = lam * decs[i]
+    return dx, ddt, dA, dB, dC
+
+
+def _refuse_grad(*tensors) -> None:
+    """A kernel's output has no grad_fn: refuse, rather than drop, a
+    gradient autograd would expect through it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "the scan kernels' outputs carry no gradient: call selective_scan "
+            "(SelectiveScanFn) to differentiate through the scan")
 
 
 def _check_inputs(x, dt, A, B, C):
@@ -69,6 +147,7 @@ def scan_fwd(x, dt, A, B, C) -> torch.Tensor:
     if not x.is_cuda:
         return scan_fwd_plain(x, dt, A, B, C)
     batch, length, d_inner, state_dim = _check_inputs(x, dt, A, B, C)
+    _refuse_grad(x, dt, A, B, C)
     y = torch.empty_like(x)
     if batch == 0 or length == 0:
         return y
@@ -95,6 +174,7 @@ def scan_fwd_state(x, dt, A, B, C, h0):
     check_tensor(h0, "h0", (batch, d_inner, state_dim))
     if h0.device != x.device:
         raise ValueError(f"h0 is on {h0.device}, x on {x.device}")
+    _refuse_grad(x, dt, A, B, C, h0)
     y = torch.empty_like(x)
     if batch == 0 or length == 0:
         return y, h0.clone()
@@ -106,6 +186,95 @@ def scan_fwd_state(x, dt, A, B, C, h0):
             h_final.data_ptr(), batch, length, d_inner, state_dim,
         )
     return y, h_final
+
+
+def scan_fwd_bounds(x, dt, A, B, C):
+    """Training forward: (y, bounds), fp32, from h = 0, no D*x skip.
+
+    On CUDA tensors this launches ``scan_fwd_bounds_f32`` (y bit-equal to
+    ``scan_fwd_f32``'s); on CPU tensors it runs ``scan_fwd_bounds_plain``.
+    """
+    if not x.is_cuda:
+        return scan_fwd_bounds_plain(x, dt, A, B, C)
+    batch, length, d_inner, state_dim = _check_inputs(x, dt, A, B, C)
+    _refuse_grad(x, dt, A, B, C)
+    n_chunks = -(-length // TRAIN_CHUNK)
+    y = torch.empty_like(x)
+    bounds = torch.empty(batch, n_chunks, d_inner, state_dim, dtype=torch.float32,
+                         device=x.device)
+    if batch == 0 or length == 0:
+        return y, bounds
+    with torch.cuda.device(x.device):
+        library().launch(
+            "scan_fwd_bounds_f32", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            B.data_ptr(), C.data_ptr(), y.data_ptr(), bounds.data_ptr(),
+            batch, length, d_inner, state_dim,
+        )
+    return y, bounds
+
+
+def scan_bwd(x, dt, A, B, C, bounds, g):
+    """Backward of the no-state scan: (dx, ddt, dA, dB, dC), fp32, no D*x
+    skip terms, from the forward's inputs, its bounds and g = dLoss/dy.
+
+    On CUDA tensors this launches ``scan_bwd_f32`` (counted twice: the
+    scan and the sum of its per-block partials, deterministic); on CPU
+    tensors it runs ``scan_bwd_plain``.
+    """
+    if not x.is_cuda:
+        return scan_bwd_plain(x, dt, A, B, C, bounds, g)
+    batch, length, d_inner, state_dim = _check_inputs(x, dt, A, B, C)
+    check_tensor(bounds, "bounds", (batch, -(-length // TRAIN_CHUNK), d_inner, state_dim))
+    check_tensor(g, "g", (batch, length, d_inner))
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dA = torch.zeros_like(A)
+    if batch == 0 or length == 0:
+        return dx, ddt, dA, dB, dC
+    with torch.cuda.device(x.device):
+        lib = library()
+        work = torch.empty(lib.lib.scan_bwd_workspace_floats(batch, length, d_inner, state_dim),
+                           dtype=torch.float32, device=x.device)
+        lib.launch(
+            "scan_bwd_f32", x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), bounds.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            work.data_ptr(), batch, length, d_inner, state_dim, kernels=2,
+        )
+    return dx, ddt, dA, dB, dC
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """y = scan(x, dt, A, B, C) from h = 0 (no D*x skip), differentiable:
+    the forward saves its inputs and the chunk-entry states
+    (``scan_fwd_bounds``), the backward returns dx, ddt, dA, dB and dC
+    (``scan_bwd``). fp32 contiguous inputs, all on one device."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C):
+        y, bounds = scan_fwd_bounds(x, dt, A, B, C)
+        ctx.save_for_backward(x, dt, A, B, C, bounds)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return scan_bwd(*ctx.saved_tensors, g.contiguous())
+
+
+class CarriedStateScanFn(torch.autograd.Function):
+    """(y, h_final) = scan from h0 (no D*x skip), whose backward raises:
+    the carried-state scan has no backward kernel yet, and autograd must
+    not go on as if the scan's inputs had no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, h0):
+        return scan_fwd_state(x, dt, A, B, C, h0)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        raise NotImplementedError(
+            "the carried-state scan has no backward yet: it comes with the "
+            "streaming-aware objective (ROADMAP module item 5, kernel rows 4s/5s)")
 
 
 def selective_scan_sequential(x, dt, A, B, C, D, h0=None, return_state: bool = False):
@@ -127,17 +296,27 @@ def selective_scan(x, dt, A, B, C, D, mode: str = "parallel", h0=None,
     return_state the scan runs the carried-state kernel (h0 = 0 where none
     is given), as the JAX package's Pallas tier does; the state returned
     is fp32 (batch, d_inner, state_dim).
+
+    While autograd records and an input requires grad, the scan goes
+    through ``SelectiveScanFn`` (the training kernels on CUDA tensors,
+    their plain versions on CPU tensors). The carried-state scan has no
+    backward yet: under grad it runs as ``CarriedStateScanFn``, whose
+    backward raises.
     """
     if mode == "sequential":
         return selective_scan_sequential(x, dt, A, B, C, D, h0, return_state)
     if mode not in ("pallas", "parallel"):
         raise ValueError(f"Unknown scan mode: {mode!r}")
     args = [t.contiguous() for t in (x, dt, A, B, C)]
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C, h0)
+                                           if t is not None)
     if h0 is None and not return_state:
-        return scan_fwd(*args) + x * D
+        return (SelectiveScanFn.apply(*args) if grad else scan_fwd(*args)) + x * D
     if h0 is None:
         h0 = torch.zeros(x.shape[0], x.shape[2], A.shape[0], dtype=torch.float32,
                          device=x.device)
-    y, h_final = scan_fwd_state(*args, h0.to(torch.float32).contiguous())
+    h0 = h0.to(torch.float32).contiguous()
+    y, h_final = (CarriedStateScanFn.apply(*args, h0) if grad
+                  else scan_fwd_state(*args, h0))
     y = y + x * D
     return (y, h_final) if return_state else y

@@ -1,11 +1,13 @@
-"""Synthetic speech corpus, held-out split (a numpy copy of the parts of
-velocity_asr_tpu/synth.py that ``write_corpus`` needs).
+"""Synthetic speech corpus (a numpy copy of the parts of
+velocity_asr_tpu/synth.py that ``write_corpus`` and training need).
 
 Each character is a "phoneme" with its own spectrum; utterances add
 speaker, rate, level and noise jitter. Everything is deterministic in
 (seed, split, index), so ``write_corpus(dir, n, split="test", seed=1234)``
 regenerates the JAX package's held-out set bit for bit, and its WER
-results (checkpoints/synth_run/eval_fp32_final.json) apply to it.
+results (checkpoints/synth_run/eval_fp32_final.json) apply to it;
+``SyntheticSpeechDataset`` serves the train and dev splits as the JAX
+package's does (one language, host mel).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .audio import SAMPLE_RATE
+from .audio import SAMPLE_RATE, compute_mel_spectrogram_np
 
 VOWELS = "aeiouy"
 CHARS = "abcdefghijklmnopqrstuvwxyz"
@@ -143,6 +145,46 @@ def utterance(idx: int, split: str = "test", seed: int = 1234,
     text = sample_sentence(lexicon, _char_seed(seed, "text", split, idx), min_words, max_words)
     audio = voice.render(text, _char_seed(seed, "audio", split, idx))
     return text, audio
+
+
+class SyntheticSpeechDataset:
+    """``data.ASRDataset``-compatible corpus generated on the fly: items
+    deterministic in (seed, split, idx), bit-equal to the JAX package's
+    ``SyntheticSpeechDataset(languages=1)`` (host mel). The vocabulary is
+    the manifest datasets' rule over a-z and space: <blank>, <unk>, <pad>,
+    then the sorted characters, 30 tokens."""
+
+    def __init__(self, n_utts: int = 10000, split: str = "train", seed: int = 1234,
+                 min_words: int = 2, max_words: int = 8):
+        self.n_utts = n_utts
+        self.split = split
+        self.seed = seed
+        self.min_words = min_words
+        self.max_words = max_words
+        self.voice = SynthVoice(seed=seed)
+        self.lexicon = make_lexicon(1500, seed=seed)
+        specials = ["<blank>", "<unk>", "<pad>"]
+        self.vocab = {tok: i for i, tok in enumerate(specials + sorted(set(CHARS + " ")))}
+
+    def __len__(self) -> int:
+        return self.n_utts
+
+    def text_to_tokens(self, text: str) -> List[int]:
+        unk = self.vocab["<unk>"]
+        return [self.vocab.get(c, unk) for c in text]
+
+    def __getitem__(self, idx: int) -> Dict:
+        text, audio = utterance(idx, self.split, self.seed, self.lexicon, self.voice,
+                                self.min_words, self.max_words)
+        tokens = self.text_to_tokens(text)
+        mel = compute_mel_spectrogram_np(audio)
+        return {
+            "targets": np.asarray(tokens, np.int32),
+            "target_lengths": np.int32(len(tokens)),
+            "text": text,
+            "mel_spectrogram": mel,
+            "input_lengths": np.int32(mel.shape[0]),
+        }
 
 
 def write_corpus(out_dir: str, n_utts: int, split: str = "test", seed: int = 1234,

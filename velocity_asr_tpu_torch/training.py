@@ -1,13 +1,431 @@
-"""Error-rate metrics (the metrics of velocity_asr_tpu/training.py:940-992).
+"""Training (mirrors velocity_asr_tpu/training.py, the offline objective),
+and the error-rate metrics that evaluation uses.
 
-Training itself is not ported yet; these are what evaluation needs.
+- ``ctc_loss_per_example`` / ``ctc_loss``: torch ``nn.CTCLoss(blank=0,
+  reduction='mean', zero_infinity=True)`` semantics, with the JAX
+  package's explicit feasibility mask (T >= U + adjacent repeats).
+- ``warmup_cosine_schedule``: linear warmup, then cosine decay to 0.1 of
+  the base rate, evaluated for update k at step k + 1, with the
+  reference's ``3.14159``.
+- ``Optimizer``: what ``make_optimizer`` builds with optax, written out:
+  clip by global norm as optax clips (t / norm * max once norm reaches
+  max), AdamW (b1 0.9, b2 0.999, eps 1e-8, decoupled decay on every
+  parameter, schedule indexed by the update count) and MultiSteps
+  accumulation (the running mean of k micro-batch gradients, one update
+  per k micro-steps).
+- ``Trainer``: ``train_step`` / ``eval_step`` / ``train`` with the JAX
+  Trainer's cadence (log, eval and best model on eval loss, save with
+  keep_last rotation, metrics as JSON lines) and its checkpoint payload
+  (``torch.save`` of params and optimizer state beside a
+  ``trainer_meta.json`` with the JAX keys). The dropout and SpecAugment
+  generator of each micro-step is seeded from (seed, step), so a resumed
+  run draws what an unbroken run draws.
+
+The model's scans train through ``ops.scan.SelectiveScanFn``: on the card
+the bounds-saving forward and the backward kernels.
 """
 
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+import json
+import logging
+import os
+import re
+import shutil
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .augment import SpecAugmentConfig, spec_augment
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class TrainingConfig:
+    """Training configuration: the JAX package's fields and defaults. The
+    port trains the offline objective; a config that turns on anything
+    else makes ``Trainer`` raise (see ``Trainer.__init__``)."""
+
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.01
+    warmup_steps: int = 10000
+    max_steps: int = 80000
+    grad_clip_norm: float = 1.0
+    batch_size: int = 32
+    gradient_accumulation_steps: int = 1
+    # cosine horizon in optimizer updates; None: max_steps // accumulation
+    lr_total_steps: Optional[int] = None
+    lr_parity_horizon: bool = False  # the reference's horizon of max_steps updates
+    use_amp: bool = True  # False forces fp32 compute (applied by train.py)
+    log_interval: int = 100
+    eval_interval: int = 1000
+    save_interval: int = 5000
+    checkpoint_dir: str = "./checkpoints"
+    resume_from: Optional[str] = None
+    keep_last: int = 5
+    num_data_shards: Optional[int] = None
+    num_model_shards: int = 1
+    num_pipeline_stages: int = 1
+    pipeline_microbatches: Optional[int] = None
+    profile_dir: Optional[str] = None
+    profile_start: int = 10
+    profile_steps: int = 5
+    augment: Optional[SpecAugmentConfig] = None
+    streaming_chunks: int = 0
+    streaming_aux_weight: float = 0.5
+    lid_loss_weight: float = 0.0
+    moe_aux_weight: float = 0.01
+    metrics_path: Optional[str] = None
+
+
+# ----- loss ------------------------------------------------------------------
+
+
+def ctc_loss_per_example(logits: torch.Tensor, targets: torch.Tensor,
+                         input_lengths: torch.Tensor, target_lengths: torch.Tensor,
+                         blank_token: int = 0) -> torch.Tensor:
+    """Per-example CTC loss over fp32 log-softmax, each divided by its
+    target length (at least 1); an example with no alignment (T < U +
+    adjacent repeats) or a non-finite loss counts 0."""
+    log_probs = F.log_softmax(logits.to(torch.float32), dim=-1).transpose(0, 1)
+    targets = targets.to(torch.int64)
+    input_lengths = input_lengths.to(torch.int64)
+    target_lengths = target_lengths.to(torch.int64)
+    per_example = F.ctc_loss(log_probs, targets, input_lengths, target_lengths,
+                             blank=blank_token, reduction="none", zero_infinity=True)
+    tok = torch.arange(targets.shape[1], device=targets.device)[None, :]
+    valid = tok < target_lengths[:, None]
+    repeats = ((targets[:, 1:] == targets[:, :-1]) & valid[:, 1:]).sum(1)
+    feasible = input_lengths >= target_lengths + repeats
+    per_example = torch.where(feasible & torch.isfinite(per_example), per_example,
+                              torch.zeros_like(per_example))
+    return per_example / target_lengths.to(torch.float32).clamp_min(1.0)
+
+
+def ctc_loss(logits, targets, input_lengths, target_lengths, blank_token: int = 0):
+    """Batch mean of ``ctc_loss_per_example``."""
+    return ctc_loss_per_example(logits, targets, input_lengths, target_lengths,
+                                blank_token).mean()
+
+
+# ----- schedule and optimizer --------------------------------------------------
+
+
+def warmup_cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
+                           min_lr_ratio: float = 0.1) -> Callable[[int], float]:
+    """Learning rate of update `count` (0-indexed): linear warmup to
+    base_lr over warmup_steps, then cosine decay to min_lr_ratio * base_lr
+    at total_steps; update k uses step k + 1. Evaluated in fp32, as the
+    JAX schedule is."""
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        step = f32(count + 1)
+        warm = step / f32(max(warmup_steps, 1))
+        progress = min((step - f32(warmup_steps)) / f32(max(total_steps - warmup_steps, 1)),
+                       f32(1.0))
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(progress) * f32(3.14159)))  # the reference's pi
+        decay = f32(min_lr_ratio) + (f32(1) - f32(min_lr_ratio)) * cosine
+        return float(f32(base_lr) * (warm if step < warmup_steps else decay))
+
+    return schedule
+
+
+def lr_horizon(config: TrainingConfig) -> int:
+    """The cosine horizon in updates (JAX ``make_optimizer``)."""
+    if config.lr_total_steps is not None:
+        return config.lr_total_steps
+    if config.lr_parity_horizon:
+        return config.max_steps
+    return max(1, config.max_steps // config.gradient_accumulation_steps)
+
+
+class Optimizer:
+    """optax ``MultiSteps(chain(clip_by_global_norm(c), adamw(schedule,
+    weight_decay=w)), k)`` over a list of fp32 parameters, updated in
+    place.
+
+    ``step(grads)`` takes one micro-batch's gradients. With k > 1 it keeps
+    their running mean (acc + (g - acc) / (n + 1)) and updates on every
+    k-th call; the update clips the mean by its global norm, runs Adam
+    (bias-corrected moments), adds weight_decay * p and scales by
+    -schedule(updates so far).
+    """
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def __init__(self, params: List[torch.Tensor], config: TrainingConfig):
+        self.params = list(params)
+        self.config = config
+        self.every = max(config.gradient_accumulation_steps, 1)
+        self.schedule = warmup_cosine_schedule(config.learning_rate, config.warmup_steps,
+                                               lr_horizon(config))
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.acc = [torch.zeros_like(p) for p in self.params] if self.every > 1 else None
+        self.count = 0  # updates applied (optax's adam and schedule counts)
+        self.mini_step = 0  # micro-batches accumulated since the last update
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor]) -> bool:
+        """Take one micro-batch's gradients; True if the parameters moved.
+        Runs as a few multi-tensor (``torch._foreach_*``) launches."""
+        grads = [g.to(torch.float32) for g in grads]
+        if self.acc is not None:
+            n = self.mini_step
+            diff = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(diff, float(n + 1))
+            torch._foreach_add_(self.acc, diff)
+            if n + 1 < self.every:
+                self.mini_step = n + 1
+                return False
+            grads = [acc.clone() for acc in self.acc]
+            torch._foreach_zero_(self.acc)
+            self.mini_step = 0
+        # clip as optax does: t / norm * max once norm reaches max (no sync)
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        max_norm = torch.full((), self.config.grad_clip_norm, dtype=torch.float32,
+                              device=norm.device)
+        keep = norm < max_norm
+        one = torch.ones((), dtype=torch.float32, device=norm.device)
+        torch._foreach_div_(grads, torch.where(keep, one, norm))
+        torch._foreach_mul_(grads, torch.where(keep, one, max_norm))
+        self.count += 1
+        f32 = np.float32
+        c1 = float(f32(1) - f32(self.b1) ** f32(self.count))
+        c2 = float(f32(1) - f32(self.b2) ** f32(self.count))
+        lr = self.schedule(self.count - 1)
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, grads, alpha=1 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - self.b2)
+        denom = torch._foreach_div(self.nu, c2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        update = torch._foreach_div(self.mu, c1)
+        torch._foreach_div_(update, denom)
+        torch._foreach_add_(update, self.params, alpha=self.config.weight_decay)
+        torch._foreach_add_(self.params, update, alpha=-lr)
+        return True
+
+    def last_lr(self) -> float:
+        """The rate of the most recent update (of the first before any)."""
+        return self.schedule(max(self.count - 1, 0))
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"mu": self.mu, "nu": self.nu, "acc": self.acc, "count": self.count,
+                "mini_step": self.mini_step}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        for mine, theirs in (("mu", state["mu"]), ("nu", state["nu"]), ("acc", state["acc"])):
+            if getattr(self, mine) is None:
+                continue
+            for dst, src in zip(getattr(self, mine), theirs):
+                dst.copy_(src)
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+
+
+# ----- trainer -----------------------------------------------------------------
+
+
+def _unsupported(model_config, config: TrainingConfig) -> Optional[str]:
+    """What the port cannot train yet, with the ROADMAP item it waits on."""
+    aug = config.augment
+    checks = [
+        (getattr(model_config, "qat", False), "QAT (ROADMAP module item 6)"),
+        (getattr(model_config, "moe_experts", 0) > 0, "MoE (ROADMAP module item 8)"),
+        (getattr(model_config, "num_languages", 0) > 0 or config.lid_loss_weight > 0,
+         "the language-ID head and loss (ROADMAP module item 8)"),
+        (config.streaming_chunks > 0, "the streaming-aware objective (ROADMAP module item 5)"),
+        (getattr(model_config, "gradient_checkpointing", False),
+         "gradient checkpointing (ROADMAP module item 5)"),
+        (aug is not None and aug.enabled and (aug.noise_injection or aug.speed_perturb),
+         "noise_injection / speed_perturb, which need device_mel batches "
+         "(ROADMAP module item 2)"),
+        (config.num_model_shards > 1 or config.num_pipeline_stages > 1
+         or config.num_data_shards not in (None, 1), "parallel training (ROADMAP module item 9)"),
+        (config.profile_dir is not None, "profile_dir tracing (ROADMAP module item 5)"),
+    ]
+    return next((what for bad, what in checks if bad), None)
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The generator seed of micro-step `step` of a run seeded `seed`."""
+    return (seed * 1_000_003 + step) % (1 << 63)
+
+
+class Trainer:
+    """Training loop over the offline CTC objective (the JAX Trainer's).
+
+    `model` is a ``VelocityASR`` on its device; `train_iter` yields
+    collated numpy batches (``data.ASRCollator``); `eval_batches` returns a
+    fresh iterator of them; `seed` decides the dropout and SpecAugment
+    draws. ``train_step`` / ``eval_step`` return host floats (one sync),
+    ``train`` syncs once per log interval.
+    """
+
+    def __init__(self, model: torch.nn.Module, config: TrainingConfig,
+                 train_iter: Iterator[Dict[str, Any]],
+                 eval_batches: Optional[Callable[[], Iterator[Dict[str, Any]]]] = None,
+                 seed: int = 0):
+        why = _unsupported(model.config, config)
+        if why:
+            raise NotImplementedError(f"{why} is not ported yet")
+        self.model = model
+        self.config = config
+        self.train_iter = train_iter
+        self.eval_batches = eval_batches
+        self.seed = seed
+        self.device = next(model.parameters()).device
+        self.params = list(model.parameters())
+        self.optimizer = Optimizer(self.params, config)
+        self.global_step = 0
+        self.best_eval_loss = float("inf")
+        self.data_wait_seconds = 0.0  # time train() spent waiting for batches
+
+    # ----- steps ---------------------------------------------------------------
+
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return {key: torch.as_tensor(np.asarray(batch[key])).to(self.device)
+                for key in ("mel_spectrogram", "targets", "input_lengths", "target_lengths")}
+
+    def _loss(self, batch: Dict[str, torch.Tensor], rng: Optional[torch.Generator]):
+        mel = batch["mel_spectrogram"].to(torch.float32)
+        lengths = batch["input_lengths"]
+        aug = self.config.augment
+        if rng is not None and aug is not None and aug.enabled:
+            mel = spec_augment(mel, rng, aug, lengths)
+        logits = self.model(mel, rng=rng)
+        return ctc_loss(logits, batch["targets"], (lengths + 1) // 2, batch["target_lengths"])
+
+    def _step(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """One micro-step; returns the loss as a device tensor (no sync)."""
+        self.model.train()
+        rng = torch.Generator(device=self.device)
+        rng.manual_seed(step_seed(self.seed, self.global_step))
+        loss = self._loss(self._to_device(batch), rng)
+        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        self.optimizer.step(grads)
+        self.global_step += 1
+        return loss.detach()
+
+    def train_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
+        loss = self._step(batch)
+        return {"loss": float(loss), "lr": self.optimizer.last_lr()}
+
+    @torch.no_grad()
+    def eval_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
+        self.model.eval()
+        return {"eval_loss": float(self._loss(self._to_device(batch), None))}
+
+    def evaluate(self) -> Dict[str, float]:
+        if self.eval_batches is None:
+            return {}
+        losses = [self.eval_step(batch)["eval_loss"] for batch in self.eval_batches()]
+        if not losses:
+            # 0.0 would become the best eval loss and suppress every later
+            # best-model checkpoint
+            logger.warning("eval iterator yielded no batches; skipping eval")
+            return {"eval_loss": float("inf")}
+        return {"eval_loss": sum(losses) / len(losses)}
+
+    # ----- loop ----------------------------------------------------------------
+
+    def train(self) -> Dict[str, List[float]]:
+        cfg = self.config
+        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+        history: Dict[str, List[float]] = {"train_loss": [], "eval_loss": [], "lr": []}
+        losses: List[torch.Tensor] = []
+        t0 = time.perf_counter()
+        for step in range(self.global_step, cfg.max_steps):
+            t_wait = time.perf_counter()
+            batch = next(self.train_iter)
+            self.data_wait_seconds += time.perf_counter() - t_wait
+            losses.append(self._step(batch))
+
+            if (step + 1) % cfg.log_interval == 0:
+                avg = float(torch.stack(losses).mean())  # the interval's one sync
+                losses = []
+                lr = self.optimizer.last_lr()
+                dt = (time.perf_counter() - t0) / cfg.log_interval
+                logger.info("Step %d/%d | Loss: %.4f | LR: %.6f | %.3fs/step",
+                            step + 1, cfg.max_steps, avg, lr, dt)
+                history["train_loss"].append(avg)
+                history["lr"].append(lr)
+                if cfg.metrics_path:
+                    os.makedirs(os.path.dirname(os.path.abspath(cfg.metrics_path)),
+                                exist_ok=True)
+                    with open(cfg.metrics_path, "a") as f:
+                        f.write(json.dumps({"step": step + 1, "loss": avg, "lr": lr,
+                                            "sec_per_step": dt}) + "\n")
+                t0 = time.perf_counter()
+
+            if self.eval_batches and (step + 1) % cfg.eval_interval == 0:
+                eval_loss = self.evaluate()["eval_loss"]
+                history["eval_loss"].append(eval_loss)
+                logger.info("Eval Loss: %.4f", eval_loss)
+                if eval_loss < self.best_eval_loss:
+                    self.best_eval_loss = eval_loss
+                    self.save_checkpoint(os.path.join(cfg.checkpoint_dir, "best_model"))
+
+            if (step + 1) % cfg.save_interval == 0:
+                self.save_checkpoint(os.path.join(cfg.checkpoint_dir,
+                                                  f"checkpoint_step_{step + 1}"))
+                self._rotate_checkpoints()
+        return history
+
+    # ----- checkpoints ---------------------------------------------------------
+
+    def save_checkpoint(self, path: str) -> None:
+        """params and optimizer state (``state.pt``) and the JAX Trainer's
+        ``trainer_meta.json`` keys."""
+        path = os.path.abspath(path)
+        os.makedirs(path, exist_ok=True)
+        torch.save({"params": self.model.state_dict(),
+                    "opt_state": self.optimizer.state_dict()},
+                   os.path.join(path, "state.pt"))
+        meta = {
+            "global_step": self.global_step,
+            "best_eval_loss": self.best_eval_loss,
+            "training_config": dataclasses.asdict(self.config),
+            "model_config": self.model.config.to_dict(),
+        }
+        with open(os.path.join(path, "trainer_meta.json"), "w") as f:
+            json.dump(meta, f, indent=2)
+        logger.info("Saved checkpoint to %s", path)
+
+    def load_checkpoint(self, path: str) -> None:
+        path = os.path.abspath(path)
+        payload = torch.load(os.path.join(path, "state.pt"), map_location=self.device,
+                             weights_only=True)
+        self.model.load_state_dict(payload["params"], strict=True)
+        self.optimizer.load_state_dict(payload["opt_state"])
+        with open(os.path.join(path, "trainer_meta.json")) as f:
+            meta = json.load(f)
+        self.global_step = int(meta["global_step"])
+        self.best_eval_loss = float(meta["best_eval_loss"])
+        logger.info("Loaded checkpoint from %s (step %d)", path, self.global_step)
+
+    def _rotate_checkpoints(self) -> None:
+        """Keep the newest keep_last ``checkpoint_step_*`` directories."""
+        if self.config.keep_last <= 0:
+            return
+        pat = re.compile(r"checkpoint_step_(\d+)$")
+        entries = sorted((int(m.group(1)), name) for name in os.listdir(self.config.checkpoint_dir)
+                         if (m := pat.match(name)))
+        for _, name in entries[: -self.config.keep_last]:
+            shutil.rmtree(os.path.join(self.config.checkpoint_dir, name), ignore_errors=True)
+
+
+# ----- metrics (velocity_asr_tpu/training.py compute_wer / compute_cer) ---------
 
 
 def _edit_distance(pred: List[str], ref: List[str]) -> int:
