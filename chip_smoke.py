@@ -19,7 +19,9 @@ its seconds:
      h0 at every shape of the streaming path, for N in {4, 8, 16, 32, 64,
      200, 300} at batch 1 and 4, and across a seam (L = 200 as two
      launches of 100: against the plain version and against one launch);
-     the log-mel; and both int8 dense kernels at every shape of the
+     the log-mel on single utterances of 200 and 600 frames and at every
+     batch of the device-mel training path (4 x 600 for 9a, 8 x every
+     600-frame bucket up to 3,600 for 9b); and both int8 dense kernels at every shape of the
      batched int8 path plus the 400-frame shapes at batch 1 and 16, one
      128-aligned shape, one off every tile and K = 1012, the widest the
      kernels take (identical codes, output within 1e-5 of max|out|); the
@@ -29,7 +31,19 @@ its seconds:
      within 1e-6 of the plain chunk-entry states) and the backward (dx,
      ddt, dB, dC within 1e-5 of each output's max|ref|, dA within 1e-4,
      two launches bit-identical), the backward also for N in {4, 8, 16,
-     32, 64, 200, 300} at batch 1 and 4 with L = 37 and 100;
+     32, 64, 200, 300} at batch 1 and 4 with L = 37 and 100, and both at
+     phase 9's offline shapes (batch 8, every 600-frame bucket up to 3,600
+     frames; 9a's batch 4 at 600); the carried-state training scans
+     (rows 4s, 5s) from a random h0 and gh at every shape of phase 9's
+     streaming term ((8, 100, 384, 64), (8, 64, 384, 32), 9a's batch 4,
+     and L = 200) and for N in {4, 8, 16, 32, 64, 200, 300} at batch 1 and
+     4 with L = 37 and 100: y and h_final bit-equal to the carried-state
+     kernel's, bounds[:, 0] equal to h0 and the bounds within 1e-6 of the
+     plain chunk-entry states, dx, ddt, dB, dC and dh0 within 1e-5 of each
+     output's max|ref|, dA within 1e-4, two launches bit-identical, and
+     with h0 = gh = 0 the bits of the no-state bounds forward and
+     backward; then the gradient of a loss on y and h_final through two
+     carried launches of 50 steps against one launch of 100 (1e-5);
   4. offline path: load checkpoints/synth_run/final_pretrained, transcribe
      every WAV through
      the port's Transcriber, and hold the WER against the JAX package's
@@ -72,10 +86,32 @@ its seconds:
      (--init-from), its final_pretrained/params.msgpack reads back equal to
      the trained weights bit for bit, and its bf16 WER over the same
      utterances is within 0.5 point of phase 5's;
-  6. (after 7 and 8, whose launch counts it reports) kernel timings beside
+  9. streaming-aware fine-tuning: (a) the loss and every gradient of the
+     checkpoint at fp32, dropout and SpecAugment off, on a device-mel
+     batch of 4 x 600 frames of the train split with streaming_chunks 200
+     (the offline and the streaming term), card against CPU, as 8a; then,
+     reported only, the raw log-mel's card-vs-CPU gap on that batch and
+     the gradient gap with the CPU's mel fed to both sides, for the mixed
+     objective, the offline term alone and the streaming term alone; (b)
+     the CLI on configs/train_synth_stream.yaml + model_synth.yaml with
+     --init-from the checkpoint, --synthetic 1600 --max-steps 100 (25
+     updates inside the recipe's warmup; bf16, device mel, SpecAugment,
+     dropout): every loss finite, the mean of the 100 micro-steps in
+     [0.2, 0.5] (the JAX run's interval means: 0.279-0.369), per
+     micro-step exactly 1 log-mel, 10 bounds-forward and 20 backward
+     launches, and 10 C carried-state bounds forwards and 20 C
+     carried-state backward launches for a batch of C 200-frame chunks,
+     no other kernel; ms per micro-step per frame bucket, the data-wait
+     share and the card's busy share from a torch.profiler window over
+     micro-steps 61-65; (c) its final_pretrained/params.msgpack reads
+     back bit-equal, and its streaming WER (batched, lookahead 0) over
+     the same utterances is within 0.5 point of phase 7's;
+  6. (after 7, 8 and 9, whose launch counts it reports) kernel timings beside
      their bounds and a library call: device time from CUDA graphs of many
      calls (what the JSON line reports), and CUDA events around eager
-     calls, which include the host's launch.
+     calls, which include the host's launch; rows 4s and 5s at (8, 100,
+     384, 64) and (8, 64, 384, 32), the log-mel also at batch 8 at the
+     frame bucket 9b ran most often.
 
 The line before the last is a JSON object listing the kernels; the last
 line is {"ok": true, "device": {...}} and is printed only when every
@@ -167,6 +203,11 @@ PEAK_INT8_OPS_PER_S = 1979e12
 SCAN_SOURCE = "velocity_asr_tpu_torch/csrc/scan_fwd.cu"
 SCAN_BWD_SOURCE = "velocity_asr_tpu_torch/csrc/scan_bwd.cu"
 SCAN_BWD_REPLACES = "velocity_asr_tpu/ops/scan_pallas.py:288"
+# row 4s: _make_fwd_kernel(save_bounds=True, with_state=True), launched by
+# _pallas_scan_fwd_state(save_bounds=True); row 5s: _make_bwd_kernel(
+# with_state=True), launched by _pallas_scan_bwd with gh
+SCAN_BOUNDS_STATE_REPLACES = "velocity_asr_tpu/ops/scan_pallas.py:267"
+SCAN_BWD_STATE_REPLACES = "velocity_asr_tpu/ops/scan_pallas.py:452"
 MEL_SOURCE = "velocity_asr_tpu_torch/csrc/log_mel.cu"
 INT8_SOURCE = "velocity_asr_tpu_torch/csrc/int8_dense.cu"
 SCAN_REPLACES = "velocity_asr_tpu/ops/scan_pallas.py:79"
@@ -198,6 +239,42 @@ TRAIN_SCAN_SHAPES = sorted({(TRAIN_BATCH, f // 2, 64) for f in (200, 400, 600, 8
                               (CHECK_BATCH, 64, 32)})
 SCANS_PER_STEP = 10  # 8 local + 2 global blocks
 TRAIN_TRACED = (100, 5)  # phase 8b: micro-steps 101-105 under torch.profiler
+
+# Streaming-aware fine-tuning (phase 9): the recipe, its run and the scans
+# it launches.
+STREAM_CONFIG = os.path.join(ROOT, "configs", "train_synth_stream.yaml")
+STREAM_SYNTH = 1600  # train utterances
+STREAM_STEPS = 100  # micro-steps: 25 updates at accumulation 4, inside the 100-update warmup
+STREAM_BATCH = 8
+STREAM_CHUNK = 200  # training.streaming_chunks: 2 s chunks
+STREAM_BUCKET = 600  # data.frame_bucket
+# phase 3 holds the training scans at every bucket up to this many frames;
+# phase 9b fails on a batch padded past it (up to 28 s utterances at the
+# recipe's 40 words: buckets of 1,800-3,000 frames)
+STREAM_MAX_FRAMES = 3600
+STREAM_LOSS_RANGE = (0.2, 0.5)  # 9b: mean loss of the 100 micro-steps
+STREAM_TRACED = (60, 5)  # 9b: micro-steps 61-65 under torch.profiler
+STREAM_CHECK_FRAMES = 600  # 9a: 4 x 600 frames
+STREAM_WER_MAX_DIFF = 0.005  # 9c: within 0.5 point of phase 7's lookahead-0 WER
+# the gradient of a loss on y and h_final through two carried launches of
+# 50 steps against one launch of 100, relative to each gradient's max|ref|
+# (the same arithmetic; the backward's dA and dB/dC sums split at the seam)
+GRAD_SEAM_MAX_REL = 1e-5
+# phase 9's offline term: batch 8 at every bucket up to STREAM_MAX_FRAMES
+# (local L = frames / 2 at N=64, global K1 = max(64, L // 8) at N=32), and
+# 9a's batch 4 at 600 frames
+STREAM_BUCKETS = range(STREAM_BUCKET, STREAM_MAX_FRAMES + 1, STREAM_BUCKET)
+TRAIN_SCAN_SHAPES = sorted(
+    set(TRAIN_SCAN_SHAPES)
+    | {(STREAM_BATCH, f // 2, 64) for f in STREAM_BUCKETS}
+    | {(STREAM_BATCH, max(64, f // 16), 32) for f in STREAM_BUCKETS}
+    | {(CHECK_BATCH, STREAM_CHECK_FRAMES // 2, 64)})
+# the streaming term: each 200-frame chunk's local blocks (L = 100, N=64)
+# and global blocks (the 64 summary tokens, N=32) at batch 8 and 9a's 4;
+# L = 200 besides
+STATE_TRAIN_SHAPES = sorted({(b, STREAM_CHUNK // 2, 64) for b in (STREAM_BATCH, CHECK_BATCH)}
+                            | {(b, 64, 32) for b in (STREAM_BATCH, CHECK_BATCH)}
+                            | {(STREAM_BATCH, STREAM_CHUNK, 64)})
 
 
 def int8_shapes(batch: int, frames: int = 400):
@@ -302,23 +379,36 @@ def n_chunks(length):
     return -(-length // 16)
 
 
-def scan_bounds_cost(batch, length, d_inner, state_dim):
+def carried_bytes(batch, d_inner, state_dim):
+    """A carried state read once and one written once: h0 and h_final in
+    the forward, gh and dh0 in the backward, (batch, D, N) fp32 each."""
+    return 2 * 4 * batch * d_inner * state_dim
+
+
+def scan_bounds_cost(batch, length, d_inner, state_dim, with_state=False):
     """The bounds-saving forward: the forward's bytes and operations plus
-    the bounds written once, (batch, ceil(L/16), D, N) fp32."""
+    the bounds written once, (batch, ceil(L/16), D, N) fp32; with_state
+    adds h0 read and h_final written once."""
     n_bytes, n_ops = scan_cost(batch, length, d_inner, state_dim)
-    return n_bytes + 4 * batch * n_chunks(length) * d_inner * state_dim, n_ops
+    n_bytes += 4 * batch * n_chunks(length) * d_inner * state_dim
+    if with_state:
+        n_bytes += carried_bytes(batch, d_inner, state_dim)
+    return n_bytes, n_ops
 
 
-def scan_bwd_cost(batch, length, d_inner, state_dim):
+def scan_bwd_cost(batch, length, d_inner, state_dim, with_state=False):
     """The backward: bytes of x, dt, g (batch, L, D), B, C (batch, L, N),
     A and the bounds read once, and dx, ddt, dB, dC, dA written once; 20
     operations per (b, t, d, n): the decay (dt*A, exp), the state (decay*h,
     B*u, +), the adjoint (C*g, +; lam *= decay), the decay's cotangent
     (lam*h*decay: 2) and its sums into dA (*dt, +) and ddt (*A, +), and
-    the sums into ds (B*lam, +), dB (u*lam, +) and dC (g*h, +)."""
+    the sums into ds (B*lam, +), dB (u*lam, +) and dC (g*h, +). with_state
+    adds gh read and dh0 written once."""
     seq_d, seq_n = batch * length * d_inner, batch * length * state_dim
     bounds = batch * n_chunks(length) * d_inner * state_dim
     n_bytes = 4 * (5 * seq_d + 4 * seq_n + bounds + 2 * state_dim)
+    if with_state:
+        n_bytes += carried_bytes(batch, d_inner, state_dim)
     return n_bytes, 20 * batch * length * d_inner * state_dim
 
 
@@ -437,18 +527,96 @@ def compare_train_scans(rng, state_dim, batch, length, forward=True):
     return fwd, errs, same
 
 
-def mel_inputs(rng, n_frames):
-    """Frames of a seeded waveform framed as the main path frames it."""
+def compare_train_state_scans(rng, state_dim, batch, length):
+    """The carried-state training kernels (rows 4s, 5s) against their plain
+    versions on one shape, from a random h0 and gh. Returns a dict:
+    'fwd_same' (y and h_final bit-equal to scan_fwd_state's, bounds[:, 0]
+    equal to h0), 'bounds' (max_abs, max_rel), 'bwd' per output (max_abs,
+    max_rel), 'same' (two backward launches bit-identical), 'zero_same'
+    (h0 = 0 and gh = 0: bounds bit-equal to scan_fwd_bounds_f32's and every
+    gradient to scan_bwd_f32's)."""
+    import torch
+
+    from velocity_asr_tpu_torch.ops.scan import (scan_bwd, scan_bwd_plain, scan_bwd_state,
+                                                 scan_fwd_bounds, scan_fwd_bounds_plain,
+                                                 scan_fwd_bounds_state, scan_fwd_state)
+
+    x, dt, A, B, C, h0 = scan_inputs(rng, length, state_dim, batch=batch, with_state=True)
+    g = torch.tensor(rng.standard_normal((batch, length, 384)).astype(np.float32),
+                     device="cuda")
+    gh = torch.tensor(rng.standard_normal((batch, 384, state_dim)).astype(np.float32),
+                      device="cuda")
+    y, bounds, h_final = scan_fwd_bounds_state(x, dt, A, B, C, h0)
+    y0, h0_final = scan_fwd_state(x, dt, A, B, C, h0)
+    torch.cuda.synchronize()
+    ref_y, ref_bounds, _ = scan_fwd_bounds_plain(x, dt, A, B, C, h0, return_state=True)
+    out = {"fwd_same": (torch.equal(y, y0) and torch.equal(h_final, h0_final)
+                        and torch.equal(bounds[:, 0], h0)),
+           "bounds": rel_err(bounds, ref_bounds)}
+    outs = scan_bwd_state(x, dt, A, B, C, ref_bounds, g, gh)
+    again = scan_bwd_state(x, dt, A, B, C, ref_bounds, g, gh)
+    torch.cuda.synchronize()
+    refs = scan_bwd_plain(x, dt, A, B, C, ref_bounds, g, gh)
+    out["bwd"] = {name: rel_err(o, r) for name, o, r in
+                  zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), outs, refs)}
+    out["same"] = all(torch.equal(a, b) for a, b in zip(outs, again))
+    zero = torch.zeros_like(h0)
+    _, z_bounds, _ = scan_fwd_bounds_state(x, dt, A, B, C, zero)
+    _, nz_bounds = scan_fwd_bounds(x, dt, A, B, C)
+    z_outs = scan_bwd_state(x, dt, A, B, C, nz_bounds, g, zero)
+    nz_outs = scan_bwd(x, dt, A, B, C, nz_bounds, g)
+    torch.cuda.synchronize()
+    out["zero_same"] = (torch.equal(z_bounds, nz_bounds)
+                        and all(torch.equal(a, b) for a, b in zip(z_outs, nz_outs)))
+    return out
+
+
+def compare_grad_seam(rng, state_dim, batch, length=100):
+    """The gradient of sum(wy * y) + sum(wh * h_final) with respect to x,
+    dt, A, B, C and h0 through CarriedStateScanFn on the card: [0, L) as
+    two carried launches of L / 2 against one launch of L. Returns the
+    worst max_abs / max|grad of one launch| over the six gradients."""
+    import torch
+
+    from velocity_asr_tpu_torch.ops.scan import CarriedStateScanFn
+
+    leaves = [t.requires_grad_() for t in
+              scan_inputs(rng, length, state_dim, batch=batch, with_state=True)]
+    x, dt, A, B, C, h0 = leaves
+    wy = torch.tensor(rng.standard_normal((batch, length, 384)).astype(np.float32),
+                      device="cuda")
+    wh = torch.tensor(rng.standard_normal((batch, 384, state_dim)).astype(np.float32),
+                      device="cuda")
+    half = length // 2
+
+    def part(t, sl):
+        return t[:, sl].contiguous()
+
+    y1, h1 = CarriedStateScanFn.apply(*(part(t, slice(0, half)) for t in (x, dt)), A,
+                                      *(part(t, slice(0, half)) for t in (B, C)), h0)
+    y2, h2 = CarriedStateScanFn.apply(*(part(t, slice(half, length)) for t in (x, dt)), A,
+                                      *(part(t, slice(half, length)) for t in (B, C)), h1)
+    loss = (wy * torch.cat([y1, y2], dim=1)).sum() + (wh * h2).sum()
+    seam = torch.autograd.grad(loss, leaves)
+    y, h = CarriedStateScanFn.apply(x, dt, A, B, C, h0)
+    one = torch.autograd.grad((wy * y).sum() + (wh * h).sum(), leaves)
+    torch.cuda.synchronize()
+    return max(rel_err(a, b)[1] for a, b in zip(seam, one))
+
+
+def mel_inputs(rng, n_frames, batch=1):
+    """Frames of `batch` seeded waveforms of `n_frames` frames each, framed
+    and flattened to (batch * n_frames, n_fft) as `compute_mel_spectrogram`
+    frames a batch; and the padded waveforms."""
     import torch
 
     from velocity_asr_tpu_torch.audio import HOP_LENGTH, N_FFT, frame_signal, reflect_pad
 
-    audio = (rng.standard_normal((1, (n_frames - 1) * HOP_LENGTH)) * 0.1).astype(np.float32)
+    audio = (rng.standard_normal((batch, (n_frames - 1) * HOP_LENGTH)) * 0.1).astype(np.float32)
     audio_t = torch.tensor(audio, device="cuda")
     padded = reflect_pad(audio_t, N_FFT // 2)
-    frames = frame_signal(padded, N_FFT, HOP_LENGTH)[0].contiguous()
-    assert frames.shape[0] == n_frames
-    return frames, padded
+    frames = frame_signal(padded, N_FFT, HOP_LENGTH).reshape(batch * n_frames, N_FFT)
+    return frames.contiguous(), padded
 
 
 # ---------------------------------------------------------------- phases
@@ -533,7 +701,8 @@ def phase_compare(plan):
     rng = np.random.default_rng(20261017)
     errs = dict.fromkeys(("scan_fwd_f32", "scan_fwd_state_f32", "log_mel_f32",
                           "int8_dense_dynamic_f32", "int8_dense_static_f32",
-                          "scan_fwd_bounds_f32", "scan_bwd_f32"), 0.0)
+                          "scan_fwd_bounds_f32", "scan_bwd_f32", "scan_fwd_bounds_state_f32",
+                          "scan_bwd_state_f32"), 0.0)
     for state_dim, batch, length in scan_cases(plan):
         args = scan_inputs(rng, length, state_dim, batch=batch)
         ker = scan_fwd(*args)
@@ -594,17 +763,61 @@ def phase_compare(plan):
         if not ok:
             raise AssertionError("a training scan kernel disagrees with its plain version")
         errs["scan_bwd_f32"] = max([errs["scan_bwd_f32"]] + [e[0] for e in bwd.values()])
+    # the carried-state training scans (rows 4s, 5s): every shape of the
+    # streaming term, then the widths at batch 1 and 4, L off the 16-step
+    # chunk, from a random h0 and gh
+    state_widths = {(b, length, n) for n in STATE_SCAN_DIMS for b in (1, 4)
+                    for length in (37, 100)}
+    for batch, length, state_dim in STATE_TRAIN_SHAPES + sorted(state_widths):
+        r = compare_train_state_scans(rng, state_dim, batch, length)
+        bwd = r["bwd"]
+        worst = max(e[1] for name, e in bwd.items() if name != "dA")
+        ok = (r["fwd_same"] and r["bounds"][1] <= BOUNDS_MAX_REL and r["same"]
+              and r["zero_same"] and math.isfinite(worst) and worst <= BWD_MAX_REL
+              and bwd["dA"][1] <= BWD_DA_MAX_REL)
+        path = " (streaming term)" if (batch, length, state_dim) in STATE_TRAIN_SHAPES else ""
+        log(f"train state scan N={state_dim} B={batch} L={length} D=384{path}: y, h_final "
+            f"{'bit-equal to' if r['fwd_same'] else 'DIFFER from'} scan_fwd_state, bounds[:, 0] "
+            f"= h0, bounds max_rel {r['bounds'][1]:.3e} (tol {BOUNDS_MAX_REL:g}); bwd max_rel "
+            + " ".join(f"{k} {e[1]:.2e}" for k, e in bwd.items())
+            + f" (tol {BWD_MAX_REL:g}, dA {BWD_DA_MAX_REL:g}), two launches "
+            f"{'bit-identical' if r['same'] else 'DIFFER'}; h0 = gh = 0 "
+            f"{'bit-equal to' if r['zero_same'] else 'DIFFERS from'} the no-state kernels "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("a carried-state training kernel disagrees with its plain "
+                                 "version or with the no-state kernels")
+        errs["scan_fwd_bounds_state_f32"] = max(errs["scan_fwd_bounds_state_f32"],
+                                                r["bounds"][0])
+        errs["scan_bwd_state_f32"] = max([errs["scan_bwd_state_f32"]]
+                                         + [e[0] for e in bwd.values()])
+    for state_dim in (64, 32):
+        for batch in (1, CHECK_BATCH):
+            seam = compare_grad_seam(rng, state_dim, batch)
+            ok = math.isfinite(seam) and seam <= GRAD_SEAM_MAX_REL
+            log(f"train state scan gradient seam N={state_dim} B={batch} L=50+50 against one "
+                f"launch of 100: max_rel {seam:.3e} over dx, ddt, dA, dB, dC, dh0 (tol "
+                f"{GRAD_SEAM_MAX_REL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("the carried-state gradient breaks across a seam")
+    # the log-mel: the offline path's single utterances, then every batch
+    # of the device-mel training path (9a's, and 9b's at every bucket up
+    # to STREAM_MAX_FRAMES), each one launch over batch x frames rows
     mats = _device_matrices(torch.device("cuda"), 400, 80, 16000)
-    for n_frames in (200, 600):
-        frames, _ = mel_inputs(rng, n_frames)
+    mel_shapes = ([(1, 200, ""), (1, 600, "")]
+                  + [(CHECK_BATCH, STREAM_CHECK_FRAMES, " (training path, 9a)")]
+                  + [(STREAM_BATCH, f, " (training path, 9b)") for f in STREAM_BUCKETS])
+    for batch, n_frames, path in mel_shapes:
+        frames, _ = mel_inputs(rng, n_frames, batch)
         ker = log_mel(frames, *mats)
         torch.cuda.synchronize()
         ref = log_mel_plain(frames, *mats)
         max_abs = (ker - ref).abs().max().item()
         max_rel = ((ker - ref).abs() / ref.abs().clamp_min(1e-6)).max().item()
         ok = math.isfinite(max_abs) and max_abs <= MEL_MAX_ABS
-        log(f"log_mel T={n_frames}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
-            f"(tol abs {MEL_MAX_ABS:g}) {'ok' if ok else 'FAIL'}")
+        log(f"log_mel B={batch} T={n_frames} ({batch * n_frames} rows){path}: max_abs "
+            f"{max_abs:.3e} max_rel {max_rel:.3e} (tol abs {MEL_MAX_ABS:g}) "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("log-mel kernel disagrees with its plain version")
         errs["log_mel_f32"] = max(errs["log_mel_f32"], max_abs)
@@ -867,7 +1080,7 @@ def phase_batched(manifest: str, plan):
 def phase_streaming(manifest: str, plan):
     """The streaming path: batched at lookahead 0 and 1, then live
     sessions, then two chunks at fp32 card against CPU. Returns each
-    counted run's launch counts."""
+    counted run's launch counts and the batched runs' WER by lookahead."""
     import torch
 
     from velocity_asr_tpu_torch.audio import load_audio
@@ -886,7 +1099,7 @@ def phase_streaming(manifest: str, plan):
     stream = plan["stream"]
     model = from_pretrained(CHECKPOINT, device="cuda")
     decoder = checkpoint_decoder(CHECKPOINT, model.config.vocab_size)
-    out = {}
+    out, wers = {}, {}
     batched_texts = {}
     for lookahead in (0, 1):
         bt = BatchedStreamingTranscriber(model, decoder, chunk_frames=CHUNK_FRAMES,
@@ -917,6 +1130,7 @@ def phase_streaming(manifest: str, plan):
             raise AssertionError(f"[streaming la{lookahead}] WER {wer:.4f} is more than "
                                  f"{WER_MAX_DIFF} from JAX {jax_wer:.4f}")
         out[lookahead] = counts
+        wers[lookahead] = wer
         batched_texts[lookahead] = texts
 
     # live sessions, fed 0.1 s blocks, each advancing step timed to its sync
@@ -984,7 +1198,7 @@ def phase_streaming(manifest: str, plan):
         f"{LOGITS_FP32_MAX_ABS:g}), state leaves max_abs {st_err:.3e} (tol {STATE_FP32_MAX_ABS:g})")
     if not (lg_err <= LOGITS_FP32_MAX_ABS and st_err <= STATE_FP32_MAX_ABS):
         raise AssertionError("streaming card logits or state disagree with the CPU")
-    return out
+    return out, wers
 
 
 def check_batch():
@@ -1006,20 +1220,30 @@ def check_batch():
     return batch
 
 
-def train_card_vs_cpu():
-    """8a: the loss and every gradient of one micro-batch, card against
-    CPU, at fp32 with dropout and SpecAugment off; then one optimizer
-    update on each (its largest weight difference is reported)."""
+def train_card_vs_cpu(tag, batch, shared_mel=None, check=True, **config):
+    """8a and 9a: the loss and every gradient of one micro-batch, card
+    against CPU, at fp32 with dropout and SpecAugment off; then one
+    optimizer update on each (its largest weight difference is reported).
+    `config` adds TrainingConfig fields (9a: the streaming term). With
+    `shared_mel`, a device-mel batch's (normalised, raw) mel on the CPU,
+    both sides start from that mel instead of computing their own: the
+    gap then leaves out the log-mel's. `check` False only reports.
+    Returns the worst gradient's max_abs / max|grad|."""
     import torch
 
     from velocity_asr_tpu_torch.models.model import from_pretrained
     from velocity_asr_tpu_torch.training import Trainer, TrainingConfig
 
-    batch = check_batch()
+    shape = "x".join(str(d) for d in next(batch[k] for k in ("mel_spectrogram", "audio")
+                                          if k in batch).shape)
     results = []
     for device in ("cuda", "cpu"):
         model = from_pretrained(CHECKPOINT, device=device, dtype="float32", dropout=0.0)
-        trainer = Trainer(model, TrainingConfig(learning_rate=3e-4, warmup_steps=1), iter(()))
+        trainer = Trainer(model, TrainingConfig(learning_rate=3e-4, warmup_steps=1, **config),
+                          iter(()))
+        if shared_mel is not None:
+            mel = tuple(m.to(device) for m in shared_mel)
+            trainer._batch_mel = lambda _batch, mel=mel: mel
         model.train()
         loss = trainer._loss(trainer._to_device(batch), None)
         grads = torch.autograd.grad(loss, trainer.params)
@@ -1039,7 +1263,10 @@ def train_card_vs_cpu():
     worst = sorted(grad_rel, key=grad_rel.get)[-3:][::-1]
     upd = max((a - b).abs().max().item() for a, b in zip(p_card, p_cpu))
     finite = all(torch.isfinite(g).all() for g in g_card) and math.isfinite(loss_card)
-    log(f"[train 8a] fp32, {CHECK_BATCH} x {CHECK_FRAMES} frames, card vs CPU: loss "
+    log(f"[train {tag}] fp32, {shape}"
+        + "".join(f", {k} {v}" for k, v in config.items())
+        + (", the CPU's log-mel on both sides" if shared_mel is not None else "")
+        + ", card vs CPU: loss "
         f"{loss_card:.6f} vs {loss_cpu:.6f} (rel {loss_rel:.3e}, tol {TRAIN_LOSS_MAX_REL:g}); "
         f"gradients of {len(grad_rel)} parameters, max_abs / max|grad|: worst "
         + ", ".join(f"{grad_rel[n]:.3e} ({n})" for n in worst)
@@ -1047,13 +1274,51 @@ def train_card_vs_cpu():
         + ", ".join(f"{n} max|grad| {v:.3e} of the largest" for n, v in zero_rel.items())
         + f" (tol {ZERO_GRAD_MAX_REL:g}); largest gradient {top:.3e}; after one update, "
         f"weights max_abs {upd:.3e}")
-    if not (finite and loss_rel <= TRAIN_LOSS_MAX_REL
-            and grad_rel[worst[0]] <= TRAIN_GRAD_MAX_REL
-            and all(v <= ZERO_GRAD_MAX_REL for v in zero_rel.values())):
-        raise AssertionError("training on the card disagrees with the CPU")
+    if check and not (finite and loss_rel <= TRAIN_LOSS_MAX_REL
+                      and grad_rel[worst[0]] <= TRAIN_GRAD_MAX_REL
+                      and all(v <= ZERO_GRAD_MAX_REL for v in zero_rel.values())):
+        raise AssertionError(f"[train {tag}] training on the card disagrees with the CPU")
+    return grad_rel[worst[0]]
 
 
-def run_train_cli(ckpt_dir, argv, traced=None):
+def attribute_stream_gap(batch):
+    """9a's card-vs-CPU gradient gap, taken apart (reported, not checked):
+    the two sides' raw log-mel on this batch, then the micro-step with
+    the CPU's mel on both sides for the mixed objective, the offline term
+    alone and the streaming term alone."""
+    import torch
+
+    from velocity_asr_tpu_torch.training import Trainer
+
+    raws = []
+    for device in ("cuda", "cpu"):
+        audio = {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()
+                 if k in ("audio", "input_lengths")}
+        raws.append(Trainer._batch_mel(audio))
+    mel_gap = (raws[0][1].cpu() - raws[1][1]).abs().max().item()
+    log(f"[train 9a, attribution] raw log-mel of 9a's batch, card vs CPU: max_abs {mel_gap:.3e}"
+        f" (of max|mel| {raws[1][1].abs().max().item():.3e}); normalised: max_abs "
+        f"{(raws[0][0].cpu() - raws[1][0]).abs().max().item():.3e}")
+    gaps = {}
+    for name, config in (("mixed", {"streaming_chunks": STREAM_CHUNK, "streaming_aux_weight": 0.5}),
+                         ("offline term alone", {}),
+                         ("streaming term alone", {"streaming_chunks": STREAM_CHUNK,
+                                                   "streaming_aux_weight": 1.0})):
+        gaps[name] = train_card_vs_cpu(f"9a, attribution, {name}", batch, shared_mel=raws[1],
+                                       check=False, **config)
+    log("[train 9a, attribution] worst gradient gap with the CPU's log-mel on both sides: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+
+
+def batch_frames(batch):
+    """Padded mel frames of a collated batch, host mel or int16 PCM."""
+    if "mel_spectrogram" in batch:
+        return batch["mel_spectrogram"].shape[1]
+    return 1 + batch["audio"].shape[1] // 160
+
+
+def run_train_cli(ckpt_dir, argv, traced=None, config=TRAIN_CONFIG, synthetic=TRAIN_SYNTH,
+                  tag="8b"):
     """velocity_asr_tpu_torch.train's main with these arguments, each
     micro-step timed to a synchronise (frames, ms, loss, traced), and the
     launch counts of the run. traced = (first, count): a torch.profiler
@@ -1078,7 +1343,7 @@ def run_train_cli(ckpt_dir, argv, traced=None):
         loss = step(self, batch)
         value = loss.item()  # the step's end on the card
         n = len(steps)
-        steps.append((batch["mel_spectrogram"].shape[1], (time.perf_counter() - t0) * 1e3,
+        steps.append((batch_frames(batch), (time.perf_counter() - t0) * 1e3,
                       value, first <= n < first + count))
         if count:
             prof.step()
@@ -1090,8 +1355,8 @@ def run_train_cli(ckpt_dir, argv, traced=None):
     try:
         if count:
             prof.start()
-        out = cli.main(["--config", TRAIN_CONFIG, "--model-config", TRAIN_MODEL_CONFIG,
-                        "--synthetic", str(TRAIN_SYNTH), "--checkpoint-dir", ckpt_dir,
+        out = cli.main(["--config", config, "--model-config", TRAIN_MODEL_CONFIG,
+                        "--synthetic", str(synthetic), "--checkpoint-dir", ckpt_dir,
                         "--device", "cuda", *argv])
     finally:
         training.Trainer._step = step
@@ -1100,11 +1365,11 @@ def run_train_cli(ckpt_dir, argv, traced=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if count:
-        report_trace(prof, steps, count)
+        report_trace(prof, steps, count, tag)
     return out["trainer"], steps, dict(launch_counts), wall
 
 
-def report_trace(prof, steps, count):
+def report_trace(prof, steps, count, tag):
     """Device time per traced micro-step, by kernel, beside the untraced
     steps' host time: the card's busy share of a micro-step."""
     from torch.autograd import DeviceType
@@ -1124,17 +1389,18 @@ def report_trace(prof, steps, count):
     top = sorted(events, key=device_us, reverse=True)[:8]
     wall = np.percentile([ms for _, ms, _, traced in steps if not traced], 50)
     if not events:
-        log(f"[train trace] {count} micro-steps traced: the profiler recorded no device time; "
-            "the card's busy share is not measured")
+        log(f"[train {tag} trace] {count} micro-steps traced: the profiler recorded no device "
+            "time; the card's busy share is not measured")
         return
-    log(f"[train trace] {count} micro-steps traced: device time {total:.3f} ms per micro-step "
-        f"over {launches:.0f} device operations, against a p50 of {wall:.3f} ms for an untraced "
+    log(f"[train {tag} trace] {count} micro-steps traced: device time {total:.3f} ms per "
+        f"micro-step over {launches:.0f} device operations, against a p50 of {wall:.3f} ms for "
+        f"an untraced "
         f"micro-step (card busy {total / wall * 100:.1f}%); by kernel, ms per micro-step: "
         + "; ".join(f"{e.key[:60]} {device_us(e) / 1e3 / count:.3f} (x{e.count / count:g})"
                     for e in top))
 
 
-def report_steps(tag, steps, trainer, wall):
+def report_steps(tag, steps, trainer, wall, batch=TRAIN_BATCH):
     """ms per micro-step (p50, p95) overall and per frame bucket, traced
     steps left out, and the host's data-wait share of the run."""
     by_bucket = collections.defaultdict(list)
@@ -1144,7 +1410,7 @@ def report_steps(tag, steps, trainer, wall):
     per = "; ".join(f"{f} frames x{len(v)}: p50 {np.percentile(v, 50):.3f} ms, p95 "
                     f"{np.percentile(v, 95):.3f} ms" for f, v in sorted(by_bucket.items()))
     all_ms = [ms for v in by_bucket.values() for ms in v]
-    log(f"[train {tag}] {len(all_ms)} untraced micro-steps at batch {TRAIN_BATCH} "
+    log(f"[train {tag}] {len(all_ms)} untraced micro-steps at batch {batch} "
         f"({len(steps)} in all, {wall:.3f} s): "
         f"p50 {np.percentile(all_ms, 50):.3f} ms, p95 {np.percentile(all_ms, 95):.3f} ms per "
         f"micro-step; by frame bucket: {per}; host data wait {trainer.data_wait_seconds:.3f} s "
@@ -1171,7 +1437,7 @@ def phase_training(manifest, batched):
     from velocity_asr_tpu_torch.models.model import from_pretrained
     from velocity_asr_tpu_torch.transcribe import checkpoint_decoder
 
-    train_card_vs_cpu()
+    train_card_vs_cpu("8a", check_batch())
     tmp = tempfile.mkdtemp(prefix="velocity_asr_train_")
     try:
         # 8b: from scratch, the recipe as the CLI runs it
@@ -1222,6 +1488,128 @@ def phase_training(manifest, batched):
     return {"counts": counts, "steps": TRAIN_STEPS}
 
 
+def stream_check_batch():
+    """Phase 9a's batch: the first CHECK_BATCH train-split utterances of
+    the streaming recipe (its word counts, raw audio) whose device-mel
+    batch pads to STREAM_CHECK_FRAMES frames."""
+    from velocity_asr_tpu_torch.config import load_yaml
+    from velocity_asr_tpu_torch.data import ASRCollator
+    from velocity_asr_tpu_torch.synth import SyntheticSpeechDataset
+
+    data = load_yaml(STREAM_CONFIG)["data"]
+    ds = SyntheticSpeechDataset(STREAM_SYNTH, split="train", seed=data["synthetic_seed"],
+                                min_words=data["synthetic_min_words"],
+                                max_words=data["synthetic_max_words"], device_mel=True)
+    items = []
+    for i in range(len(ds)):
+        item = ds[i]
+        if 1 + -(-len(item["audio"]) // 160) <= STREAM_CHECK_FRAMES:
+            items.append(item)
+        if len(items) == CHECK_BATCH:
+            break
+    batch = ASRCollator(frame_bucket=STREAM_CHECK_FRAMES)(items)
+    assert batch["audio"].shape == (CHECK_BATCH, (STREAM_CHECK_FRAMES - 1) * 160)
+    return batch
+
+
+def check_stream_launches(tag, counts, steps):
+    """Per micro-step one log-mel and the offline term's 10 bounds forwards
+    and 10 backwards (2 launches each); per 200-frame chunk of its batch
+    the streaming term's 10 carried-state bounds forwards and 10 backwards
+    (2 each); no other kernel. Returns the chunks over all micro-steps."""
+    n = len(steps)
+    chunks = sum(frames // STREAM_CHUNK for frames, _, _, _ in steps)
+    want = {"log_mel_f32": n,
+            "scan_fwd_bounds_f32": SCANS_PER_STEP * n,
+            "scan_bwd_f32": 2 * SCANS_PER_STEP * n,
+            "scan_fwd_bounds_state_f32": SCANS_PER_STEP * chunks,
+            "scan_bwd_state_f32": 2 * SCANS_PER_STEP * chunks}
+    log(f"[train {tag}] launches {counts}, planned {want} ({n} micro-steps, {chunks} chunks of "
+        f"{STREAM_CHUNK} frames)")
+    if counts != want:
+        raise AssertionError(f"[train {tag}] launches {counts}, expected {want}")
+    return chunks
+
+
+def phase_stream_training(manifest, stream_wers):
+    """9a card against CPU on the streaming-aware objective, 9b the CLI
+    fine-tunes the checkpoint on configs/train_synth_stream.yaml, 9c the
+    result through the batched streaming evaluation; returns 9b's launch
+    counts, micro-steps and chunks."""
+    import torch
+
+    from velocity_asr_tpu_torch.audio import load_audio
+    from velocity_asr_tpu_torch.checkpoint import params_from_numpy, read_params
+    from velocity_asr_tpu_torch.config import load_yaml
+    from velocity_asr_tpu_torch.models.model import from_pretrained
+    from velocity_asr_tpu_torch.streaming import BatchedStreamingTranscriber
+    from velocity_asr_tpu_torch.training import compute_cer, compute_wer
+    from velocity_asr_tpu_torch.transcribe import checkpoint_decoder
+
+    batch = stream_check_batch()
+    train_card_vs_cpu("9a", batch, streaming_chunks=STREAM_CHUNK, streaming_aux_weight=0.5)
+    attribute_stream_gap(batch)
+    tmp = tempfile.mkdtemp(prefix="velocity_asr_stream_")
+    try:
+        # 9b: the recipe through the CLI, from the checkpoint
+        out_dir = os.path.join(tmp, "stream_ft")
+        trainer, steps, counts, wall = run_train_cli(
+            out_dir, ["--init-from", CHECKPOINT, "--max-steps", str(STREAM_STEPS)],
+            STREAM_TRACED, config=STREAM_CONFIG, synthetic=STREAM_SYNTH, tag="9b")
+        losses = [loss for _, _, loss, _ in steps]
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        mean = float(np.mean(losses))
+        buckets = collections.Counter(frames for frames, _, _, _ in steps)
+        lo, hi = STREAM_LOSS_RANGE
+        log(f"[train 9b] loss: mean of the {len(losses)} micro-steps {mean:.4f} (range {lo:g}-"
+            f"{hi:g}; the JAX run's interval means 0.279-0.369, "
+            f"checkpoints/synth_run/metrics_streamft.jsonl), first 10 {np.mean(losses[:10]):.4f}, "
+            f"last 10 {np.mean(losses[-10:]):.4f}; frame buckets {dict(sorted(buckets.items()))}; "
+            "metrics.jsonl " + ", ".join(f"step {r['step']} loss {r['loss']:.4f} lr "
+                                         f"{r['lr']:.3e}" for r in logged))
+        report_steps("9b", steps, trainer, wall, STREAM_BATCH)
+        chunks = check_stream_launches("9b", counts, steps)
+        every = load_yaml(STREAM_CONFIG)["logging"]["log_interval"]
+        if not (all(math.isfinite(v) for v in losses + [r["loss"] for r in logged])
+                and len(losses) == STREAM_STEPS and len(logged) == STREAM_STEPS // every):
+            raise AssertionError("[train 9b] a loss is not finite or a step is missing")
+        if max(buckets) > STREAM_MAX_FRAMES:
+            raise AssertionError(f"[train 9b] a {max(buckets)}-frame batch: phase 3 held the "
+                                 f"training scans up to {STREAM_MAX_FRAMES} frames")
+        if not lo <= mean <= hi:
+            raise AssertionError(f"[train 9b] mean loss {mean:.4f} outside [{lo}, {hi}]")
+
+        # 9c: save, read back, and the batched streaming evaluation
+        pretrained = os.path.join(out_dir, "final_pretrained")
+        back = params_from_numpy(read_params(os.path.join(pretrained, "params.msgpack")))
+        trained = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+        same = set(back) == set(trained) and all(torch.equal(back[k], trained[k])
+                                                 for k in trained)
+        with open(manifest) as f:
+            rows = [json.loads(line) for line in f]
+        refs = [r["text"] for r in rows]
+        model = from_pretrained(pretrained, device="cuda")
+        bt = BatchedStreamingTranscriber(
+            model, checkpoint_decoder(pretrained, model.config.vocab_size),
+            chunk_frames=CHUNK_FRAMES, batch_size=BATCH, lookahead_chunks=0)
+        texts = bt.transcribe_batch([load_audio(r["audio_path"]) for r in rows])
+        wer, cer = compute_wer(texts, refs), compute_cer(texts, refs)
+        base = stream_wers[0]
+        log(f"[train 9c] params.msgpack read back {'equals' if same else 'DIFFERS from'} the "
+            f"trained weights; fine-tuned {STREAM_STEPS} micro-steps, streaming (lookahead 0, "
+            f"batch {BATCH}) WER {wer * 100:.4f}% CER {cer * 100:.4f}% over {len(rows)} "
+            f"utterances against phase 7's {base * 100:.4f}% (tol "
+            f"{STREAM_WER_MAX_DIFF * 100:g} point)")
+        if not same:
+            raise AssertionError("[train 9c] the saved params differ from the trained ones")
+        if abs(wer - base) > STREAM_WER_MAX_DIFF:
+            raise AssertionError(f"[train 9c] WER {wer:.4f} vs phase 7's {base:.4f}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"counts": counts, "steps": STREAM_STEPS, "chunks": chunks, "buckets": buckets}
+
+
 def time_int8(rng, m, k, n):
     """Times of both int8 kernels, their plain version and torch._int_mm
     (int8 x int8 -> int32 on pre-quantized operands, where its shape rules
@@ -1253,14 +1641,15 @@ def time_int8(rng, m, k, n):
     return times
 
 
-def phase_timing(counts, bucket: int, errs, batched, streaming, training):
+def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream_training):
     import torch
 
     from velocity_asr_tpu_torch.audio import mel_filterbank
     from velocity_asr_tpu_torch.ops.mel import _device_matrices, log_mel, log_mel_plain
     from velocity_asr_tpu_torch.ops.pooling import pool_size_level1
-    from velocity_asr_tpu_torch.ops.scan import (scan_bwd, scan_bwd_plain, scan_fwd,
-                                                 scan_fwd_bounds, scan_fwd_bounds_plain,
+    from velocity_asr_tpu_torch.ops.scan import (scan_bwd, scan_bwd_plain, scan_bwd_state,
+                                                 scan_fwd, scan_fwd_bounds,
+                                                 scan_fwd_bounds_plain, scan_fwd_bounds_state,
                                                  scan_fwd_plain, scan_fwd_state)
 
     rng = np.random.default_rng(7)
@@ -1295,7 +1684,7 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training):
         eager = cuda_time_ms(lambda: scan_fwd_state(*args), iters=50)
         plain = graph_time_ms(lambda: scan_fwd_plain(*args, return_state=True), iters=3)
         n_bytes, n_ops = scan_cost(batch, length, 384, state_dim)
-        b_ms, b_by = bound_ms(n_bytes + 2 * 4 * batch * 384 * state_dim, n_ops)
+        b_ms, b_by = bound_ms(n_bytes + carried_bytes(batch, 384, state_dim), n_ops)
         log(f"time state scan N={state_dim} L={length} B={batch} D=384 (device, CUDA graph): "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}); eager "
             f"(host launch included) {eager:.4f} ms")
@@ -1334,6 +1723,41 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training):
         f"micro-step: bounds forward {t_counts.get('scan_fwd_bounds_f32', 0) / training['steps']:g}"
         f", backward {t_counts.get('scan_bwd_f32', 0) / training['steps']:g} (2 per scan)")
 
+    # the carried-state training scans (rows 4s, 5s) at the streaming
+    # term's shapes: batch 8, local blocks (L = 100, N = 64) and global
+    # blocks (the 64 summary tokens, N = 32); their bytes add h0 and gh read
+    # and h_final and dh0 written once
+    for state_dim, length in ((64, STREAM_CHUNK // 2), (32, 64)):
+        x, dt, A, B, C, h0 = scan_inputs(rng, length, state_dim, batch=STREAM_BATCH,
+                                         with_state=True)
+        g = torch.tensor(rng.standard_normal((STREAM_BATCH, length, 384)).astype(np.float32),
+                         device="cuda")
+        gh = torch.tensor(rng.standard_normal((STREAM_BATCH, 384, state_dim)).astype(np.float32),
+                          device="cuda")
+        _, bounds, _ = scan_fwd_bounds_state(x, dt, A, B, C, h0)
+        cases = {
+            "scan_fwd_bounds_state_f32": (
+                lambda: scan_fwd_bounds_state(x, dt, A, B, C, h0),
+                lambda: scan_fwd_bounds_plain(x, dt, A, B, C, h0, return_state=True),
+                scan_bounds_cost),
+            "scan_bwd_state_f32": (lambda: scan_bwd_state(x, dt, A, B, C, bounds, g, gh),
+                                   lambda: scan_bwd_plain(x, dt, A, B, C, bounds, g, gh),
+                                   scan_bwd_cost),
+        }
+        for name, (kernel, plain, cost) in cases.items():
+            ms = graph_time_ms(kernel, iters=20)
+            eager = cuda_time_ms(kernel, iters=20)
+            plain_ms = graph_time_ms(plain, iters=2)
+            b_ms, b_by = bound_ms(*cost(STREAM_BATCH, length, 384, state_dim, with_state=True))
+            log(f"time {name} N={state_dim} L={length} B={STREAM_BATCH} D=384 (device, CUDA "
+                f"graph): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+                f"({b_by}); eager (host launch included) {eager:.4f} ms")
+            train_rows.setdefault(name, (ms, plain_ms, b_ms, b_by))
+    s_counts = stream_training["counts"]
+    s_steps = stream_training["steps"]
+    log(f"streaming-aware training launches over {s_steps} micro-steps and "
+        f"{stream_training['chunks']} chunks (phase 9b): {s_counts}")
+
     frames, padded = mel_inputs(rng, bucket)
     mats = _device_matrices(torch.device("cuda"), 400, 80, 16000)
     mel_ms = graph_time_ms(lambda: log_mel(frames, *mats), iters=50)
@@ -1353,6 +1777,27 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training):
         f"{mel_plain:.4f} ms, library (stft+power+fb+log) {lib_ms:.4f} ms (max_abs vs kernel "
         f"{lib_err:.3e}), bound {mb_ms:.5f} ms ({mb_by}); eager (host launch included) "
         f"{mel_eager:.4f} ms")
+    # the training path's log-mel: one launch over a batch of 8 at the
+    # frame bucket phase 9b ran most often
+    t_bucket = stream_training["buckets"].most_common(1)[0][0]
+    n_frames = STREAM_BATCH * t_bucket
+    t_frames, t_padded = mel_inputs(rng, t_bucket, STREAM_BATCH)
+    t_ms = graph_time_ms(lambda: log_mel(t_frames, *mats), iters=20)
+    t_plain = graph_time_ms(lambda: log_mel_plain(t_frames, *mats), iters=20)
+
+    def t_library():
+        spec = torch.stft(t_padded, 400, 160, window=window, center=False,
+                          return_complex=True)
+        return torch.log(fb @ spec.abs().square() + 1e-10)
+
+    t_lib = graph_time_ms(t_library, iters=20)
+    tb_ms, tb_by = bound_ms(*mel_cost(n_frames, 400, 201, 80))
+    log(f"time log_mel B={STREAM_BATCH} T={t_bucket} ({n_frames} rows, phase 9b's most "
+        f"frequent bucket {dict(stream_training['buckets'])}) (device, CUDA graph): kernel "
+        f"{t_ms:.4f} ms, plain {t_plain:.4f} ms, library {t_lib:.4f} ms, bound {tb_ms:.5f} ms "
+        f"({tb_by}); launches: "
+        f"{counts.get('log_mel_f32', 0)} offline (phase 4), {s_counts.get('log_mel_f32', 0)} "
+        f"streaming-aware training (phase 9b)")
 
     # int8 at the batched path's shapes (batch 16, its most common padded
     # length); the JSON line carries the (16 * L) x 192 -> 192 shape, 3 of
@@ -1394,19 +1839,22 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training):
          "plain_ms": state_rows[0][1], "bound_ms": state_rows[0][2],
          "bound_by": state_rows[0][3], "library_ms": None},
         {"name": "log_mel_f32", "route": "cuda", "source": MEL_SOURCE,
-         "replaces": MEL_REPLACES, "launches": counts.get("log_mel_f32", 0),
+         "replaces": MEL_REPLACES,
+         "launches": counts.get("log_mel_f32", 0) + s_counts.get("log_mel_f32", 0),
          "max_abs_err": errs["log_mel_f32"], "ms": mel_ms, "plain_ms": mel_plain,
          "bound_ms": mb_ms, "bound_by": mb_by, "library_ms": lib_ms},
         int8_entry("int8_dense_dynamic_f32", INT8_DYNAMIC_REPLACES, "int8", "dynamic"),
         int8_entry("int8_dense_static_f32", INT8_STATIC_REPLACES, "int8_static", "static"),
     ] + [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": t_counts.get(name, 0), "max_abs_err": errs[name],
+         "launches": t_counts.get(name, 0) + s_counts.get(name, 0), "max_abs_err": errs[name],
          "ms": train_rows[name][0], "plain_ms": train_rows[name][1],
          "bound_ms": train_rows[name][2], "bound_by": train_rows[name][3], "library_ms": None}
         for name, source, replaces in (
             ("scan_fwd_bounds_f32", SCAN_SOURCE, SCAN_REPLACES),
-            ("scan_bwd_f32", SCAN_BWD_SOURCE, SCAN_BWD_REPLACES))
+            ("scan_bwd_f32", SCAN_BWD_SOURCE, SCAN_BWD_REPLACES),
+            ("scan_fwd_bounds_state_f32", SCAN_SOURCE, SCAN_BOUNDS_STATE_REPLACES),
+            ("scan_bwd_state_f32", SCAN_BWD_SOURCE, SCAN_BWD_STATE_REPLACES))
     ]}
 
 
@@ -1437,13 +1885,17 @@ def main(argv=None) -> int:
         counts, bucket = run_phase(
             "4 offline path", lambda: phase_main_path(manifest, plan), t_start)
         batched = run_phase("5 batched int8 path", lambda: phase_batched(manifest, plan), t_start)
-        streaming = run_phase(
+        streaming, stream_wers = run_phase(
             "7 streaming path", lambda: phase_streaming(manifest, plan), t_start)
         training = run_phase(
             "8 training", lambda: phase_training(manifest, batched), t_start)
+        stream_training = run_phase(
+            "9 streaming-aware training",
+            lambda: phase_stream_training(manifest, stream_wers), t_start)
         kernels = run_phase(
             "6 timing",
-            lambda: phase_timing(counts, bucket, errs, batched, streaming, training), t_start)
+            lambda: phase_timing(counts, bucket, errs, batched, streaming, training,
+                                 stream_training), t_start)
     except PhaseFailed as e:
         print(f"chip_smoke: phase {e} failed", file=sys.stderr)
         return 1

@@ -64,6 +64,18 @@ def test_training_modules_are_checked(module):
     assert module in _modules()
 
 
+@pytest.mark.parametrize("module", [
+    "velocity_asr_tpu_torch.streaming", "velocity_asr_tpu_torch.audio",
+    "velocity_asr_tpu_torch.data", "velocity_asr_tpu_torch.ops.mel",
+    "velocity_asr_tpu_torch.ops.cuda_lib",
+])
+def test_stream_training_modules_are_checked(module):
+    """The modules of the streaming-aware objective (streaming_forward,
+    the device mel and its normalisations, the device-mel data, the
+    carried-state kernels' bindings) are among those both checks walk."""
+    assert module in _modules()
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"

@@ -118,26 +118,38 @@ def test_gradcheck_plain_pair_fp64():
 
 
 def test_carried_state_scan_under_grad_raises():
-    """The carried-state scan has no backward: under grad its forward runs
-    (streaming inference works as before), and any backward through it
-    raises instead of leaving the scan's inputs without gradient."""
+    """The carried-state scan under grad: its forward runs as inference
+    does, and a backward through y, through h_final alone, or to an h0
+    that alone needs grad no longer raises: it gives autograd's gradients
+    of the plain loop (the oracle, differentiated step by step). Under
+    no_grad the output has no grad_fn. (The name dates from when the
+    backward raised.)"""
     x, dt, A, B, C, D, _ = _inputs(5)
-    h0 = torch.zeros(2, 16, 8)
+    h0 = torch.tensor(np.random.default_rng(6).standard_normal((2, 16, 8)).astype(np.float32))
+
+    def oracle_grads(loss_of, with_h0=False):
+        t = _torch(x, dt, A, B, C, D, grad=True)
+        h = h0.clone().requires_grad_(with_h0)
+        loss_of(*tscan.selective_scan_sequential(*t, h0=h, return_state=True)).backward()
+        return [a.grad for a in t] + ([h.grad] if with_h0 else [])
+
     t = _torch(x, dt, A, B, C, D, grad=True)
     y = tscan.selective_scan(*t, mode="pallas", h0=h0)
     ref = tscan.selective_scan_sequential(*[a.detach() for a in t], h0=h0)
     torch.testing.assert_close(y.detach(), ref, rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="streaming-aware objective"):
-        y.sum().backward()
-    y, h = tscan.selective_scan(*_torch(x, dt, A, B, C, D, grad=True), mode="pallas",
-                                return_state=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP module item 5"):
-        h.sum().backward()
-    # a state that needs grad alone is refused too
-    y = tscan.selective_scan(*_torch(x, dt, A, B, C, D), mode="pallas",
-                             h0=h0.clone().requires_grad_())
-    with pytest.raises(NotImplementedError):
-        y.sum().backward()
+    y.sum().backward()
+    for got, want in zip([a.grad for a in t], oracle_grads(lambda y_, h_: y_.sum())):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    t = _torch(x, dt, A, B, C, D, grad=True)
+    _, h = tscan.selective_scan(*t, mode="pallas", return_state=True)
+    h.sum().backward()
+    assert all(a.grad is not None for a in t[:5]) and t[5].grad is None  # D acts on y only
+    # a state that needs grad alone
+    h_in = h0.clone().requires_grad_()
+    y = tscan.selective_scan(*_torch(x, dt, A, B, C, D), mode="pallas", h0=h_in)
+    y.sum().backward()
+    torch.testing.assert_close(h_in.grad, oracle_grads(lambda y_, h_: y_.sum(), True)[-1],
+                               rtol=1e-5, atol=1e-5)
     with torch.no_grad():  # inference keeps the plain carried-state scan
         y, h = tscan.selective_scan(*t, mode="pallas", h0=h0, return_state=True)
     assert y.grad_fn is None and h.shape == (2, 16, 8)

@@ -366,20 +366,38 @@ def test_training_step_after_inference_forward():
     assert trainer.optimizer.count == 1
 
 
-@pytest.mark.parametrize("change", [
-    {"model": {"gradient_checkpointing": True}},
-    {"train": {"streaming_chunks": 200}},
-    {"train": {"num_model_shards": 2}},
-    {"train": {"profile_dir": "trace"}},
-    {"train": {"augment": taugment.SpecAugmentConfig(enabled=True, noise_injection=True)}},
-    {"train": {"lid_loss_weight": 0.3}},
-], ids=lambda c: next(iter(next(iter(c.values())))))
-def test_unported_options_raise(change):
+WAVEFORM_AUGMENTATION = "waveform augmentation.*ROADMAP module item 2"
+
+
+@pytest.mark.parametrize("change,error,match", [
+    pytest.param({"model": {"gradient_checkpointing": True}}, NotImplementedError,
+                 "ROADMAP module item 5", id="gradient_checkpointing"),
+    # streaming needs device-mel batches: a host-mel batch is a
+    # misconfiguration, not a fallback to the offline objective
+    pytest.param({"train": {"streaming_chunks": 200}}, ValueError, "device_mel",
+                 id="streaming_chunks"),
+    pytest.param({"train": {"num_model_shards": 2}}, NotImplementedError,
+                 "ROADMAP module item 9", id="num_model_shards"),
+    pytest.param({"train": {"profile_dir": "trace"}}, NotImplementedError,
+                 "ROADMAP module item 5", id="profile_dir"),
+    pytest.param({"train": {"augment": taugment.SpecAugmentConfig(enabled=True,
+                                                                  noise_injection=True)}},
+                 NotImplementedError, WAVEFORM_AUGMENTATION, id="augment"),
+    pytest.param({"train": {"augment": taugment.SpecAugmentConfig(enabled=True,
+                                                                  speed_perturb=True)}},
+                 NotImplementedError, WAVEFORM_AUGMENTATION, id="speed_perturb"),
+    pytest.param({"train": {"lid_loss_weight": 0.3}}, NotImplementedError,
+                 "ROADMAP module item 8", id="lid_loss_weight"),
+])
+def test_unported_options_raise(change, error, match):
+    """Options the port does not train raise, naming their ROADMAP item,
+    when the Trainer is built; streaming_chunks raises ValueError at the
+    first micro-step on a host-mel batch."""
     model = _small_model(seed=0)
     model.config = dataclasses.replace(model.config, **change.get("model", {}))
     cfg = ttraining.TrainingConfig(**change.get("train", {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP module item"):
-        ttraining.Trainer(model, cfg, iter(()))
+    with pytest.raises(error, match=match):
+        ttraining.Trainer(model, cfg, iter(())).train_step(_batch(2))
 
 
 def test_eval_step_runs_the_inference_scan(monkeypatch):

@@ -3,7 +3,9 @@
 Constants: 16 kHz, n_fft=400 (25 ms), hop=160 (10 ms), 80 HTK mels,
 periodic Hann window, reflect pad n_fft//2 on both sides and
 center=False framing. The log-mel itself (window, DFT, power, mel, log)
-is ``ops/mel.py``; normalisation over time uses the unbiased std.
+is ``ops/mel.py``; normalisation over time uses the unbiased std, over
+the valid frames of a padded batch (``masked_normalize_mel``) or with the
+causal per-chunk statistics of a stream (``causal_normalize_mel``).
 """
 
 from __future__ import annotations
@@ -98,6 +100,39 @@ def masked_normalize_mel(mel: torch.Tensor, n_valid) -> torch.Tensor:
         torch.clamp(n - 1.0, min=1.0)
     )
     out = (mel - mean) / (torch.sqrt(var) + 1e-10)
+    return torch.where(valid, out, zero)
+
+
+def causal_normalize_mel(mel: torch.Tensor, n_valid, chunk_frames: int) -> torch.Tensor:
+    """Per-bin normalisation with causal per-chunk statistics.
+
+    Frame t of chunk c = t // chunk_frames is normalised with the mean and
+    unbiased std of frames [0, min((c + 1) * chunk_frames, n_valid)): the
+    statistics a live stream's normaliser holds when chunk c is processed
+    (``streaming.StreamingMel`` fed chunk-sized blocks). mel is (batch, T,
+    n_mels) un-normalised log-mel, n_valid a (batch,) tensor of valid
+    frame counts; T need not be a multiple of chunk_frames. The sums are
+    cumulative sums of the masked frames and of their squares, the
+    variance (sum2 - n mean^2) / max(n - 1, 1) clamped at 0, as in the JAX
+    package; padded frames are zeroed.
+    """
+    b, t, m = mel.shape
+    n_valid = torch.as_tensor(n_valid, device=mel.device).to(torch.int64).reshape(b, 1)
+    valid = torch.arange(t, device=mel.device)[None, :, None] < n_valid[:, :, None]
+    zero = torch.zeros((), dtype=torch.float32, device=mel.device)
+    x = torch.where(valid, mel.to(torch.float32), zero)
+    cs = torch.cumsum(x, dim=1)
+    cs2 = torch.cumsum(x * x, dim=1)
+    chunk = torch.arange(t, device=mel.device) // chunk_frames
+    cutoff = torch.clamp(torch.minimum((chunk[None, :] + 1) * chunk_frames, n_valid), min=1)
+    idx = (cutoff - 1)[:, :, None].expand(b, t, m)
+    s = torch.gather(cs, 1, idx)
+    s2 = torch.gather(cs2, 1, idx)
+    n = cutoff[:, :, None].to(torch.float32)
+    mean = s / n
+    var = (s2 - n * mean * mean) / torch.clamp(n - 1.0, min=1.0)
+    std = torch.sqrt(torch.clamp(var, min=0.0))
+    out = (mel - mean) / (std + 1e-10)
     return torch.where(valid, out, zero)
 
 

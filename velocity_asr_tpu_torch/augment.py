@@ -1,5 +1,5 @@
-"""SpecAugment for training (mirrors velocity_asr_tpu/augment.py, host-mel
-path).
+"""SpecAugment for training (mirrors velocity_asr_tpu/augment.py, the
+masking; on host-mel and device-mel batches alike).
 
 Time and frequency masks on a batched mel, set to 0 (the batch pad
 value). The JAX package draws them inside its jitted step from the step's
@@ -9,8 +9,8 @@ rule is the same: widths uniform in [0, max_width], each time mask capped
 at half its utterance's valid length, starts drawn as
 ``randint(0, 2**30) % (limit - width + 1)`` so a mask never spills past
 the limit. The waveform augmentations (``noise_injection``,
-``speed_perturb``) act on raw audio on the device and are not ported; the
-trainer raises on them, as the JAX trainer does without ``device_mel``.
+``speed_perturb``) act on device-mel batches' raw audio and are not
+ported; the trainer raises on them.
 """
 
 from __future__ import annotations

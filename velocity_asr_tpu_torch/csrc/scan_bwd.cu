@@ -2,7 +2,10 @@
 //
 // Replaces: velocity_asr_tpu/ops/scan_pallas.py `_make_bwd_kernel`
 // (with_state=False), launched by `_pallas_scan_bwd`, plus the sum of its
-// per-batch dA over the batch that `_pallas_scan_bwd` does after it.
+// per-batch dA over the batch that `_pallas_scan_bwd` does after it
+// (entry `scan_bwd_f32`); and `_make_bwd_kernel(with_state=True)`,
+// launched by `_pallas_scan_bwd` with `gh` under the carried-state VJP of
+// the streaming-aware objective (entry `scan_bwd_state_f32`).
 //
 // Given the forward's inputs x, dt (batch, L, D), A (N,), B, C (batch, L,
 // N), the chunk-entry states `bounds` (batch, ceil(L/16), D, N) that
@@ -19,6 +22,15 @@
 //   dA[n]    = sum_{b,t,d} dt[t,d] dec[t] h[t-1] lam[t]
 //
 // (the D*x skip's terms are the caller's, as on the TPU).
+//
+// With a carried state (kWithState), the forward started from h[-1] = h0
+// and also returned h_final = h[L-1]: the adjoint starts from its
+// cotangent, lam[L] = gh (batch, D, N), instead of 0, and what is left of
+// it after step 0, dec[0] * lam[0] = dLoss/dh[-1], is stored as dh0 in the
+// same layout (the JAX kernel's dh0_ref[:] = lam_ref[:] after its chunk-0
+// program). The bounds then start from h0, which the recompute reads like
+// any other bound. With gh = 0 and bounds from h0 = 0 the arithmetic is
+// scan_bwd_f32's.
 //
 // What bounds it on an H100: as in the forward, the serial chain over t
 // (twice here: the recompute and the adjoint), and then the reductions
@@ -49,7 +61,10 @@
 //   identity (dec = 1, u = 0) and writes nothing.
 // - N above 64 runs in passes of 64 states; ds, dx and ddt are linear in
 //   the states' contributions, so each pass adds its part (the thread's
-//   own earlier write), and dB, dC and dA are per state.
+//   own earlier write), and dB, dC and dA are per state. With a carried
+//   state each pass seeds its lanes' lam from its own slice of gh and
+//   stores its own slice of dh0: gh and dh0 add 2 * batch * D * N * 4
+//   bytes, read once and written once.
 // expf is the IEEE one: no fast math.
 
 #include <cuda_runtime.h>
@@ -77,14 +92,16 @@ inline int blocks_per_batch(int D, int G) {
   return (D + channels - 1) / channels;
 }
 
-template <int G, int S>
+// kWithState seeds the adjoint from gh and stores dh0 (both (batch, D, N)).
+template <int G, int S, bool kWithState>
 __global__ void __launch_bounds__(kThreads) scan_bwd_kernel(
     const float* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ Bm,
     const float* __restrict__ Cm, const float* __restrict__ bounds,
-    const float* __restrict__ gy, float* __restrict__ dx,
-    float* __restrict__ ddt, float* __restrict__ part_dB,
-    float* __restrict__ part_dC, float* __restrict__ part_dA, int L, int D,
+    const float* __restrict__ gy, const float* __restrict__ gh,
+    float* __restrict__ dx, float* __restrict__ ddt,
+    float* __restrict__ part_dB, float* __restrict__ part_dC,
+    float* __restrict__ part_dA, float* __restrict__ dh0, int L, int D,
     int N) {
   constexpr int NP = G * S;  // states per pass
   constexpr int kC = kThreads / G;  // channels per block
@@ -113,6 +130,8 @@ __global__ void __launch_bounds__(kThreads) scan_bwd_kernel(
   // this block's partial rows: (batch, n_blk, L, N) and (batch, n_blk, N)
   const size_t part = (static_cast<size_t>(b) * n_blk + blk) * L * N;
   const size_t part_a = (static_cast<size_t>(b) * n_blk + blk) * N;
+  // this channel's carried states, (batch, D, N); only read for d < D
+  const size_t state = (static_cast<size_t>(b) * D + d) * N;
 
   for (int n0 = 0; n0 < N; n0 += NP) {
     const int live = min(NP, N - n0);  // states of this pass below N
@@ -121,7 +140,10 @@ __global__ void __launch_bounds__(kThreads) scan_bwd_kernel(
     for (int j = 0; j < S; ++j) {
       const int n = j * G + g;
       a[j] = n < live ? A[n0 + n] : 0.f;
-      lam[j] = 0.f;
+      if constexpr (kWithState)
+        lam[j] = n < live && d < D ? gh[state + n0 + n] : 0.f;
+      else
+        lam[j] = 0.f;
       da[j] = 0.f;
     }
 
@@ -238,6 +260,17 @@ __global__ void __launch_bounds__(kThreads) scan_bwd_kernel(
       }
     }
 
+    if constexpr (kWithState) {
+      // lam has crossed step 0: dLoss/dh[-1] for this pass's states
+      if (d < D) {
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          const int n = j * G + g;
+          if (n < live) dh0[state + n0 + n] = lam[j];
+        }
+      }
+    }
+
     // dA over the block's channels: the warp's, then the warps'
 #pragma unroll
     for (int j = 0; j < S; ++j) {
@@ -289,12 +322,12 @@ __global__ void __launch_bounds__(kReduceThreads) scan_bwd_reduce_kernel(
 }
 
 struct Args {
-  const float *x, *dt, *A, *B, *C, *bounds, *g;
-  float *dx, *ddt, *dA, *dB, *dC, *work;
+  const float *x, *dt, *A, *B, *C, *bounds, *g, *gh;
+  float *dx, *ddt, *dA, *dB, *dC, *dh0, *work;
   int batch, L, D, N;
 };
 
-template <int G, int S>
+template <int G, int S, bool kWithState>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int n_blk = blocks_per_batch(a.D, G);
   const size_t rows = static_cast<size_t>(a.batch) * n_blk * a.L * a.N;
@@ -302,9 +335,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   float* part_dC = part_dB + rows;
   float* part_dA = part_dC + rows;
   dim3 grid(n_blk, a.batch);
-  scan_bwd_kernel<G, S><<<grid, kThreads, 0, stream>>>(
-      a.x, a.dt, a.A, a.B, a.C, a.bounds, a.g, a.dx, a.ddt, part_dB, part_dC,
-      part_dA, a.L, a.D, a.N);
+  scan_bwd_kernel<G, S, kWithState><<<grid, kThreads, 0, stream>>>(
+      a.x, a.dt, a.A, a.B, a.C, a.bounds, a.g, a.gh, a.dx, a.ddt, part_dB,
+      part_dC, part_dA, a.dh0, a.L, a.D, a.N);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t outputs = static_cast<size_t>(a.batch) * a.L * a.N;
@@ -316,10 +349,25 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// S = 4 states a lane; N > 64 in passes of 64. Returns
+// cudaErrorInvalidValue for an empty or negative size and otherwise the
+// launches' error code.
+template <bool kWithState>
+cudaError_t dispatch(const Args& a, cudaStream_t stream) {
+  if (a.batch <= 0 || a.L <= 0 || a.D <= 0 || a.N <= 0) return cudaErrorInvalidValue;
+  switch (lanes_for(a.N)) {
+    case 1: return launch<1, 4, kWithState>(a, stream);
+    case 2: return launch<2, 4, kWithState>(a, stream);
+    case 4: return launch<4, 4, kWithState>(a, stream);
+    case 8: return launch<8, 4, kWithState>(a, stream);
+    default: return launch<16, 4, kWithState>(a, stream);
+  }
+}
+
 }  // namespace
 
-// Floats of workspace scan_bwd_f32 needs: the blocks' partial dB and dC
-// rows and dA sums.
+// Floats of workspace scan_bwd_f32 and scan_bwd_state_f32 need: the
+// blocks' partial dB and dC rows and dA sums.
 extern "C" long long scan_bwd_workspace_floats(int batch, int L, int D, int N) {
   if (batch <= 0 || L <= 0 || D <= 0 || N <= 0) return 0;
   const long long n_blk = blocks_per_batch(D, lanes_for(N));
@@ -330,9 +378,7 @@ extern "C" long long scan_bwd_workspace_floats(int batch, int L, int D, int N) {
 // dB, dC (batch, L, N), all fp32, from the forward's inputs, its bounds
 // (batch, ceil(L/16), D, N) and g = dLoss/dy (batch, L, D). `work` holds
 // scan_bwd_workspace_floats(batch, L, D, N) floats. Two launches on
-// `stream`: the scan, then the sum of the blocks' partials. Returns
-// cudaErrorInvalidValue for an empty or negative size and otherwise the
-// launches' error code.
+// `stream`: the scan, then the sum of the blocks' partials.
 extern "C" cudaError_t scan_bwd_f32(const float* x, const float* dt,
                                     const float* A, const float* B,
                                     const float* C, const float* bounds,
@@ -340,13 +386,24 @@ extern "C" cudaError_t scan_bwd_f32(const float* x, const float* dt,
                                     float* dA, float* dB, float* dC,
                                     float* work, int batch, int L, int D,
                                     int N, cudaStream_t stream) {
-  if (batch <= 0 || L <= 0 || D <= 0 || N <= 0) return cudaErrorInvalidValue;
-  const Args a{x, dt, A, B, C, bounds, g, dx, ddt, dA, dB, dC, work, batch, L, D, N};
-  switch (lanes_for(N)) {  // S = 4 states a lane; N > 64 in passes of 64
-    case 1: return launch<1, 4>(a, stream);
-    case 2: return launch<2, 4>(a, stream);
-    case 4: return launch<4, 4>(a, stream);
-    case 8: return launch<8, 4>(a, stream);
-    default: return launch<16, 4>(a, stream);
-  }
+  const Args a{x, dt, A, B, C, bounds, g, nullptr, dx, ddt, dA, dB, dC,
+               nullptr, work, batch, L, D, N};
+  return dispatch<false>(a, stream);
+}
+
+// The backward of the carried-state scan: as scan_bwd_f32, with the
+// bounds of scan_fwd_bounds_state_f32 (chunk 0 holds h0), gh = dLoss/d
+// h_final and dh0 = dLoss/dh0, both (batch, D, N) fp32; gh and dh0 must
+// not overlap. Two launches, as scan_bwd_f32.
+extern "C" cudaError_t scan_bwd_state_f32(const float* x, const float* dt,
+                                          const float* A, const float* B,
+                                          const float* C, const float* bounds,
+                                          const float* g, const float* gh,
+                                          float* dx, float* ddt, float* dA,
+                                          float* dB, float* dC, float* dh0,
+                                          float* work, int batch, int L, int D,
+                                          int N, cudaStream_t stream) {
+  const Args a{x, dt, A, B, C, bounds, g, gh, dx, ddt, dA, dB, dC, dh0, work,
+               batch, L, D, N};
+  return dispatch<true>(a, stream);
 }

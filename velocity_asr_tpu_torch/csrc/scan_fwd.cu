@@ -6,7 +6,10 @@
 // (entry `scan_fwd_f32`); save_bounds=False with with_state=True,
 // launched by `_pallas_scan_fwd_state` (entry `scan_fwd_state_f32`); and
 // save_bounds=True with with_state=False, launched by `_pallas_scan_fwd`
-// under the training VJP (entry `scan_fwd_bounds_f32`).
+// under the training VJP (entry `scan_fwd_bounds_f32`); and
+// save_bounds=True with with_state=True, launched by
+// `_pallas_scan_fwd_state(save_bounds=True)` under the carried-state VJP
+// of the streaming-aware objective (entry `scan_fwd_bounds_state_f32`).
 //
 // Computes, in fp32, per batch element b and channel d:
 //   h[t] = exp(dt[t,d] * A) * h[t-1] + B[t] * (dt[t,d] * x[t,d])
@@ -25,6 +28,9 @@
 // shorter than 16 steps needs no padding: its entry state is stored like
 // any other. The bounds add batch * ceil(L/16) * D * N * 4 bytes of
 // writes (30 MB at (16, 300, 384, 64), more than x, dt and y together).
+// Seeded by h0 (the streaming-aware training forward), bounds[b, 0] is h0
+// itself and h_final is stored as in the streaming entry: the same
+// instantiation flags combined, no other code.
 //
 // What bounds it on an H100: not bytes and not FLOPs but the serial chain
 // over t. At the main path's shapes (batch 1, D=384, L=100..300) the
@@ -238,4 +244,15 @@ extern "C" cudaError_t scan_fwd_bounds_f32(const float* x, const float* dt,
                                            int D, int N, cudaStream_t stream) {
   return dispatch<false, true>(x, dt, A, B, C, nullptr, y, nullptr, bounds,
                                batch, L, D, N, stream);
+}
+
+// The streaming-aware training forward: h[-1] = h0, h_final = h[L-1], and
+// bounds (batch, ceil(L/16), D, N) fp32 receives the state entering each
+// 16-step chunk (chunk 0: h0). h0, h_final and bounds must not overlap.
+extern "C" cudaError_t scan_fwd_bounds_state_f32(
+    const float* x, const float* dt, const float* A, const float* B,
+    const float* C, const float* h0, float* y, float* bounds, float* h_final,
+    int batch, int L, int D, int N, cudaStream_t stream) {
+  return dispatch<true, true>(x, dt, A, B, C, h0, y, h_final, bounds, batch,
+                              L, D, N, stream);
 }

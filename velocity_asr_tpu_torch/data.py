@@ -1,15 +1,18 @@
-"""Data pipeline (mirrors velocity_asr_tpu/data.py, host-mel path).
+"""Data pipeline (mirrors velocity_asr_tpu/data.py).
 
 ``ASRDataset`` reads a JSONL manifest and computes each item's log-mel on
-the host (numpy, normalised over the utterance); ``ASRCollator`` pads a
-batch to a multiple of ``frame_bucket`` frames with ``mel_pad_value``, so
-batch shapes repeat; ``calibration_batches`` draws the mel batches that
-calibrate static int8 scales. The global context pools over the padded
-length, so the padding is part of every result. ``DataLoader`` batches a
-dataset for training on ``torch.utils.data.DataLoader`` worker processes
-(shuffled from an explicit generator, a new order each epoch) and
-``cycle`` repeats it. Raw-audio (device-mel) items and language labels
-are not ported yet.
+the host (numpy, normalised over the utterance), or with ``device_mel``
+keeps the raw audio for the trainer to turn into a mel on the device;
+``ASRCollator`` pads a batch to a multiple of ``frame_bucket`` frames
+with ``mel_pad_value`` (raw audio: reflect-padded to that many frames'
+samples, shipped as int16 PCM), so batch shapes repeat;
+``calibration_batches`` draws the mel batches that calibrate static int8
+scales. The global context pools over the padded length, so the padding
+is part of every result. ``DataLoader`` batches a dataset for training on
+``torch.utils.data.DataLoader`` worker processes (shuffled from an
+explicit generator, a new order each epoch; the collated numpy arrays,
+the int16 PCM too, cross from the workers as they are) and ``cycle``
+repeats it. Language labels are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 import torch.utils.data
 
-from .audio import SAMPLE_RATE, compute_mel_spectrogram_np, load_audio
+from .audio import HOP_LENGTH, SAMPLE_RATE, compute_mel_spectrogram_np, load_audio
 
 PAD_TOKEN_ID = 2  # <pad>
 
@@ -34,16 +37,25 @@ class ASRDataset:
     "duration": ...}. Filters by duration (an absent duration is kept),
     skips missing files, and builds a character vocabulary from the
     corpus (<blank>=0, <unk>=1, <pad>=2, then the sorted characters).
+    With `device_mel` an item carries its raw audio and its frame count
+    1 + samples // hop instead of a mel.
     """
 
     def __init__(self, manifest_path: str, max_duration: Optional[float] = 30.0,
                  min_duration: float = 0.5, sample_rate: int = SAMPLE_RATE,
-                 normalize_audio: bool = True):
+                 normalize_audio: bool = True, device_mel: bool = False):
         self.manifest_path = manifest_path
         self.max_duration = max_duration
         self.min_duration = min_duration
         self.sample_rate = sample_rate
         self.normalize_audio = normalize_audio
+        self.device_mel = device_mel
+        if device_mel and not normalize_audio:
+            # the device-mel trainer always normalises on the device
+            raise ValueError(
+                "normalize_audio=False is not supported with device_mel "
+                "(the train step normalizes on device); use host mel"
+            )
         self.samples = self._load_manifest()
         self.vocab = self._build_vocab()
 
@@ -85,15 +97,28 @@ class ASRDataset:
         sample = self.samples[idx]
         audio = load_audio(sample["audio_path"], sample_rate=self.sample_rate)
         text = sample.get("text", "")
-        tokens = self.text_to_tokens(text)
-        mel = compute_mel_spectrogram_np(audio, normalize=self.normalize_audio)
-        return {
-            "targets": np.asarray(tokens, np.int32),
-            "target_lengths": np.int32(len(tokens)),
-            "text": text,
-            "mel_spectrogram": mel,
-            "input_lengths": np.int32(mel.shape[0]),
-        }
+        return speech_item(audio, text, self.text_to_tokens(text), self.device_mel,
+                           self.normalize_audio)
+
+
+def speech_item(audio: np.ndarray, text: str, tokens: List[int], device_mel: bool,
+                normalize: bool = True) -> Dict[str, Any]:
+    """A dataset item: targets and the host mel with its frame count, or
+    with `device_mel` the raw audio and its frame count 1 + samples // hop
+    (the mel is computed on the device by the trainer)."""
+    item = {
+        "targets": np.asarray(tokens, np.int32),
+        "target_lengths": np.int32(len(tokens)),
+        "text": text,
+    }
+    if device_mel:
+        item["audio"] = np.asarray(audio, np.float32)
+        item["input_lengths"] = np.int32(1 + len(audio) // HOP_LENGTH)
+    else:
+        mel = compute_mel_spectrogram_np(audio, normalize=normalize)
+        item["mel_spectrogram"] = mel
+        item["input_lengths"] = np.int32(mel.shape[0])
+    return item
 
 
 def _round_up(n: int, multiple: int) -> int:
@@ -102,7 +127,8 @@ def _round_up(n: int, multiple: int) -> int:
 
 class ASRCollator:
     """Pad a batch: mel frames to a multiple of `frame_bucket`, targets to
-    a multiple of `target_bucket` (1 and 1 pad to the batch maximum)."""
+    a multiple of `target_bucket` (1 and 1 pad to the batch maximum). A
+    batch of raw-audio items pads the audio instead (``_pad_audio``)."""
 
     def __init__(self, pad_token_id: int = PAD_TOKEN_ID, mel_pad_value: float = 0.0,
                  frame_bucket: int = 100, target_bucket: int = 32):
@@ -112,33 +138,53 @@ class ASRCollator:
         self.target_bucket = max(target_bucket, 1)
 
     def __call__(self, batch: List[Dict[str, Any]]) -> Dict[str, Any]:
+        if "audio" in batch[0]:
+            return {"audio": self._pad_audio(batch), **self._targets(batch)}
         max_mel = _round_up(
             max(item["mel_spectrogram"].shape[0] for item in batch), self.frame_bucket
         )
+        mel_bins = batch[0]["mel_spectrogram"].shape[1]
+        mels = np.full((len(batch), max_mel, mel_bins), self.mel_pad_value, np.float32)
+        for i, item in enumerate(batch):
+            mels[i, : item["mel_spectrogram"].shape[0]] = item["mel_spectrogram"]
+        return {"mel_spectrogram": mels, **self._targets(batch)}
+
+    def _targets(self, batch: List[Dict[str, Any]]) -> Dict[str, Any]:
+        """Targets padded with `pad_token_id` to a multiple of
+        `target_bucket`, the input and target lengths, the texts."""
         max_tgt = _round_up(
             max(1, max(item["targets"].shape[0] for item in batch)), self.target_bucket
         )
-        n = len(batch)
-        mel_bins = batch[0]["mel_spectrogram"].shape[1]
-        mels = np.full((n, max_mel, mel_bins), self.mel_pad_value, np.float32)
-        targets = np.full((n, max_tgt), self.pad_token_id, np.int32)
-        input_lengths = np.empty((n,), np.int32)
-        target_lengths = np.empty((n,), np.int32)
-        texts = []
+        targets = np.full((len(batch), max_tgt), self.pad_token_id, np.int32)
         for i, item in enumerate(batch):
-            m, t = item["mel_spectrogram"], item["targets"]
-            mels[i, : m.shape[0]] = m
-            targets[i, : t.shape[0]] = t
-            input_lengths[i] = item["input_lengths"]
-            target_lengths[i] = item["target_lengths"]
-            texts.append(item.get("text", ""))
+            targets[i, : item["targets"].shape[0]] = item["targets"]
         return {
-            "mel_spectrogram": mels,
             "targets": targets,
-            "input_lengths": input_lengths,
-            "target_lengths": target_lengths,
-            "texts": texts,
+            "input_lengths": np.asarray([item["input_lengths"] for item in batch], np.int32),
+            "target_lengths": np.asarray([item["target_lengths"] for item in batch], np.int32),
+            "texts": [item.get("text", "") for item in batch],
         }
+
+    def _pad_audio(self, batch: List[Dict[str, Any]]) -> np.ndarray:
+        """Device-mel collation: the frame count 1 + ceil(samples / hop) of
+        the longest item, rounded up to the bucket, fixes the sample length
+        (frames - 1) * hop, which covers every item; each item is
+        reflect-padded to it (the offline pipeline's right reflect pad, so
+        the mel of the valid frames is exact) and crosses as int16 PCM,
+        clip(audio * 32768, -32768, 32767)."""
+        max_mel = _round_up(max(1 + -(-len(item["audio"]) // HOP_LENGTH) for item in batch),
+                            self.frame_bucket)
+        target_samples = (max_mel - 1) * HOP_LENGTH
+        audio = np.zeros((len(batch), target_samples), np.int16)
+        for i, item in enumerate(batch):
+            a = np.asarray(item["audio"], np.float32)
+            if len(a) >= 2:
+                padded = np.pad(a, (0, target_samples - len(a)), mode="reflect")
+            else:
+                padded = np.zeros(target_samples, np.float32)
+                padded[: len(a)] = a
+            audio[i] = np.clip(padded * 32768.0, -32768, 32767).astype(np.int16)
+        return audio
 
 
 class DataLoader:

@@ -6,7 +6,8 @@ averaging matmul (ops/pooling.py). The cross-attention is small (<= 64
 keys) and runs as plain matmuls with the softmax in fp32. With int8 set,
 the ten projections here are int8 Dense layers (``layers.quant_dense``).
 In training mode the attention weights and the global SSM's blocks apply
-dropout, their masks drawn from the ``rng`` passed in.
+dropout, offline and streaming, their masks drawn from the ``rng`` passed
+in.
 """
 
 from __future__ import annotations
@@ -157,7 +158,7 @@ class HierarchicalGlobalContext(nn.Module):
         elif streaming:
             x_new, _ = self.pool1(summary.to(self.dtype), pre_pooled=True)
             ssm_new, new_blocks = self.global_ssm(x_new, gc_state["blocks"],
-                                                  return_state=True)
+                                                  return_state=True, rng=rng)
             mem = gc_state["mem"]
             mem_tokens, s = mem.shape[1], ssm_new.shape[1]
             ssm_new = ssm_new.to(torch.float32)

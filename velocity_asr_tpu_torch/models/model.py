@@ -1,5 +1,5 @@
 """VELOCITY-ASR model assembly (mirrors velocity_asr_tpu/models/model.py),
-offline and streaming inference, and the offline forward of training.
+offline and streaming, for inference and training.
 
 ``create_model`` initialises every parameter from the distributions the
 JAX package's ``init_params`` draws from; ``from_pretrained`` reads the
@@ -63,9 +63,9 @@ class VelocityASR(nn.Module):
                 time_offset: int = 0, return_state: bool = False, frozen_mem: bool = False,
                 return_features: bool = False, rng: Optional[torch.Generator] = None):
         """(batch, frames, mel_bins) -> fp32 logits (batch, (frames+1)//2, vocab)
-        [, features dict] offline. In training mode the offline forward
-        applies dropout with masks from `rng` (a ``torch.Generator`` on the
-        model's device); the streaming forward is inference only.
+        [, features dict] offline. In training mode both forwards apply
+        dropout with masks from `rng` (a ``torch.Generator`` on the model's
+        device), at the JAX package's sites.
 
         Streaming (``stream_state`` given or ``return_state``): one chunk
         of an even number of frames, its first output frame at
@@ -75,7 +75,10 @@ class VelocityASR(nn.Module):
         (``HierarchicalGlobalContext``). With ``return_state`` it returns
         (logits, new state), the state a dict with the keys of
         ``streaming.init_stream_state``, every leaf fp32 (``gc_init``
-        bool). ``frozen_mem`` is the lookahead emit pass: the global
+        bool) and, under autograd, in the graph: the streaming-aware
+        objective differentiates through the carried state
+        (``streaming.streaming_forward``). ``frozen_mem`` is the lookahead
+        emit pass: the global
         context attends over ``stream_state["gc_mem"]`` as given and the
         gc_* leaves echo the inputs, while the local state still advances
         (a caller re-decoding an old chunk discards it).
@@ -87,10 +90,6 @@ class VelocityASR(nn.Module):
                 "frozen_mem requires a stream_state produced by at least "
                 "one advancing streaming step"
             )
-        if streaming and self.training:
-            raise NotImplementedError(
-                "training through the streaming forward is the streaming-aware "
-                "objective (ROADMAP module item 5)")
         if not streaming:
             x = self.temporal_binding(mel_spectrogram)
             local_features = self.local_ssm(x, rng=rng)
@@ -109,14 +108,16 @@ class VelocityASR(nn.Module):
         x, mel_carry = self.temporal_binding(
             mel_spectrogram, carry=state["mel_carry"], time_offset=time_offset,
             return_carry=True)
-        local_features, block_states = self.local_ssm(x, state["blocks"], return_state=True)
+        local_features, block_states = self.local_ssm(x, state["blocks"], return_state=True,
+                                                      rng=rng)
         summary = adaptive_avg_pool1d(local_features.to(torch.float32),
                                       cfg.stream_summary_tokens)
         gc_state = {"mem": state["gc_mem"], "blocks": state["gc_blocks"],
                     "init": state["gc_init"]}
         fused_features, new_gc = self.global_context(local_features, summary=summary,
-                                                     gc_state=gc_state, frozen=frozen_mem)
-        logits = self.ctc_head(fused_features).to(torch.float32)
+                                                     gc_state=gc_state, frozen=frozen_mem,
+                                                     rng=rng)
+        logits = self.ctc_head(fused_features, rng=rng).to(torch.float32)
         if not return_state:
             return logits
         return logits, {

@@ -4,9 +4,11 @@ offline and streaming.
 The recurrence always runs in fp32; the Dense layers run in the compute
 dtype. A streaming block carries, per stream, its last (k-1) normed
 frames (the causal conv's tail, fp32) and the scan state (batch,
-d_inner, state_dim) fp32: ``{"conv": ..., "ssm": ...}``. In training
-mode each block applies dropout after the SSM, after the FFN's GELU and
-after the FFN (the JAX sites), its masks drawn from the ``rng`` passed in.
+d_inner, state_dim) fp32: ``{"conv": ..., "ssm": ...}``, in the autograd
+graph when it records (the streaming-aware objective). In training mode
+each block applies dropout after the SSM, after the FFN's GELU and after
+the FFN (the JAX sites), offline and streaming, its masks drawn from the
+``rng`` passed in.
 """
 
 from __future__ import annotations

@@ -8,8 +8,9 @@ loaded with ``ctypes``; every pointer and the stream pass as
 import, and a failed build raises.
 
 ``launch_counts`` counts the launches of each kernel: a wrapper adds one
-where it launches its kernel, and nowhere else (two for ``scan_bwd_f32``,
-whose C entry launches the scan and then the sum of its partials).
+where it launches its kernel, and nowhere else (two for ``scan_bwd_f32``
+and ``scan_bwd_state_f32``, whose C entries launch the scan and then the
+sum of its partials).
 """
 
 from __future__ import annotations
@@ -44,9 +45,15 @@ SIGNATURES = {
     "scan_fwd_state_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, dt, A, B, C, y, bounds, batch, length, d_inner, state_dim, stream
     "scan_fwd_bounds_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, dt, A, B, C, h0, y, bounds, h_final, batch, length, d_inner,
+    # state_dim, stream
+    "scan_fwd_bounds_state_f32": [_P] * 9 + [_I, _I, _I, _I, _P],
     # x, dt, A, B, C, bounds, g, dx, ddt, dA, dB, dC, work, batch, length,
     # d_inner, state_dim, stream (two launches: the scan, then its reduction)
     "scan_bwd_f32": [_P] * 13 + [_I, _I, _I, _I, _P],
+    # x, dt, A, B, C, bounds, g, gh, dx, ddt, dA, dB, dC, dh0, work, batch,
+    # length, d_inner, state_dim, stream (two launches, as scan_bwd_f32)
+    "scan_bwd_state_f32": [_P] * 15 + [_I, _I, _I, _I, _P],
     # frames, dft_real, dft_imag, fb_t, out, n_frames, n_fft, n_freq, n_mels, stream
     "log_mel_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w_q, w_scale, out, x_q_out (or None), M, K, N, stream

@@ -22,10 +22,18 @@ from them and runs the adjoint (``csrc/scan_fwd.cu`` and
 ``csrc/scan_bwd.cu`` on CUDA tensors, ``scan_fwd_bounds_plain`` and
 ``scan_bwd_plain`` on CPU tensors). ``SelectiveScanFn`` ties the two
 together as an autograd Function; ``selective_scan`` takes it whenever
-autograd records. The carried-state scan has no backward yet: under
-autograd it runs as ``CarriedStateScanFn``, whose backward raises. The
-raw wrappers refuse CUDA inputs that require grad while autograd
-records: their kernels' outputs carry no gradient.
+autograd records.
+
+The streaming-aware objective differentiates the carried-state scan:
+``scan_fwd_bounds_state`` runs the bounds forward from h0 (bounds[:, 0]
+is h0) and also returns h_final, and ``scan_bwd_state`` starts the
+adjoint from the cotangent gh of h_final and also returns dh0 (kernels
+``scan_fwd_bounds_state_f32`` and ``scan_bwd_state_f32``; the same plain
+versions with h0 and gh on CPU tensors). ``CarriedStateScanFn`` ties
+them together; without autograd the streaming path keeps
+``scan_fwd_state``, which stores no bounds. The raw wrappers refuse CUDA
+inputs that require grad while autograd records: their kernels' outputs
+carry no gradient.
 """
 
 from __future__ import annotations
@@ -59,13 +67,17 @@ def scan_fwd_plain(x, dt, A, B, C, h0=None, return_state: bool = False):
     return y
 
 
-def scan_fwd_bounds_plain(x, dt, A, B, C):
-    """Plain version of the training forward: (y, bounds), h from 0, no
-    D*x skip. bounds[:, c] is the state entering step TRAIN_CHUNK * c
-    (zeros for c = 0), (batch, ceil(L/16), d_inner, state_dim), in x's
-    dtype."""
+def scan_fwd_bounds_plain(x, dt, A, B, C, h0=None, return_state: bool = False):
+    """Plain version of the training forward: (y, bounds), no D*x skip.
+    h starts from h0 (batch, d_inner, state_dim), or 0. bounds[:, c] is
+    the state entering step TRAIN_CHUNK * c (h0, or zeros, for c = 0),
+    (batch, ceil(L/16), d_inner, state_dim), in x's dtype. With
+    return_state it returns (y, bounds, h_final)."""
     batch, length, d_inner = x.shape
-    h = torch.zeros(batch, d_inner, A.shape[0], dtype=x.dtype, device=x.device)
+    if h0 is None:
+        h = torch.zeros(batch, d_inner, A.shape[0], dtype=x.dtype, device=x.device)
+    else:
+        h = h0
     ys, bounds = [], []
     for t in range(length):
         if t % TRAIN_CHUNK == 0:
@@ -73,11 +85,15 @@ def scan_fwd_bounds_plain(x, dt, A, B, C):
         h = torch.exp(dt[:, t, :, None] * A) * h + (dt[:, t] * x[:, t])[..., None] * B[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
     if not ys:
-        return torch.zeros_like(x), h.new_zeros(batch, 0, d_inner, A.shape[0])
-    return torch.stack(ys, dim=1), torch.stack(bounds, dim=1)
+        out = torch.zeros_like(x), h.new_zeros(batch, 0, d_inner, A.shape[0])
+    else:
+        out = torch.stack(ys, dim=1), torch.stack(bounds, dim=1)
+    if return_state:
+        return out + (h.clone() if h is h0 else h,)
+    return out
 
 
-def scan_bwd_plain(x, dt, A, B, C, bounds, g):
+def scan_bwd_plain(x, dt, A, B, C, bounds, g, gh=None):
     """Plain version of the backward: (dx, ddt, dA, dB, dC) of the scan
     part (no D*x skip terms) for the cotangent g of y, written out as the
     kernel computes it: chunks in reverse, each chunk's states recomputed
@@ -85,13 +101,18 @@ def scan_bwd_plain(x, dt, A, B, C, bounds, g):
 
         lam[t] = C[t] g[t] + exp(dt[t+1] A) lam[t+1]
 
-    over the chunk's steps in reverse. Works in the inputs' dtype (fp32 or
-    fp64)."""
+    over the chunk's steps in reverse, from lam[L] = gh, the cotangent of
+    h_final (batch, d_inner, state_dim), or 0. With gh it also returns
+    dh0 = exp(dt[0] A) lam[0], the cotangent of h0. Works in the inputs'
+    dtype (fp32 or fp64)."""
     batch, length, d_inner = x.shape
     dx, ddt = torch.zeros_like(x), torch.zeros_like(x)
     dB, dC = torch.zeros_like(B), torch.zeros_like(C)
     dA = torch.zeros_like(A)
-    lam = torch.zeros(batch, d_inner, A.shape[0], dtype=x.dtype, device=x.device)
+    if gh is None:
+        lam = torch.zeros(batch, d_inner, A.shape[0], dtype=x.dtype, device=x.device)
+    else:
+        lam = gh
     for c in reversed(range(bounds.shape[1])):
         t0, t1 = c * TRAIN_CHUNK, min(length, (c + 1) * TRAIN_CHUNK)
         hs = [bounds[:, c]]  # hs[i] = h[t0 + i - 1]
@@ -110,6 +131,8 @@ def scan_bwd_plain(x, dt, A, B, C, bounds, g):
             dC[:, t] = (hs[i + 1] * g[:, t, :, None]).sum(1)
             dA = dA + (dd * dt[:, t, :, None]).sum((0, 1))
             lam = lam * decs[i]
+    if gh is not None:
+        return dx, ddt, dA, dB, dC, lam.clone() if lam is gh else lam
     return dx, ddt, dA, dB, dC
 
 
@@ -120,6 +143,13 @@ def _refuse_grad(*tensors) -> None:
         raise RuntimeError(
             "the scan kernels' outputs carry no gradient: call selective_scan "
             "(SelectiveScanFn) to differentiate through the scan")
+
+
+def _check_state(h, name, x, state_dim):
+    """h must be a (batch, d_inner, state_dim) fp32 state on x's device."""
+    check_tensor(h, name, (x.shape[0], x.shape[2], state_dim))
+    if h.device != x.device:
+        raise ValueError(f"{name} is on {h.device}, x on {x.device}")
 
 
 def _check_inputs(x, dt, A, B, C):
@@ -171,9 +201,7 @@ def scan_fwd_state(x, dt, A, B, C, h0):
     if not x.is_cuda:
         return scan_fwd_plain(x, dt, A, B, C, h0, return_state=True)
     batch, length, d_inner, state_dim = _check_inputs(x, dt, A, B, C)
-    check_tensor(h0, "h0", (batch, d_inner, state_dim))
-    if h0.device != x.device:
-        raise ValueError(f"h0 is on {h0.device}, x on {x.device}")
+    _check_state(h0, "h0", x, state_dim)
     _refuse_grad(x, dt, A, B, C, h0)
     y = torch.empty_like(x)
     if batch == 0 or length == 0:
@@ -213,6 +241,35 @@ def scan_fwd_bounds(x, dt, A, B, C):
     return y, bounds
 
 
+def scan_fwd_bounds_state(x, dt, A, B, C, h0):
+    """Training forward of the carried-state scan: (y, bounds, h_final),
+    fp32, seeded by h0, no D*x skip; bounds[:, 0] is h0.
+
+    On CUDA tensors this launches ``scan_fwd_bounds_state_f32`` (y and
+    h_final bit-equal to ``scan_fwd_state_f32``'s); on CPU tensors it runs
+    ``scan_fwd_bounds_plain(..., h0, return_state=True)``. An empty chunk
+    (L = 0) returns no bounds and a copy of h0 without a launch.
+    """
+    if not x.is_cuda:
+        return scan_fwd_bounds_plain(x, dt, A, B, C, h0, return_state=True)
+    batch, length, d_inner, state_dim = _check_inputs(x, dt, A, B, C)
+    _check_state(h0, "h0", x, state_dim)
+    _refuse_grad(x, dt, A, B, C, h0)
+    y = torch.empty_like(x)
+    bounds = torch.empty(batch, -(-length // TRAIN_CHUNK), d_inner, state_dim,
+                         dtype=torch.float32, device=x.device)
+    if batch == 0 or length == 0:
+        return y, bounds, h0.clone()
+    h_final = torch.empty_like(h0)
+    with torch.cuda.device(x.device):
+        library().launch(
+            "scan_fwd_bounds_state_f32", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            B.data_ptr(), C.data_ptr(), h0.data_ptr(), y.data_ptr(), bounds.data_ptr(),
+            h_final.data_ptr(), batch, length, d_inner, state_dim,
+        )
+    return y, bounds, h_final
+
+
 def scan_bwd(x, dt, A, B, C, bounds, g):
     """Backward of the no-state scan: (dx, ddt, dA, dB, dC), fp32, no D*x
     skip terms, from the forward's inputs, its bounds and g = dLoss/dy.
@@ -244,6 +301,41 @@ def scan_bwd(x, dt, A, B, C, bounds, g):
     return dx, ddt, dA, dB, dC
 
 
+def scan_bwd_state(x, dt, A, B, C, bounds, g, gh):
+    """Backward of the carried-state scan: (dx, ddt, dA, dB, dC, dh0),
+    fp32, no D*x skip terms, from the forward's inputs, its bounds
+    (``scan_fwd_bounds_state``), g = dLoss/dy and gh = dLoss/dh_final
+    (batch, d_inner, state_dim).
+
+    On CUDA tensors this launches ``scan_bwd_state_f32`` (counted twice,
+    as ``scan_bwd_f32``); on CPU tensors it runs ``scan_bwd_plain(...,
+    gh)``. An empty chunk (L = 0) passes gh through as dh0.
+    """
+    if not x.is_cuda:
+        return scan_bwd_plain(x, dt, A, B, C, bounds, g, gh)
+    batch, length, d_inner, state_dim = _check_inputs(x, dt, A, B, C)
+    check_tensor(bounds, "bounds", (batch, -(-length // TRAIN_CHUNK), d_inner, state_dim))
+    check_tensor(g, "g", (batch, length, d_inner))
+    _check_state(gh, "gh", x, state_dim)
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dA = torch.zeros_like(A)
+    if batch == 0 or length == 0:
+        return dx, ddt, dA, dB, dC, gh.clone()
+    dh0 = torch.empty_like(gh)
+    with torch.cuda.device(x.device):
+        lib = library()
+        work = torch.empty(lib.lib.scan_bwd_workspace_floats(batch, length, d_inner, state_dim),
+                           dtype=torch.float32, device=x.device)
+        lib.launch(
+            "scan_bwd_state_f32", x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), bounds.data_ptr(), g.data_ptr(), gh.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), dh0.data_ptr(),
+            work.data_ptr(), batch, length, d_inner, state_dim, kernels=2,
+        )
+    return dx, ddt, dA, dB, dC, dh0
+
+
 class SelectiveScanFn(torch.autograd.Function):
     """y = scan(x, dt, A, B, C) from h = 0 (no D*x skip), differentiable:
     the forward saves its inputs and the chunk-entry states
@@ -262,19 +354,22 @@ class SelectiveScanFn(torch.autograd.Function):
 
 
 class CarriedStateScanFn(torch.autograd.Function):
-    """(y, h_final) = scan from h0 (no D*x skip), whose backward raises:
-    the carried-state scan has no backward kernel yet, and autograd must
-    not go on as if the scan's inputs had no gradient."""
+    """(y, h_final) = scan from h0 (no D*x skip), differentiable: the
+    forward saves its inputs and the chunk-entry states
+    (``scan_fwd_bounds_state``), the backward returns dx, ddt, dA, dB, dC
+    and dh0 (``scan_bwd_state``) from the cotangents of y and h_final
+    (zeros where an output is unused). fp32 contiguous inputs, all on one
+    device."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, h0):
-        return scan_fwd_state(x, dt, A, B, C, h0)
+        y, bounds, h_final = scan_fwd_bounds_state(x, dt, A, B, C, h0)
+        ctx.save_for_backward(x, dt, A, B, C, bounds)
+        return y, h_final
 
     @staticmethod
     def backward(ctx, gy, gh):
-        raise NotImplementedError(
-            "the carried-state scan has no backward yet: it comes with the "
-            "streaming-aware objective (ROADMAP module item 5, kernel rows 4s/5s)")
+        return scan_bwd_state(*ctx.saved_tensors, gy.contiguous(), gh.contiguous())
 
 
 def selective_scan_sequential(x, dt, A, B, C, D, h0=None, return_state: bool = False):
@@ -297,11 +392,11 @@ def selective_scan(x, dt, A, B, C, D, mode: str = "parallel", h0=None,
     is given), as the JAX package's Pallas tier does; the state returned
     is fp32 (batch, d_inner, state_dim).
 
-    While autograd records and an input requires grad, the scan goes
-    through ``SelectiveScanFn`` (the training kernels on CUDA tensors,
-    their plain versions on CPU tensors). The carried-state scan has no
-    backward yet: under grad it runs as ``CarriedStateScanFn``, whose
-    backward raises.
+    While autograd records and an input (h0 included) requires grad, the
+    scan goes through ``SelectiveScanFn``, or ``CarriedStateScanFn`` with
+    h0 or return_state (the training kernels on CUDA tensors, their plain
+    versions on CPU tensors), so the gradient reaches h0 and flows from
+    h_final.
     """
     if mode == "sequential":
         return selective_scan_sequential(x, dt, A, B, C, D, h0, return_state)

@@ -22,8 +22,11 @@
 
 ``BatchedStreamingTranscriber`` runs a batch of utterances through the
 same chunk step for evaluation, with the same results per utterance.
-Beam search, word timestamps and confidences, the serving session
-batcher and the training graph ``streaming_forward`` are not ported yet.
+``streaming_forward`` is the training graph of the same step: a whole
+utterance's logits computed chunk by chunk through the carried state,
+differentiable (the streaming-aware objective, ``training.Trainer``).
+Beam search, word timestamps and confidences and the serving session
+batcher are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from .decode import BLANK_TOKEN, CTCDecoder
 from .models.model import VelocityASR, init_stream_state
 
 __all__ = ["BatchedStreamingTranscriber", "StreamingMel", "StreamingTranscriber",
-           "init_stream_state"]
+           "init_stream_state", "streaming_forward"]
 
 BEAM_NOT_PORTED = ("streaming beam search (beam_width > 1) is not ported yet "
                    "(ROADMAP module item 3: streaming beam)")
@@ -243,6 +246,32 @@ class StreamingMel:
 
 def _model_device(model: VelocityASR) -> torch.device:
     return next(model.parameters()).device
+
+
+def streaming_forward(model: VelocityASR, mel: torch.Tensor, chunk_frames: int,
+                      rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Full-utterance logits computed by the streaming path: the model's
+    chunk step over mel's time axis, from ``init_stream_state``, chunk c
+    at time offset c * chunk_frames // 2, the carried state handed on.
+
+    The training-side counterpart of the transcribers (the JAX package's
+    ``streaming.streaming_forward``, a lax.scan there, a Python loop
+    here): under autograd the gradient flows through every carried leaf,
+    so CTC on these logits trains the model under the conditions the
+    streaming runtime evaluates under. In training mode the dropout masks
+    of every chunk come from `rng`. mel (batch, t, mel_bins) with t a
+    multiple of chunk_frames (the collator's frame bucket makes it one);
+    returns fp32 (batch, t // 2, vocab).
+    """
+    b, t, _ = mel.shape
+    assert t % chunk_frames == 0, (t, chunk_frames)
+    state = init_stream_state(model.config, b, mel.device)
+    logits = []
+    for c in range(t // chunk_frames):
+        out, state = model(mel[:, c * chunk_frames:(c + 1) * chunk_frames], stream_state=state,
+                           time_offset=c * chunk_frames // 2, return_state=True, rng=rng)
+        logits.append(out)
+    return torch.cat(logits, dim=1)
 
 
 class StreamingTranscriber:

@@ -7,7 +7,7 @@ speaker, rate, level and noise jitter. Everything is deterministic in
 regenerates the JAX package's held-out set bit for bit, and its WER
 results (checkpoints/synth_run/eval_fp32_final.json) apply to it;
 ``SyntheticSpeechDataset`` serves the train and dev splits as the JAX
-package's does (one language, host mel).
+package's does (one language; host mel, or raw audio for the device mel).
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .audio import SAMPLE_RATE, compute_mel_spectrogram_np
+from .audio import SAMPLE_RATE
+from .data import speech_item
 
 VOWELS = "aeiouy"
 CHARS = "abcdefghijklmnopqrstuvwxyz"
@@ -150,17 +151,20 @@ def utterance(idx: int, split: str = "test", seed: int = 1234,
 class SyntheticSpeechDataset:
     """``data.ASRDataset``-compatible corpus generated on the fly: items
     deterministic in (seed, split, idx), bit-equal to the JAX package's
-    ``SyntheticSpeechDataset(languages=1)`` (host mel). The vocabulary is
-    the manifest datasets' rule over a-z and space: <blank>, <unk>, <pad>,
-    then the sorted characters, 30 tokens."""
+    ``SyntheticSpeechDataset(languages=1)``: host mel, or with
+    `device_mel` the raw audio and its frame count (the mel is computed on
+    the device by the trainer). The vocabulary is the manifest datasets'
+    rule over a-z and space: <blank>, <unk>, <pad>, then the sorted
+    characters, 30 tokens."""
 
     def __init__(self, n_utts: int = 10000, split: str = "train", seed: int = 1234,
-                 min_words: int = 2, max_words: int = 8):
+                 min_words: int = 2, max_words: int = 8, device_mel: bool = False):
         self.n_utts = n_utts
         self.split = split
         self.seed = seed
         self.min_words = min_words
         self.max_words = max_words
+        self.device_mel = device_mel
         self.voice = SynthVoice(seed=seed)
         self.lexicon = make_lexicon(1500, seed=seed)
         specials = ["<blank>", "<unk>", "<pad>"]
@@ -176,15 +180,7 @@ class SyntheticSpeechDataset:
     def __getitem__(self, idx: int) -> Dict:
         text, audio = utterance(idx, self.split, self.seed, self.lexicon, self.voice,
                                 self.min_words, self.max_words)
-        tokens = self.text_to_tokens(text)
-        mel = compute_mel_spectrogram_np(audio)
-        return {
-            "targets": np.asarray(tokens, np.int32),
-            "target_lengths": np.int32(len(tokens)),
-            "text": text,
-            "mel_spectrogram": mel,
-            "input_lengths": np.int32(mel.shape[0]),
-        }
+        return speech_item(audio, text, self.text_to_tokens(text), self.device_mel)
 
 
 def write_corpus(out_dir: str, n_utts: int, split: str = "test", seed: int = 1234,

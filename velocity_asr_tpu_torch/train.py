@@ -1,14 +1,20 @@
-"""Train VELOCITY-ASR with the port (the offline objective of scripts/train.py).
+"""Train VELOCITY-ASR with the port (scripts/train.py's offline and
+streaming-aware objectives).
 
     python -m velocity_asr_tpu_torch.train --config configs/train_synth.yaml \
         --model-config configs/model_synth.yaml [--synthetic N] [--max-steps N] \
         [--lr-total-steps N] [--batch-size N] [--checkpoint-dir DIR] \
         [--resume CKPT | --init-from PRETRAINED_DIR] [--num-workers 8] [--device cuda]
+    python -m velocity_asr_tpu_torch.train --config configs/train_synth_stream.yaml \
+        --model-config configs/model_synth.yaml \
+        --init-from checkpoints/synth_run/final_pretrained
 
 Data is the synthetic speech corpus (``data.synthetic`` or
 ``--synthetic N``: N train utterances and max(64, N // 100) from the dev
-split for evaluation), mel computed on the host, batches padded to
-multiples of ``data.frame_bucket`` frames (default 200). The model's
+split for evaluation), mel computed on the host, or with
+``data.device_mel: true`` on the device from int16 PCM batches (which
+``training.streaming_chunks`` needs), batches padded to multiples of
+``data.frame_bucket`` frames (default 200). The model's
 vocabulary is rebuilt from the dataset's. ``--init-from`` starts from a
 ``final_pretrained`` directory's weights with a fresh optimizer and step;
 ``--resume`` restores a trainer checkpoint. At the end the run writes
@@ -38,10 +44,8 @@ logger = logging.getLogger("velocity_asr_tpu_torch.train")
 
 def build_data(data_cfg: dict, batch_size: int, num_workers: int):
     """(train loader, eval loader, vocabulary {token: id}) of the synthetic
-    corpus: N train utterances and max(64, N // 100) of the dev split."""
-    if data_cfg.get("device_mel"):
-        raise NotImplementedError("data.device_mel (raw audio batches, mel on the device) "
-                                  "is not ported yet (ROADMAP module item 2)")
+    corpus: N train utterances and max(64, N // 100) of the dev split, as
+    raw audio with ``device_mel``."""
     n_synth = int(data_cfg.get("synthetic", 0) or 0)
     if not n_synth:
         raise NotImplementedError("no data: set data.synthetic or --synthetic N; manifests, "
@@ -54,7 +58,8 @@ def build_data(data_cfg: dict, batch_size: int, num_workers: int):
     seed = int(data_cfg.get("synthetic_seed", 1234))
     split = str(data_cfg.get("synthetic_split", "train"))
     words = {"min_words": int(data_cfg.get("synthetic_min_words", 2)),
-             "max_words": int(data_cfg.get("synthetic_max_words", 8))}
+             "max_words": int(data_cfg.get("synthetic_max_words", 8)),
+             "device_mel": bool(data_cfg.get("device_mel", False))}
     logger.info("Using synthetic speech corpus: %d train utterances", n_synth)
     train_ds = SyntheticSpeechDataset(n_synth, split=split, seed=seed, **words)
     eval_ds = SyntheticSpeechDataset(

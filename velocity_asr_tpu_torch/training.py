@@ -1,5 +1,6 @@
-"""Training (mirrors velocity_asr_tpu/training.py, the offline objective),
-and the error-rate metrics that evaluation uses.
+"""Training (mirrors velocity_asr_tpu/training.py: the offline objective
+and the streaming-aware one), and the error-rate metrics that evaluation
+uses.
 
 - ``ctc_loss_per_example`` / ``ctc_loss``: torch ``nn.CTCLoss(blank=0,
   reduction='mean', zero_infinity=True)`` semantics, with the JAX
@@ -20,9 +21,20 @@ and the error-rate metrics that evaluation uses.
   ``trainer_meta.json`` with the JAX keys). The dropout and SpecAugment
   generator of each micro-step is seeded from (seed, step), so a resumed
   run draws what an unbroken run draws.
+- Batches carry a host mel (``mel_spectrogram``) or, from a
+  ``device_mel`` dataset, int16 PCM (``audio``) that the step turns into
+  a log-mel on the device (``ops.mel``, the log-mel kernel on the card)
+  and normalises over each utterance's valid frames.
+- ``streaming_chunks`` > 0 (device-mel batches only) adds the
+  streaming-aware term: CTC on ``streaming.streaming_forward`` logits of
+  the same utterances, normalised with causal per-chunk statistics and
+  masked by the same SpecAugment draws;
+  loss = (1 - w) * offline + w * streaming, w = ``streaming_aux_weight``.
 
-The model's scans train through ``ops.scan.SelectiveScanFn``: on the card
-the bounds-saving forward and the backward kernels.
+The model's scans train through ``ops.scan.SelectiveScanFn`` (offline)
+and ``ops.scan.CarriedStateScanFn`` (the streaming term): on the card the
+bounds-saving forward and backward kernels, without and with the carried
+state.
 """
 
 from __future__ import annotations
@@ -41,7 +53,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .audio import causal_normalize_mel, masked_normalize_mel
 from .augment import SpecAugmentConfig, spec_augment
+from .ops.mel import compute_mel_spectrogram
+from .streaming import streaming_forward
 
 logger = logging.getLogger(__name__)
 
@@ -49,8 +64,9 @@ logger = logging.getLogger(__name__)
 @dataclass
 class TrainingConfig:
     """Training configuration: the JAX package's fields and defaults. The
-    port trains the offline objective; a config that turns on anything
-    else makes ``Trainer`` raise (see ``Trainer.__init__``)."""
+    port trains the offline objective and, with ``streaming_chunks``, the
+    streaming-aware one; a config that turns on anything else makes
+    ``Trainer`` raise (see ``Trainer.__init__``)."""
 
     learning_rate: float = 1e-4
     weight_decay: float = 0.01
@@ -243,12 +259,11 @@ def _unsupported(model_config, config: TrainingConfig) -> Optional[str]:
         (getattr(model_config, "moe_experts", 0) > 0, "MoE (ROADMAP module item 8)"),
         (getattr(model_config, "num_languages", 0) > 0 or config.lid_loss_weight > 0,
          "the language-ID head and loss (ROADMAP module item 8)"),
-        (config.streaming_chunks > 0, "the streaming-aware objective (ROADMAP module item 5)"),
         (getattr(model_config, "gradient_checkpointing", False),
          "gradient checkpointing (ROADMAP module item 5)"),
         (aug is not None and aug.enabled and (aug.noise_injection or aug.speed_perturb),
-         "noise_injection / speed_perturb, which need device_mel batches "
-         "(ROADMAP module item 2)"),
+         "noise_injection / speed_perturb, the waveform augmentation of device_mel "
+         "batches (ROADMAP module item 2)"),
         (config.num_model_shards > 1 or config.num_pipeline_stages > 1
          or config.num_data_shards not in (None, 1), "parallel training (ROADMAP module item 9)"),
         (config.profile_dir is not None, "profile_dir tracing (ROADMAP module item 5)"),
@@ -262,10 +277,12 @@ def step_seed(seed: int, step: int) -> int:
 
 
 class Trainer:
-    """Training loop over the offline CTC objective (the JAX Trainer's).
+    """Training loop over the offline CTC objective, plus the
+    streaming-aware term with ``streaming_chunks`` (the JAX Trainer's).
 
     `model` is a ``VelocityASR`` on its device; `train_iter` yields
-    collated numpy batches (``data.ASRCollator``); `eval_batches` returns a
+    collated numpy batches (``data.ASRCollator``, host mel or int16 PCM);
+    `eval_batches` returns a
     fresh iterator of them; `seed` decides the dropout and SpecAugment
     draws. ``train_step`` / ``eval_step`` return host floats (one sync),
     ``train`` syncs once per log interval.
@@ -294,16 +311,54 @@ class Trainer:
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {key: torch.as_tensor(np.asarray(batch[key])).to(self.device)
-                for key in ("mel_spectrogram", "targets", "input_lengths", "target_lengths")}
+                for key in ("mel_spectrogram", "audio", "targets", "input_lengths",
+                            "target_lengths") if key in batch}
+
+    @staticmethod
+    def _batch_mel(batch: Dict[str, torch.Tensor]):
+        """(normalised mel, un-normalised mel or None): a host-mel batch as
+        it came; a device-mel batch's PCM scaled by 1/32768, its log-mel
+        computed here and normalised over each utterance's valid frames."""
+        if "audio" not in batch:
+            return batch["mel_spectrogram"].to(torch.float32), None
+        audio = batch["audio"].to(torch.float32) * (1.0 / 32768.0)
+        raw = compute_mel_spectrogram(audio, normalize=False)
+        return masked_normalize_mel(raw, batch["input_lengths"]), raw
 
     def _loss(self, batch: Dict[str, torch.Tensor], rng: Optional[torch.Generator]):
-        mel = batch["mel_spectrogram"].to(torch.float32)
+        """The micro-batch's loss; `rng` draws SpecAugment and dropout (None:
+        neither). With ``streaming_chunks`` and a device-mel batch, the
+        streaming term is added in training and evaluation alike."""
+        cfg = self.config
+        mel, raw = self._batch_mel(batch)
+        if cfg.streaming_chunks and raw is None and self.model.training:
+            # a misconfiguration, not a fallback to the offline objective
+            raise ValueError(
+                "training.streaming_chunks requires data.device_mel: true "
+                "(the streaming-aware objective needs raw mel on device)")
         lengths = batch["input_lengths"]
-        aug = self.config.augment
+        aug = cfg.augment
+        aug_state = None
         if rng is not None and aug is not None and aug.enabled:
+            aug_state = rng.get_state()
             mel = spec_augment(mel, rng, aug, lengths)
-        logits = self.model(mel, rng=rng)
-        return ctc_loss(logits, batch["targets"], (lengths + 1) // 2, batch["target_lengths"])
+        out_lengths = (lengths + 1) // 2
+
+        def ctc(logits):
+            return ctc_loss(logits, batch["targets"], out_lengths, batch["target_lengths"])
+
+        loss = ctc(self.model(mel, rng=rng))
+        if not cfg.streaming_chunks or raw is None:
+            return loss
+        smel = causal_normalize_mel(raw, lengths, cfg.streaming_chunks)
+        if aug_state is not None:
+            # the offline view's masks: a generator from the state its draws started at
+            fork = torch.Generator(device=rng.device)
+            fork.set_state(aug_state)
+            smel = spec_augment(smel, fork, aug, lengths)
+        s_loss = ctc(streaming_forward(self.model, smel, cfg.streaming_chunks, rng=rng))
+        w = cfg.streaming_aux_weight
+        return (1.0 - w) * loss + w * s_loss
 
     def _step(self, batch: Dict[str, Any]) -> torch.Tensor:
         """One micro-step; returns the loss as a device tensor (no sync)."""
