@@ -7,7 +7,12 @@ Needs one CUDA card; exits non-zero without one. Phases, each printing
 its seconds:
 
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the CUDA kernels (one nvcc call), with ptxas registers/spills;
+  2. build the CUDA kernels (one nvcc call), with ptxas registers/spills,
+     and, as the card reports them, the registers, spill bytes, shared
+     bytes and resident blocks per SM (clusters of 8 for the backward) of
+     every instantiation of the log-mel and the scan backward, and the
+     backward's workspace and grid, in waves of resident clusters, at the
+     training shapes (16, 300, 384, 64) and (8, 100, 384, 64);
   3. regenerate the first N held-out synthetic utterances (split "test",
      seed 1234) as WAVs in a temporary directory, and work out the shapes
      phases 4, 5 and 7 will run on them (each utterance's frame bucket,
@@ -19,9 +24,10 @@ its seconds:
      h0 at every shape of the streaming path, for N in {4, 8, 16, 32, 64,
      200, 300} at batch 1 and 4, and across a seam (L = 200 as two
      launches of 100: against the plain version and against one launch);
-     the log-mel on single utterances of 200 and 600 frames and at every
-     batch of the device-mel training path (4 x 600 for 9a, 8 x every
-     600-frame bucket up to 3,600 for 9b); and both int8 dense kernels at every shape of the
+     the log-mel (from the reflect-padded signal, as the kernel frames it)
+     on single utterances of 200 and 600 frames and at every batch of the
+     device-mel training path (4 x 600 for 9a, 8 x every 600-frame bucket
+     up to 3,600 for 9b); and both int8 dense kernels at every shape of the
      batched int8 path plus the 400-frame shapes at batch 1 and 16, one
      128-aligned shape, one off every tile and K = 1012, the widest the
      kernels take (identical codes, output within 1e-5 of max|out|); the
@@ -30,7 +36,8 @@ its seconds:
      bounds-saving forward (y bit-equal to the no-bounds kernel's, bounds
      within 1e-6 of the plain chunk-entry states) and the backward (dx,
      ddt, dB, dC within 1e-5 of each output's max|ref|, dA within 1e-4,
-     two launches bit-identical), the backward also for N in {4, 8, 16,
+     two calls bit-identical, each one launch),
+     the backward also for N in {4, 8, 16,
      32, 64, 200, 300} at batch 1 and 4 with L = 37 and 100, and both at
      phase 9's offline shapes (batch 8, every 600-frame bucket up to 3,600
      frames; 9a's batch 4 at 600); the carried-state training scans
@@ -40,7 +47,7 @@ its seconds:
      4 with L = 37 and 100: y and h_final bit-equal to the carried-state
      kernel's, bounds[:, 0] equal to h0 and the bounds within 1e-6 of the
      plain chunk-entry states, dx, ddt, dB, dC and dh0 within 1e-5 of each
-     output's max|ref|, dA within 1e-4, two launches bit-identical, and
+     output's max|ref|, dA within 1e-4, two calls bit-identical, and
      with h0 = gh = 0 the bits of the no-state bounds forward and
      backward; then the gradient of a loss on y and h_final through two
      carried launches of 50 steps against one launch of 100 (1e-5);
@@ -78,8 +85,8 @@ its seconds:
      and model_synth.yaml, --synthetic 3200 --max-steps 200, bf16 with
      SpecAugment and dropout on: every logged loss finite, the mean loss of
      micro-steps 151-200 at most 4.5 and at most half the mean of the
-     first 10, exactly 10 bounds-forward and 20 backward launches (the
-     scan and its reduction) per micro-step and no other kernel, ms per
+     first 10, exactly 10 bounds-forward and 10 backward launches per
+     micro-step and no other kernel, ms per
      micro-step (p50, p95) per frame bucket, the host's data-wait share,
      and the card's busy share from a torch.profiler trace of micro-steps
      101-105 (device time by kernel); (c) the CLI fine-tunes the checkpoint for 20 micro-steps
@@ -98,8 +105,8 @@ its seconds:
      updates inside the recipe's warmup; bf16, device mel, SpecAugment,
      dropout): every loss finite, the mean of the 100 micro-steps in
      [0.2, 0.5] (the JAX run's interval means: 0.279-0.369), per
-     micro-step exactly 1 log-mel, 10 bounds-forward and 20 backward
-     launches, and 10 C carried-state bounds forwards and 20 C
+     micro-step exactly 1 log-mel, 10 bounds-forward and 10 backward
+     launches, and 10 C carried-state bounds forwards and 10 C
      carried-state backward launches for a batch of C 200-frame chunks,
      no other kernel; ms per micro-step per frame bucket, the data-wait
      share and the card's busy share from a torch.profiler window over
@@ -110,8 +117,11 @@ its seconds:
      their bounds and a library call: device time from CUDA graphs of many
      calls (what the JSON line reports), and CUDA events around eager
      calls, which include the host's launch; rows 4s and 5s at (8, 100,
-     384, 64) and (8, 64, 384, 32), the log-mel also at batch 8 at the
-     frame bucket 9b ran most often.
+     384, 64) and (8, 64, 384, 32), row 5 also at phase 9b's offline term
+     (batch 8 at the frame bucket 9b ran most often: L = 1,200 at 2,400
+     frames), the log-mel also at batch 8 at that bucket, and the whole
+     front end (compute_mel_spectrogram: pad, kernel, normalise) eagerly
+     beside the kernel alone at 400 frames and at that batch.
 
 The line before the last is a JSON object listing the kernels; the last
 line is {"ok": true, "device": {...}} and is printed only when every
@@ -428,10 +438,22 @@ def int8_bound_ms(m, k, n):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mel_cost(n_frames, n_fft, n_freq, n_mels):
-    n_bytes = 4 * (n_frames * n_fft + 2 * n_fft * n_freq + n_freq * n_mels + n_frames * n_mels)
-    n_ops = n_frames * (4 * n_fft * n_freq + 3 * n_freq + 2 * n_freq * n_mels + 2 * n_mels)
-    return n_bytes, n_ops
+def mel_cost(padded, n_frames, n_mels=80, n_fft=400):
+    """The log-mel's least work: bytes of the padded signal (batch,
+    samples + n_fft) read once, the (batch * n_frames, n_mels) output
+    written once and the tables (window, twiddles, band table) read once;
+    per frame 2.5 n log2(n) operations for a real FFT of n = n_fft points,
+    3 per bin for the power, 2 per filterbank nonzero and one log per mel
+    (a dense DFT product, 4 * n_fft * n_freq per frame, is not the
+    function's least work)."""
+    from velocity_asr_tpu_torch.ops.mel import band_table
+
+    first, offset, weight = band_table(n_fft, n_mels)
+    n_freq = n_fft // 2 + 1
+    tables = 4 * (3 * n_fft + weight.size) + 4 * (first.size + offset.size)
+    n_bytes = 4 * padded.numel() + 4 * n_frames * n_mels + tables
+    per_frame = 2.5 * n_fft * math.log2(n_fft) + 3 * n_freq + 2 * weight.size + n_mels
+    return n_bytes, n_frames * per_frame
 
 
 # ---------------------------------------------------------------- inputs
@@ -496,12 +518,22 @@ def compare_seam(rng, state_dim, batch, length=200):
     return vs_plain[0], vs_plain[1], vs_one
 
 
+def launched_once_each(name, call):
+    """Run `call` (two backward calls) and say whether the C entry `name`
+    was launched once per call."""
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts
+
+    before = launch_counts[name]
+    out = call()
+    return out, launch_counts[name] - before == 2
+
+
 def compare_train_scans(rng, state_dim, batch, length, forward=True):
     """The training kernels against their plain versions on one shape:
     (bounds forward's y bit-equal to scan_fwd's, bounds max_rel, bounds
     max_abs) and the backward's per-output (max_abs, max_rel) and whether
-    two launches gave the same bits. forward=False checks the backward
-    only (from the plain bounds)."""
+    two launches gave the same bits (and each call was one launch).
+    forward=False checks the backward only (from the plain bounds)."""
     import torch
 
     from velocity_asr_tpu_torch.ops.scan import (scan_bwd, scan_bwd_plain, scan_fwd,
@@ -518,12 +550,13 @@ def compare_train_scans(rng, state_dim, batch, length, forward=True):
         torch.cuda.synchronize()
         b_abs, b_rel = rel_err(bounds, ref_bounds)
         fwd = (torch.equal(y, y0), b_rel, b_abs)
-    outs = scan_bwd(x, dt, A, B, C, ref_bounds, g)
-    again = scan_bwd(x, dt, A, B, C, ref_bounds, g)
+    (outs, again), booked = launched_once_each(
+        "scan_bwd_f32", lambda: (scan_bwd(x, dt, A, B, C, ref_bounds, g),
+                                 scan_bwd(x, dt, A, B, C, ref_bounds, g)))
     torch.cuda.synchronize()
     refs = scan_bwd_plain(x, dt, A, B, C, ref_bounds, g)
     errs = {name: rel_err(o, r) for name, o, r in zip(("dx", "ddt", "dA", "dB", "dC"), outs, refs)}
-    same = all(torch.equal(a, b) for a, b in zip(outs, again))
+    same = booked and all(torch.equal(a, b) for a, b in zip(outs, again))
     return fwd, errs, same
 
 
@@ -553,13 +586,14 @@ def compare_train_state_scans(rng, state_dim, batch, length):
     out = {"fwd_same": (torch.equal(y, y0) and torch.equal(h_final, h0_final)
                         and torch.equal(bounds[:, 0], h0)),
            "bounds": rel_err(bounds, ref_bounds)}
-    outs = scan_bwd_state(x, dt, A, B, C, ref_bounds, g, gh)
-    again = scan_bwd_state(x, dt, A, B, C, ref_bounds, g, gh)
+    (outs, again), booked = launched_once_each(
+        "scan_bwd_state_f32", lambda: (scan_bwd_state(x, dt, A, B, C, ref_bounds, g, gh),
+                                       scan_bwd_state(x, dt, A, B, C, ref_bounds, g, gh)))
     torch.cuda.synchronize()
     refs = scan_bwd_plain(x, dt, A, B, C, ref_bounds, g, gh)
     out["bwd"] = {name: rel_err(o, r) for name, o, r in
                   zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), outs, refs)}
-    out["same"] = all(torch.equal(a, b) for a, b in zip(outs, again))
+    out["same"] = booked and all(torch.equal(a, b) for a, b in zip(outs, again))
     zero = torch.zeros_like(h0)
     _, z_bounds, _ = scan_fwd_bounds_state(x, dt, A, B, C, zero)
     _, nz_bounds = scan_fwd_bounds(x, dt, A, B, C)
@@ -605,18 +639,16 @@ def compare_grad_seam(rng, state_dim, batch, length=100):
 
 
 def mel_inputs(rng, n_frames, batch=1):
-    """Frames of `batch` seeded waveforms of `n_frames` frames each, framed
-    and flattened to (batch * n_frames, n_fft) as `compute_mel_spectrogram`
-    frames a batch; and the padded waveforms."""
+    """`batch` seeded waveforms of `n_frames` frames each on the card, and
+    the same reflect-padded as `compute_mel_spectrogram` pads a batch:
+    (batch, samples), (batch, samples + n_fft)."""
     import torch
 
-    from velocity_asr_tpu_torch.audio import HOP_LENGTH, N_FFT, frame_signal, reflect_pad
+    from velocity_asr_tpu_torch.audio import HOP_LENGTH, N_FFT, reflect_pad
 
     audio = (rng.standard_normal((batch, (n_frames - 1) * HOP_LENGTH)) * 0.1).astype(np.float32)
     audio_t = torch.tensor(audio, device="cuda")
-    padded = reflect_pad(audio_t, N_FFT // 2)
-    frames = frame_signal(padded, N_FFT, HOP_LENGTH).reshape(batch * n_frames, N_FFT)
-    return frames.contiguous(), padded
+    return audio_t, reflect_pad(audio_t, N_FFT // 2)
 
 
 # ---------------------------------------------------------------- phases
@@ -636,13 +668,34 @@ def phase_card():
 
 
 def phase_build():
+    import torch
+
     from velocity_asr_tpu_torch.ops import cuda_lib
+    from velocity_asr_tpu_torch.ops.mel import band_table
 
     lib = cuda_lib.library()
     log(f"kernel build: {lib.build_seconds:.3f} s (one nvcc call) -> {os.path.relpath(lib.path, ROOT)}")
     for line in lib.build_log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    # what the card makes of the two kernels this tree redesigned
+    first, _, weight = band_table()
+    occ = lib.occupancy("log_mel_occupancy", first.size, weight.size)
+    log(f"  occupancy log_mel_kernel: {occ}")
+    for lanes in (1, 2, 4, 8, 16):
+        for with_state in (False, True):
+            occ = lib.occupancy("scan_bwd_occupancy", lanes, int(with_state))
+            log(f"  occupancy scan_bwd_kernel<G={lanes}, kWithState={with_state}> "
+                f"({4 * lanes} states a pass): {occ}; one wave {occ['clusters']} clusters of 8 "
+                f"= {8 * occ['clusters']} blocks on {torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    occ = lib.occupancy("scan_bwd_occupancy", 16, 0)  # N = 64: 16 lanes of 4 states
+    per_cluster = 8 * occ["threads"] // 16  # channels
+    for shape in ((TRAIN_BATCH, 300, 384, 64), (STREAM_BATCH, 100, 384, 64)):
+        grid = shape[0] * -(-shape[2] // per_cluster)
+        log(f"  scan backward (batch, L, D, N) = {shape}: workspace "
+            f"{4 * lib.lib.scan_bwd_workspace_floats(*shape) / 1e6:.3f} MB (cluster partials and "
+            f"arrival counters); grid {grid} clusters of 8, {grid / occ['clusters']:.2f} waves of "
+            f"the {occ['clusters']} resident")
 
 
 def int8_inputs(rng, m, k, n):
@@ -695,7 +748,7 @@ def scan_cases(plan):
 def phase_compare(plan):
     import torch
 
-    from velocity_asr_tpu_torch.ops.mel import _device_matrices, log_mel, log_mel_plain
+    from velocity_asr_tpu_torch.ops.mel import log_mel, log_mel_plain
     from velocity_asr_tpu_torch.ops.scan import scan_fwd, scan_fwd_plain
 
     rng = np.random.default_rng(20261017)
@@ -757,8 +810,9 @@ def phase_compare(plan):
                      f"bounds max_rel {b_rel:.3e} (tol {BOUNDS_MAX_REL:g}); ")
             errs["scan_fwd_bounds_f32"] = max(errs["scan_fwd_bounds_f32"], b_abs)
         line += ("bwd max_rel " + " ".join(f"{k} {e[1]:.2e}" for k, e in bwd.items())
-                 + f" (tol {BWD_MAX_REL:g}, dA {BWD_DA_MAX_REL:g}), two launches "
-                 f"{'bit-identical' if same else 'DIFFER'} {'ok' if ok else 'FAIL'}")
+                 + f" (tol {BWD_MAX_REL:g}, dA {BWD_DA_MAX_REL:g}), two calls of one launch "
+                 f"each {'bit-identical' if same else 'DIFFER (or miscounted)'} "
+                 f"{'ok' if ok else 'FAIL'}")
         log(line)
         if not ok:
             raise AssertionError("a training scan kernel disagrees with its plain version")
@@ -780,8 +834,8 @@ def phase_compare(plan):
             f"{'bit-equal to' if r['fwd_same'] else 'DIFFER from'} scan_fwd_state, bounds[:, 0] "
             f"= h0, bounds max_rel {r['bounds'][1]:.3e} (tol {BOUNDS_MAX_REL:g}); bwd max_rel "
             + " ".join(f"{k} {e[1]:.2e}" for k, e in bwd.items())
-            + f" (tol {BWD_MAX_REL:g}, dA {BWD_DA_MAX_REL:g}), two launches "
-            f"{'bit-identical' if r['same'] else 'DIFFER'}; h0 = gh = 0 "
+            + f" (tol {BWD_MAX_REL:g}, dA {BWD_DA_MAX_REL:g}), two calls of one launch each "
+            f"{'bit-identical' if r['same'] else 'DIFFER (or miscounted)'}; h0 = gh = 0 "
             f"{'bit-equal to' if r['zero_same'] else 'DIFFERS from'} the no-state kernels "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -803,15 +857,16 @@ def phase_compare(plan):
     # the log-mel: the offline path's single utterances, then every batch
     # of the device-mel training path (9a's, and 9b's at every bucket up
     # to STREAM_MAX_FRAMES), each one launch over batch x frames rows
-    mats = _device_matrices(torch.device("cuda"), 400, 80, 16000)
     mel_shapes = ([(1, 200, ""), (1, 600, "")]
                   + [(CHECK_BATCH, STREAM_CHECK_FRAMES, " (training path, 9a)")]
                   + [(STREAM_BATCH, f, " (training path, 9b)") for f in STREAM_BUCKETS])
     for batch, n_frames, path in mel_shapes:
-        frames, _ = mel_inputs(rng, n_frames, batch)
-        ker = log_mel(frames, *mats)
+        _, padded = mel_inputs(rng, n_frames, batch)
+        ker = log_mel(padded)
         torch.cuda.synchronize()
-        ref = log_mel_plain(frames, *mats)
+        ref = log_mel_plain(padded)
+        if ker.shape != (batch, n_frames, 80):
+            raise AssertionError(f"log-mel kernel returned {tuple(ker.shape)}")
         max_abs = (ker - ref).abs().max().item()
         max_rel = ((ker - ref).abs() / ref.abs().clamp_min(1e-6)).max().item()
         ok = math.isfinite(max_abs) and max_abs <= MEL_MAX_ABS
@@ -1419,9 +1474,9 @@ def report_steps(tag, steps, trainer, wall, batch=TRAIN_BATCH):
 
 def check_train_launches(tag, counts, n_steps):
     want = {"scan_fwd_bounds_f32": SCANS_PER_STEP * n_steps,
-            "scan_bwd_f32": 2 * SCANS_PER_STEP * n_steps}
+            "scan_bwd_f32": SCANS_PER_STEP * n_steps}
     log(f"[train {tag}] launches {counts}, planned {want} ({SCANS_PER_STEP} bounds forwards "
-        f"and {SCANS_PER_STEP} backwards of 2 launches per micro-step)")
+        f"and {SCANS_PER_STEP} backwards, one launch each, per micro-step)")
     if counts != want:
         raise AssertionError(f"[train {tag}] launches {counts}, expected {want}")
 
@@ -1514,16 +1569,16 @@ def stream_check_batch():
 
 def check_stream_launches(tag, counts, steps):
     """Per micro-step one log-mel and the offline term's 10 bounds forwards
-    and 10 backwards (2 launches each); per 200-frame chunk of its batch
-    the streaming term's 10 carried-state bounds forwards and 10 backwards
-    (2 each); no other kernel. Returns the chunks over all micro-steps."""
+    and 10 backwards; per 200-frame chunk of its batch the streaming term's
+    10 carried-state bounds forwards and 10 backwards; one launch each, no
+    other kernel. Returns the chunks over all micro-steps."""
     n = len(steps)
     chunks = sum(frames // STREAM_CHUNK for frames, _, _, _ in steps)
     want = {"log_mel_f32": n,
             "scan_fwd_bounds_f32": SCANS_PER_STEP * n,
-            "scan_bwd_f32": 2 * SCANS_PER_STEP * n,
+            "scan_bwd_f32": SCANS_PER_STEP * n,
             "scan_fwd_bounds_state_f32": SCANS_PER_STEP * chunks,
-            "scan_bwd_state_f32": 2 * SCANS_PER_STEP * chunks}
+            "scan_bwd_state_f32": SCANS_PER_STEP * chunks}
     log(f"[train {tag}] launches {counts}, planned {want} ({n} micro-steps, {chunks} chunks of "
         f"{STREAM_CHUNK} frames)")
     if counts != want:
@@ -1645,7 +1700,7 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
     import torch
 
     from velocity_asr_tpu_torch.audio import mel_filterbank
-    from velocity_asr_tpu_torch.ops.mel import _device_matrices, log_mel, log_mel_plain
+    from velocity_asr_tpu_torch.ops.mel import compute_mel_spectrogram, log_mel, log_mel_plain
     from velocity_asr_tpu_torch.ops.pooling import pool_size_level1
     from velocity_asr_tpu_torch.ops.scan import (scan_bwd, scan_bwd_plain, scan_bwd_state,
                                                  scan_fwd, scan_fwd_bounds,
@@ -1721,7 +1776,7 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
     t_counts = training["counts"]
     log(f"training launches over {training['steps']} micro-steps (phase 8b): {t_counts}; per "
         f"micro-step: bounds forward {t_counts.get('scan_fwd_bounds_f32', 0) / training['steps']:g}"
-        f", backward {t_counts.get('scan_bwd_f32', 0) / training['steps']:g} (2 per scan)")
+        f", backward {t_counts.get('scan_bwd_f32', 0) / training['steps']:g} (1 per scan)")
 
     # the carried-state training scans (rows 4s, 5s) at the streaming
     # term's shapes: batch 8, local blocks (L = 100, N = 64) and global
@@ -1757,12 +1812,26 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
     s_steps = stream_training["steps"]
     log(f"streaming-aware training launches over {s_steps} micro-steps and "
         f"{stream_training['chunks']} chunks (phase 9b): {s_counts}")
+    # row 5 at phase 9b's offline term: batch 8, local blocks at the frame
+    # bucket 9b ran most often (L = frames / 2, N = 64)
+    t_bucket = stream_training["buckets"].most_common(1)[0][0]
+    length = t_bucket // 2
+    x, dt, A, B, C = scan_inputs(rng, length, 64, batch=STREAM_BATCH)
+    g = torch.tensor(rng.standard_normal((STREAM_BATCH, length, 384)).astype(np.float32),
+                     device="cuda")
+    _, bounds = scan_fwd_bounds(x, dt, A, B, C)
+    ms = graph_time_ms(lambda: scan_bwd(x, dt, A, B, C, bounds, g), iters=10)
+    eager = cuda_time_ms(lambda: scan_bwd(x, dt, A, B, C, bounds, g), iters=10)
+    b_ms, b_by = bound_ms(*scan_bwd_cost(STREAM_BATCH, length, 384, 64))
+    log(f"time scan_bwd_f32 N=64 L={length} B={STREAM_BATCH} D=384 (phase 9b's offline term at "
+        f"its most frequent bucket, {t_bucket} frames) (device, CUDA graph): kernel {ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}); eager (host launch included) {eager:.4f} ms")
 
-    frames, padded = mel_inputs(rng, bucket)
-    mats = _device_matrices(torch.device("cuda"), 400, 80, 16000)
-    mel_ms = graph_time_ms(lambda: log_mel(frames, *mats), iters=50)
-    mel_eager = cuda_time_ms(lambda: log_mel(frames, *mats), iters=50)
-    mel_plain = graph_time_ms(lambda: log_mel_plain(frames, *mats), iters=50)
+    audio, padded = mel_inputs(rng, bucket)
+    mel_ms = graph_time_ms(lambda: log_mel(padded), iters=50)
+    mel_eager = cuda_time_ms(lambda: log_mel(padded), iters=50)
+    mel_plain = graph_time_ms(lambda: log_mel_plain(padded), iters=50)
+    front = cuda_time_ms(lambda: compute_mel_spectrogram(audio), iters=50)
     window = torch.hann_window(400, device="cuda")
     fb = torch.tensor(mel_filterbank(), device="cuda")
 
@@ -1771,19 +1840,21 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
         return torch.log(fb @ spec.abs().square() + 1e-10)
 
     lib_ms = graph_time_ms(library, iters=50)
-    lib_err = (library().T - log_mel(frames, *mats)).abs().max().item()
-    mb_ms, mb_by = bound_ms(*mel_cost(bucket, 400, 201, 80))
+    lib_err = (library().T - log_mel(padded)[0]).abs().max().item()
+    mb_ms, mb_by = bound_ms(*mel_cost(padded, bucket))
     log(f"time log_mel T={bucket} (device, CUDA graph): kernel {mel_ms:.4f} ms, plain "
         f"{mel_plain:.4f} ms, library (stft+power+fb+log) {lib_ms:.4f} ms (max_abs vs kernel "
-        f"{lib_err:.3e}), bound {mb_ms:.5f} ms ({mb_by}); eager (host launch included) "
-        f"{mel_eager:.4f} ms")
+        f"{lib_err:.3e}), bound {mb_ms:.5f} ms ({mb_by}); eager (host launch included): kernel "
+        f"{mel_eager:.4f} ms, the whole front end (compute_mel_spectrogram: pad, kernel, "
+        f"normalise) {front:.4f} ms")
     # the training path's log-mel: one launch over a batch of 8 at the
     # frame bucket phase 9b ran most often
-    t_bucket = stream_training["buckets"].most_common(1)[0][0]
     n_frames = STREAM_BATCH * t_bucket
-    t_frames, t_padded = mel_inputs(rng, t_bucket, STREAM_BATCH)
-    t_ms = graph_time_ms(lambda: log_mel(t_frames, *mats), iters=20)
-    t_plain = graph_time_ms(lambda: log_mel_plain(t_frames, *mats), iters=20)
+    t_audio, t_padded = mel_inputs(rng, t_bucket, STREAM_BATCH)
+    t_ms = graph_time_ms(lambda: log_mel(t_padded), iters=20)
+    t_plain = graph_time_ms(lambda: log_mel_plain(t_padded), iters=20)
+    t_eager = cuda_time_ms(lambda: log_mel(t_padded), iters=20)
+    t_front = cuda_time_ms(lambda: compute_mel_spectrogram(t_audio), iters=20)
 
     def t_library():
         spec = torch.stft(t_padded, 400, 160, window=window, center=False,
@@ -1791,11 +1862,12 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
         return torch.log(fb @ spec.abs().square() + 1e-10)
 
     t_lib = graph_time_ms(t_library, iters=20)
-    tb_ms, tb_by = bound_ms(*mel_cost(n_frames, 400, 201, 80))
+    tb_ms, tb_by = bound_ms(*mel_cost(t_padded, n_frames))
     log(f"time log_mel B={STREAM_BATCH} T={t_bucket} ({n_frames} rows, phase 9b's most "
         f"frequent bucket {dict(stream_training['buckets'])}) (device, CUDA graph): kernel "
         f"{t_ms:.4f} ms, plain {t_plain:.4f} ms, library {t_lib:.4f} ms, bound {tb_ms:.5f} ms "
-        f"({tb_by}); launches: "
+        f"({tb_by}); eager (host launch included): kernel {t_eager:.4f} ms, the whole front "
+        f"end (normalise over the batch) {t_front:.4f} ms; launches: "
         f"{counts.get('log_mel_f32', 0)} offline (phase 4), {s_counts.get('log_mel_f32', 0)} "
         f"streaming-aware training (phase 9b)")
 

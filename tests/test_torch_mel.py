@@ -1,10 +1,12 @@
 """Parity of the port's log-mel front-end with the JAX package's.
 
-The plain version of the CUDA log-mel kernel (fp32 DFT-by-matmul) and
-``compute_mel_spectrogram`` are held against the JAX package's
-``compute_mel_spectrogram`` on its XLA (rfft) path and its Pallas path in
-interpret mode. Tolerance atol 1e-4 on log-mel: the rfft and the DFT
-matmul sum the same terms in another order, in fp32.
+The plain version of the CUDA log-mel kernel (fp32 DFT-by-matmul on the
+reflect-padded signal) and ``compute_mel_spectrogram`` are held against
+the JAX package's ``compute_mel_spectrogram`` on its XLA (rfft) path and
+its Pallas path in interpret mode; the kernel's host tables (twiddles,
+sparse filterbank) against their float64 and dense sources. Tolerance
+atol 1e-4 on log-mel: the rfft and the DFT matmul sum the same terms in
+another order, in fp32.
 """
 
 import jax.numpy as jnp
@@ -65,11 +67,54 @@ def test_compute_mel_batched_matches_jax_pallas_interpret():
 def test_log_mel_plain_matches_rfft_on_frames():
     wav = _speech(1)
     audio = torch.from_numpy(wav)[None]
-    frames = taudio.frame_signal(taudio.reflect_pad(audio, 200), 400, 160)[0].contiguous()
-    mats = [torch.from_numpy(m.copy()) for m in tmel.dft_mel_matrices()]
-    out = tmel.log_mel(frames, *mats)  # CPU tensor: the plain version
-    torch.testing.assert_close(out, tmel.log_mel_plain(frames, *mats), rtol=0, atol=0)
+    padded = taudio.reflect_pad(audio, 200)
+    out = tmel.log_mel(padded)[0]  # CPU tensor: the plain version
+    torch.testing.assert_close(out, tmel.log_mel_plain(padded)[0], rtol=0, atol=0)
     ref = np.asarray(jaudio.compute_mel_spectrogram(wav, normalize=False, backend="xla"))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=ATOL)
+
+
+def test_band_table_reconstructs_the_filterbank():
+    """The kernel's sparse filterbank (first bin, run offsets, weights)
+    scattered back is audio.mel_filterbank() bit for bit: 393 nonzeros,
+    1-14 bins a band."""
+    first, offset, weight = tmel.band_table()
+    fb = taudio.mel_filterbank()
+    assert first.dtype == offset.dtype == np.int32 and weight.dtype == np.float32
+    assert offset[0] == 0 and offset[-1] == weight.size == np.count_nonzero(fb) == 393
+    counts = np.diff(offset)
+    assert counts.min() == 1 and counts.max() == 14
+    dense = np.zeros_like(fb)
+    for m in range(fb.shape[0]):
+        dense[m, first[m]:first[m] + counts[m]] = weight[offset[m]:offset[m + 1]]
+    np.testing.assert_array_equal(dense, fb)
+
+
+def test_fft_tables_are_float64_rounded_once():
+    window, twiddle = tmel.fft_tables()
+    ang = 2.0 * np.pi * np.arange(400, dtype=np.float64) / 400
+    assert twiddle.shape == (400, 2) and twiddle.dtype == np.float32
+    np.testing.assert_array_equal(twiddle[:, 0], np.cos(ang).astype(np.float32))
+    np.testing.assert_array_equal(twiddle[:, 1], np.sin(ang).astype(np.float32))
+    np.testing.assert_array_equal(window, taudio.hann_window(400))
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_plain_on_padded_signal_matches_framed_and_pallas(batch):
+    """log_mel_plain takes the padded signal, as the kernel does: the same
+    values as the framed computation it replaced and as the Pallas kernel
+    (interpret mode), at a length that is not a multiple of the hop."""
+    wav = np.stack([_noise(20 + i, 8037) * (1 + i) for i in range(batch)])
+    padded = taudio.reflect_pad(torch.from_numpy(wav), 200)
+    out = tmel.log_mel_plain(padded)
+    n = taudio.frame_count(wav.shape[1])
+    assert out.shape == (batch, n, 80)
+    frames = taudio.frame_signal(padded, 400, 160).reshape(batch * n, 400)
+    real, imag, fb_t = (torch.from_numpy(m.copy()) for m in tmel.dft_mel_matrices())
+    re, im = frames @ real, frames @ imag
+    framed = torch.log((re * re + im * im) @ fb_t + 1e-10).reshape(batch, n, 80)
+    np.testing.assert_allclose(out.numpy(), framed.numpy(), rtol=0, atol=ATOL)
+    ref = np.asarray(jmel.mel_spectrogram_pallas(wav, normalize=False, interpret=True))
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=ATOL)
 
 

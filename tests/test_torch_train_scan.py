@@ -153,3 +153,100 @@ def test_carried_state_scan_under_grad_raises():
     with torch.no_grad():  # inference keeps the plain carried-state scan
         y, h = tscan.selective_scan(*t, mode="pallas", h0=h0, return_state=True)
     assert y.grad_fn is None and h.shape == (2, 16, 8)
+
+
+def _csrc(name):
+    import os
+
+    from velocity_asr_tpu_torch.ops import cuda_lib
+
+    with open(os.path.join(cuda_lib.CSRC_DIR, name)) as f:
+        return f.read()
+
+
+def test_backward_is_one_deterministic_launch_in_the_source():
+    """The backward's C entries start one clustered kernel whose
+    cross-block sums use integer arrival counters, not float atomics or a
+    second reduction kernel."""
+    src = _csrc("scan_bwd.cu")
+    assert "__cluster_dims__(kCluster, 1, 1)" in src
+    assert "scan_bwd_reduce_kernel" not in src and "atomicAdd(&count" in src
+    # the counters are the call's own: zeroed on its stream before the kernel
+    assert "cudaMemsetAsync(count, 0" in src and "count[b] = 0" not in src
+    assert "atomicAdd(d" not in src and "atomicAdd(part" not in src
+    assert src.count("<<<") == 1
+
+
+class _RecordingLibrary:
+    """Stands in for the kernel library: asks for a workspace of a size
+    known to the test and records launches."""
+
+    WORK = 1234
+
+    def __init__(self):
+        self.calls = []
+        self.asked = []
+        self.lib = self
+
+    def scan_bwd_workspace_floats(self, *sizes):
+        self.asked.append(sizes)
+        return self.WORK
+
+    def launch(self, name, *args):
+        self.calls.append((name, args))
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_backward_wrapper_is_one_launch_with_its_workspace(with_state):
+    """What scan_bwd / scan_bwd_state hand the C entry on a card: one
+    launch, the workspace the library asked for at these sizes (its
+    pointer and its size, which the C side checks; the arrival counters
+    live at its end), and every output allocated at its shape."""
+    x, dt, A, B, C, _, g = _torch(*_inputs(3, batch=2, length=37, d_inner=16, state_dim=8))
+    _, bounds = tscan.scan_fwd_bounds_plain(x, dt, A, B, C)
+    lib = _RecordingLibrary()
+    gh = torch.zeros(2, 16, 8) if with_state else None
+    outs = tscan._launch_bwd(lib, x, dt, A, B, C, bounds, g, gh)
+    assert len(lib.calls) == 1
+    name, args = lib.calls[0]
+    assert name == ("scan_bwd_state_f32" if with_state else "scan_bwd_f32")
+    from velocity_asr_tpu_torch.ops import cuda_lib
+
+    assert len(args) + 1 == len(cuda_lib.SIGNATURES[name])  # + the stream
+    n_ptr = 15 if with_state else 13
+    assert lib.asked == [(2, 37, 16, 8)]
+    assert args[n_ptr:] == (lib.WORK, 2, 37, 16, 8)
+    assert [tuple(o.shape) for o in outs] == (
+        [(2, 37, 16), (2, 37, 16), (8,), (2, 37, 8), (2, 37, 8)] + ([(2, 16, 8)] if with_state
+                                                                   else []))
+
+
+def test_kernel_library_counts_one_per_launch(monkeypatch):
+    """KernelLibrary.launch adds one to the entry's count when its C
+    launcher returns 0, and raises without counting when it does not."""
+    from velocity_asr_tpu_torch.ops import cuda_lib
+
+    class _Lib:
+        @staticmethod
+        def scan_bwd_f32(*args):
+            return 0 if args[0] == 1 else 700
+
+        @staticmethod
+        def kernel_error_string(rc):
+            return b"an illegal memory access was encountered"
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: _Stream())
+    kl = object.__new__(cuda_lib.KernelLibrary)
+    kl.lib = _Lib()
+    before = cuda_lib.launch_counts["scan_bwd_f32"]
+    kl.launch("scan_bwd_f32", 1)
+    assert cuda_lib.launch_counts["scan_bwd_f32"] == before + 1
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        kl.launch("scan_bwd_f32", 2)
+    assert cuda_lib.launch_counts["scan_bwd_f32"] == before + 1
+    cuda_lib.launch_counts.subtract({"scan_bwd_f32": 1})
+    if not cuda_lib.launch_counts["scan_bwd_f32"]:
+        del cuda_lib.launch_counts["scan_bwd_f32"]

@@ -8,9 +8,8 @@ loaded with ``ctypes``; every pointer and the stream pass as
 import, and a failed build raises.
 
 ``launch_counts`` counts the launches of each kernel: a wrapper adds one
-where it launches its kernel, and nowhere else (two for ``scan_bwd_f32``
-and ``scan_bwd_state_f32``, whose C entries launch the scan and then the
-sum of its partials).
+where it launches its kernel, and nowhere else. Every C entry starts
+exactly one kernel.
 """
 
 from __future__ import annotations
@@ -37,6 +36,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # C signature of each kernel's launcher: every one returns cudaError_t.
 SIGNATURES = {
     # x, dt, A, B, C, y, batch, length, d_inner, state_dim, stream
@@ -48,18 +48,31 @@ SIGNATURES = {
     # x, dt, A, B, C, h0, y, bounds, h_final, batch, length, d_inner,
     # state_dim, stream
     "scan_fwd_bounds_state_f32": [_P] * 9 + [_I, _I, _I, _I, _P],
-    # x, dt, A, B, C, bounds, g, dx, ddt, dA, dB, dC, work, batch, length,
-    # d_inner, state_dim, stream (two launches: the scan, then its reduction)
-    "scan_bwd_f32": [_P] * 13 + [_I, _I, _I, _I, _P],
-    # x, dt, A, B, C, bounds, g, gh, dx, ddt, dA, dB, dC, dh0, work, batch,
-    # length, d_inner, state_dim, stream (two launches, as scan_bwd_f32)
-    "scan_bwd_state_f32": [_P] * 15 + [_I, _I, _I, _I, _P],
-    # frames, dft_real, dft_imag, fb_t, out, n_frames, n_fft, n_freq, n_mels, stream
-    "log_mel_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, dt, A, B, C, bounds, g, dx, ddt, dA, dB, dC, work, work_floats,
+    # batch, length, d_inner, state_dim, stream
+    "scan_bwd_f32": [_P] * 13 + [_LL, _I, _I, _I, _I, _P],
+    # x, dt, A, B, C, bounds, g, gh, dx, ddt, dA, dB, dC, dh0, work,
+    # work_floats, batch, length, d_inner, state_dim, stream
+    "scan_bwd_state_f32": [_P] * 15 + [_LL, _I, _I, _I, _I, _P],
+    # padded, window, twiddle, band_first, band_offset, band_weight, out,
+    # batch, padded_len, n_frames, hop, n_mels, n_weights, stream
+    "log_mel_f32": [_P] * 7 + [_I] * 6 + [_P],
     # x, w_q, w_scale, out, x_q_out (or None), M, K, N, stream
     "int8_dense_dynamic_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, x_scale, w_q, w_scale, out, x_q_out (or None), M, K, N, stream
     "int8_dense_static_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+# Occupancy queries: the instantiation's arguments, then an int array out.
+OCCUPANCY_SIGNATURES = {
+    "log_mel_occupancy": [_I, _I, _P],  # n_mels, n_weights, out
+    "scan_bwd_occupancy": [_I, _I, _P],  # lanes per channel, with_state, out
+}
+OCCUPANCY_KEYS = {
+    "log_mel_occupancy": ("registers", "spill_bytes", "shared_bytes", "blocks_per_sm",
+                          "threads"),
+    "scan_bwd_occupancy": ("registers", "spill_bytes", "shared_bytes", "blocks_per_sm",
+                           "clusters", "threads"),
 }
 
 launch_counts: collections.Counter = collections.Counter()
@@ -84,17 +97,32 @@ class KernelLibrary:
         self.lib.kernel_error_string.argtypes = [ctypes.c_int]
         self.lib.kernel_error_string.restype = ctypes.c_char_p
         self.lib.scan_bwd_workspace_floats.argtypes = [_I, _I, _I, _I]
-        self.lib.scan_bwd_workspace_floats.restype = ctypes.c_longlong
+        self.lib.scan_bwd_workspace_floats.restype = _LL
+        for name, argtypes in OCCUPANCY_SIGNATURES.items():
+            fn = getattr(self.lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
 
-    def launch(self, name: str, *args, kernels: int = 1) -> None:
-        """Call one launcher on the current stream and raise on its error;
-        `kernels` is how many kernels the launcher starts."""
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(self.lib, name)(*args, stream)
+    def _check(self, name: str, rc: int) -> None:
         if rc != 0:
             msg = self.lib.kernel_error_string(rc).decode()
             raise RuntimeError(f"CUDA kernel {name} failed: {msg} (code {rc})")
-        launch_counts[name] += kernels
+
+    def launch(self, name: str, *args) -> None:
+        """Call one launcher on the current stream and raise on its error."""
+        stream = torch.cuda.current_stream().cuda_stream
+        self._check(name, getattr(self.lib, name)(*args, stream))
+        launch_counts[name] += 1
+
+    def occupancy(self, name: str, *args) -> dict:
+        """What the build and the card give one kernel instantiation:
+        registers and spill bytes per thread, shared bytes and threads per
+        block, resident blocks per SM (and, for a clustered kernel,
+        resident clusters on the device)."""
+        keys = OCCUPANCY_KEYS[name]
+        out = (ctypes.c_int * len(keys))()
+        self._check(name, getattr(self.lib, name)(*args, out))
+        return dict(zip(keys, out))
 
 
 _LIB: KernelLibrary | None = None

@@ -1,10 +1,14 @@
 """Log-mel spectrogram (mirrors velocity_asr_tpu/ops/mel_pallas.py and
 the device half of velocity_asr_tpu/audio.py).
 
-``log_mel`` is the CUDA kernel ``csrc/log_mel.cu`` on a CUDA tensor and
-``log_mel_plain`` (fp32 matmuls against the same matrices) on a CPU
-tensor. Reflect pad, framing and normalisation stay in torch, as they
-stay in XLA on the TPU.
+``log_mel`` takes the reflect-padded signal (batch, samples + n_fft) and
+the hop and returns (batch, frames, n_mels): the CUDA kernel
+``csrc/log_mel.cu`` on a CUDA tensor (it frames, windows and transforms
+each frame itself: a 400-point real FFT and a sparse filterbank, from the
+tables ``fft_tables`` and ``band_table`` built on the host), and
+``log_mel_plain`` (the frames times fp32 window-folded DFT matrices, as
+the Pallas kernel computes it) on a CPU tensor. Reflect padding and
+normalisation stay in torch, as they stay in XLA on the TPU.
 """
 
 from __future__ import annotations
@@ -26,6 +30,14 @@ from ..audio import (
 )
 from .cuda_lib import check_tensor, library
 
+KERNEL_N_FFT = 400  # the transform size csrc/log_mel.cu is written for
+
+
+def _frozen(*arrays):
+    for m in arrays:
+        m.setflags(write=False)
+    return arrays
+
 
 @functools.lru_cache(maxsize=4)
 def dft_mel_matrices(n_fft: int = N_FFT, n_mels: int = N_MELS,
@@ -40,9 +52,36 @@ def dft_mel_matrices(n_fft: int = N_FFT, n_mels: int = N_MELS,
     real = (w * np.cos(ang)).astype(np.float32)
     imag = (-w * np.sin(ang)).astype(np.float32)
     fb_t = np.ascontiguousarray(mel_filterbank(n_fft, n_mels, sample_rate).T)
-    for m in (real, imag, fb_t):
-        m.setflags(write=False)
-    return real, imag, fb_t
+    return _frozen(real, imag, fb_t)
+
+
+@functools.lru_cache(maxsize=4)
+def fft_tables(n_fft: int = N_FFT):
+    """The kernel's window and twiddles, fp32 numpy: the periodic Hann
+    window (n_fft,) and (n_fft, 2) cos and sin of 2 pi j / n_fft, computed
+    in float64 and rounded once."""
+    ang = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
+    twiddle = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+    return _frozen(hann_window(n_fft), twiddle)
+
+
+@functools.lru_cache(maxsize=4)
+def band_table(n_fft: int = N_FFT, n_mels: int = N_MELS, sample_rate: int = SAMPLE_RATE):
+    """The HTK filterbank as the kernel reads it: per band the first bin of
+    its run of nonzero weights, (n_mels,) int32; the runs' offsets into
+    the weights, (n_mels + 1,) int32; the weights, fp32, band after band.
+    Each band's nonzeros are one contiguous run of bins (a triangle)."""
+    fb = mel_filterbank(n_fft, n_mels, sample_rate)
+    first, offset, weights = [], [0], []
+    for m, row in enumerate(fb):
+        nz = np.flatnonzero(row)
+        if nz.size == 0 or nz[-1] - nz[0] + 1 != nz.size:
+            raise ValueError(f"mel band {m} is not one nonzero run of bins")
+        first.append(nz[0])
+        weights.append(row[nz[0]:nz[-1] + 1])
+        offset.append(offset[-1] + nz.size)
+    return _frozen(np.asarray(first, np.int32), np.asarray(offset, np.int32),
+                   np.concatenate(weights).astype(np.float32))
 
 
 @functools.lru_cache(maxsize=8)
@@ -51,43 +90,57 @@ def _device_matrices(device: torch.device, n_fft: int, n_mels: int, sample_rate:
                  for m in dft_mel_matrices(n_fft, n_mels, sample_rate))
 
 
-def log_mel_plain(frames, dft_real, dft_imag, fb_t) -> torch.Tensor:
-    """Plain version of the kernel: (M, n_fft) frames -> (M, n_mels).
+@functools.lru_cache(maxsize=8)
+def _device_tables(device: torch.device, n_mels: int, sample_rate: int):
+    """(window, twiddle, band_first, band_offset, band_weight) on device."""
+    return tuple(torch.tensor(m, device=device)
+                 for m in fft_tables(KERNEL_N_FFT)
+                 + band_table(KERNEL_N_FFT, n_mels, sample_rate))
 
-    fp32 matmuls; on a card the caller keeps TF32 off
+
+def log_mel_plain(padded: torch.Tensor, hop_length: int = HOP_LENGTH, n_fft: int = N_FFT,
+                  n_mels: int = N_MELS, sample_rate: int = SAMPLE_RATE) -> torch.Tensor:
+    """Plain version of the kernel: (batch, samples + n_fft) reflect-padded
+    fp32 signal -> (batch, frames, n_mels) log-mel.
+
+    Frames the signal and multiplies by the window-folded DFT matrices and
+    the dense filterbank in fp32; on a card the caller keeps TF32 off
     (torch.backends.cuda.matmul.allow_tf32 = False)."""
-    re = frames @ dft_real
-    im = frames @ dft_imag
-    return torch.log((re * re + im * im) @ fb_t + 1e-10)
+    frames = frame_signal(padded, n_fft, hop_length)
+    batch, t = frames.shape[:2]
+    real, imag, fb_t = _device_matrices(padded.device, n_fft, n_mels, sample_rate)
+    flat = frames.reshape(batch * t, n_fft).contiguous()
+    re = flat @ real
+    im = flat @ imag
+    return torch.log((re * re + im * im) @ fb_t + 1e-10).reshape(batch, t, n_mels)
 
 
-def log_mel(frames, dft_real, dft_imag, fb_t) -> torch.Tensor:
-    """Fused log-mel of (M, n_fft) fp32 frames -> (M, n_mels).
+def log_mel(padded: torch.Tensor, hop_length: int = HOP_LENGTH, n_fft: int = N_FFT,
+            n_mels: int = N_MELS, sample_rate: int = SAMPLE_RATE) -> torch.Tensor:
+    """Fused log-mel of the reflect-padded fp32 signal (batch, samples +
+    n_fft) -> (batch, frames, n_mels), frames = 1 + samples // hop_length.
 
-    On CUDA tensors this launches ``log_mel_f32``; on CPU tensors it runs
-    ``log_mel_plain``.
+    On CUDA tensors this launches ``log_mel_f32`` (n_fft must be 400); on
+    CPU tensors it runs ``log_mel_plain``.
     """
-    if not frames.is_cuda:
-        return log_mel_plain(frames, dft_real, dft_imag, fb_t)
-    n_frames, n_fft = frames.shape
-    n_freq, n_mels = fb_t.shape
-    for name, t, shape in (
-        ("frames", frames, (n_frames, n_fft)),
-        ("dft_real", dft_real, (n_fft, n_freq)),
-        ("dft_imag", dft_imag, (n_fft, n_freq)),
-        ("fb_t", fb_t, (n_freq, n_mels)),
-    ):
-        check_tensor(t, name, shape)
-        if t.device != frames.device:
-            raise ValueError(f"{name} is on {t.device}, frames on {frames.device}")
-    out = torch.empty(n_frames, n_mels, dtype=torch.float32, device=frames.device)
-    if n_frames == 0:
+    if not padded.is_cuda:
+        return log_mel_plain(padded, hop_length, n_fft, n_mels, sample_rate)
+    if n_fft != KERNEL_N_FFT:
+        raise ValueError(f"the log-mel kernel computes {KERNEL_N_FFT}-point frames, not {n_fft}")
+    if padded.ndim != 2 or padded.shape[1] < n_fft:
+        raise ValueError(f"padded must be (batch, >= {n_fft} samples), got {tuple(padded.shape)}")
+    check_tensor(padded, "padded", padded.shape)
+    batch, padded_len = padded.shape
+    n_frames = 1 + (padded_len - n_fft) // hop_length
+    out = torch.empty(batch, n_frames, n_mels, dtype=torch.float32, device=padded.device)
+    if batch == 0:
         return out
-    with torch.cuda.device(frames.device):
+    window, twiddle, first, offset, weight = _device_tables(padded.device, n_mels, sample_rate)
+    with torch.cuda.device(padded.device):
         library().launch(
-            "log_mel_f32", frames.data_ptr(), dft_real.data_ptr(),
-            dft_imag.data_ptr(), fb_t.data_ptr(), out.data_ptr(),
-            n_frames, n_fft, n_freq, n_mels,
+            "log_mel_f32", padded.data_ptr(), window.data_ptr(), twiddle.data_ptr(),
+            first.data_ptr(), offset.data_ptr(), weight.data_ptr(), out.data_ptr(),
+            batch, padded_len, n_frames, hop_length, n_mels, weight.numel(),
         )
     return out
 
@@ -109,13 +162,10 @@ def compute_mel_spectrogram(
     squeeze = audio.ndim == 1
     if squeeze:
         audio = audio[None]
-    audio = audio.to(torch.float32)
-    frames = frame_signal(reflect_pad(audio, n_fft // 2), n_fft, hop_length)
-    batch, t = frames.shape[:2]
-    mats = _device_matrices(audio.device, n_fft, n_mels, sample_rate)
-    mel = log_mel(frames.reshape(batch * t, n_fft).contiguous(), *mats)
-    mel = mel.reshape(batch, t, n_mels)
+    padded = reflect_pad(audio.to(torch.float32), n_fft // 2)
+    mel = log_mel(padded, hop_length, n_fft, n_mels, sample_rate)
     if normalize:
+        t = mel.shape[1]
         mean = mel.mean(dim=-2, keepdim=True)
         std = mel.std(dim=-2, keepdim=True) if t > 1 else torch.zeros_like(mean)
         mel = (mel - mean) / (std + 1e-10)

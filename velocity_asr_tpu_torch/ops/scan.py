@@ -270,12 +270,39 @@ def scan_fwd_bounds_state(x, dt, A, B, C, h0):
     return y, bounds, h_final
 
 
+def _launch_bwd(lib, x, dt, A, B, C, bounds, g, gh=None):
+    """Allocate the backward's outputs and the workspace the library asks
+    for (its size passed too, which the C entry checks; its last batch + 1
+    words are the kernel's arrival counters, which the entry zeroes on the
+    stream first) and launch ``scan_bwd_f32`` (``scan_bwd_state_f32`` with
+    gh): one kernel, counted once. Returns (dx, ddt, dA, dB, dC) and, with
+    gh, dh0."""
+    batch, length, d_inner = x.shape
+    state_dim = A.shape[0]
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dA = torch.empty_like(A)
+    n_work = lib.lib.scan_bwd_workspace_floats(batch, length, d_inner, state_dim)
+    work = torch.empty(n_work, dtype=torch.float32, device=x.device)
+    ptrs = [t.data_ptr() for t in (x, dt, A, B, C, bounds, g)]
+    if gh is None:
+        lib.launch("scan_bwd_f32", *ptrs, dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+                   dB.data_ptr(), dC.data_ptr(), work.data_ptr(), n_work,
+                   batch, length, d_inner, state_dim)
+        return dx, ddt, dA, dB, dC
+    dh0 = torch.empty_like(gh)
+    lib.launch("scan_bwd_state_f32", *ptrs, gh.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+               dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), dh0.data_ptr(), work.data_ptr(),
+               n_work, batch, length, d_inner, state_dim)
+    return dx, ddt, dA, dB, dC, dh0
+
+
 def scan_bwd(x, dt, A, B, C, bounds, g):
     """Backward of the no-state scan: (dx, ddt, dA, dB, dC), fp32, no D*x
     skip terms, from the forward's inputs, its bounds and g = dLoss/dy.
 
-    On CUDA tensors this launches ``scan_bwd_f32`` (counted twice: the
-    scan and the sum of its per-block partials, deterministic); on CPU
+    On CUDA tensors this launches ``scan_bwd_f32`` (one kernel, which
+    also sums dB, dC and dA across its blocks, deterministic); on CPU
     tensors it runs ``scan_bwd_plain``.
     """
     if not x.is_cuda:
@@ -283,22 +310,11 @@ def scan_bwd(x, dt, A, B, C, bounds, g):
     batch, length, d_inner, state_dim = _check_inputs(x, dt, A, B, C)
     check_tensor(bounds, "bounds", (batch, -(-length // TRAIN_CHUNK), d_inner, state_dim))
     check_tensor(g, "g", (batch, length, d_inner))
-    dx, ddt = torch.empty_like(x), torch.empty_like(x)
-    dB, dC = torch.empty_like(B), torch.empty_like(C)
-    dA = torch.zeros_like(A)
     if batch == 0 or length == 0:
-        return dx, ddt, dA, dB, dC
+        return (torch.zeros_like(x), torch.zeros_like(x), torch.zeros_like(A),
+                torch.zeros_like(B), torch.zeros_like(C))
     with torch.cuda.device(x.device):
-        lib = library()
-        work = torch.empty(lib.lib.scan_bwd_workspace_floats(batch, length, d_inner, state_dim),
-                           dtype=torch.float32, device=x.device)
-        lib.launch(
-            "scan_bwd_f32", x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), bounds.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-            work.data_ptr(), batch, length, d_inner, state_dim, kernels=2,
-        )
-    return dx, ddt, dA, dB, dC
+        return _launch_bwd(library(), x, dt, A, B, C, bounds, g)
 
 
 def scan_bwd_state(x, dt, A, B, C, bounds, g, gh):
@@ -307,8 +323,8 @@ def scan_bwd_state(x, dt, A, B, C, bounds, g, gh):
     (``scan_fwd_bounds_state``), g = dLoss/dy and gh = dLoss/dh_final
     (batch, d_inner, state_dim).
 
-    On CUDA tensors this launches ``scan_bwd_state_f32`` (counted twice,
-    as ``scan_bwd_f32``); on CPU tensors it runs ``scan_bwd_plain(...,
+    On CUDA tensors this launches ``scan_bwd_state_f32`` (one kernel, as
+    ``scan_bwd_f32``); on CPU tensors it runs ``scan_bwd_plain(...,
     gh)``. An empty chunk (L = 0) passes gh through as dh0.
     """
     if not x.is_cuda:
@@ -317,23 +333,11 @@ def scan_bwd_state(x, dt, A, B, C, bounds, g, gh):
     check_tensor(bounds, "bounds", (batch, -(-length // TRAIN_CHUNK), d_inner, state_dim))
     check_tensor(g, "g", (batch, length, d_inner))
     _check_state(gh, "gh", x, state_dim)
-    dx, ddt = torch.empty_like(x), torch.empty_like(x)
-    dB, dC = torch.empty_like(B), torch.empty_like(C)
-    dA = torch.zeros_like(A)
     if batch == 0 or length == 0:
-        return dx, ddt, dA, dB, dC, gh.clone()
-    dh0 = torch.empty_like(gh)
+        return (torch.zeros_like(x), torch.zeros_like(x), torch.zeros_like(A),
+                torch.zeros_like(B), torch.zeros_like(C), gh.clone())
     with torch.cuda.device(x.device):
-        lib = library()
-        work = torch.empty(lib.lib.scan_bwd_workspace_floats(batch, length, d_inner, state_dim),
-                           dtype=torch.float32, device=x.device)
-        lib.launch(
-            "scan_bwd_state_f32", x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), bounds.data_ptr(), g.data_ptr(), gh.data_ptr(), dx.data_ptr(),
-            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), dh0.data_ptr(),
-            work.data_ptr(), batch, length, d_inner, state_dim, kernels=2,
-        )
-    return dx, ddt, dA, dB, dC, dh0
+        return _launch_bwd(library(), x, dt, A, B, C, bounds, g, gh)
 
 
 class SelectiveScanFn(torch.autograd.Function):
