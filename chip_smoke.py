@@ -10,9 +10,12 @@ its seconds:
   2. build the CUDA kernels (one nvcc call), with ptxas registers/spills,
      and, as the card reports them, the registers, spill bytes, shared
      bytes and resident blocks per SM (clusters of 8 for the backward) of
-     every instantiation of the log-mel and the scan backward, and the
-     backward's workspace and grid, in waves of resident clusters, at the
-     training shapes (16, 300, 384, 64) and (8, 100, 384, 64);
+     every instantiation of the log-mel, the scan backward and the int8
+     dense kernels (fp32 and bf16 x), the backward's workspace and grid,
+     in waves of resident clusters, at the training shapes (16, 300, 384,
+     64) and (8, 100, 384, 64), and the int8 grid (blocks, shared bytes,
+     stages of K, waves) at every shape of the batched path's 600-frame
+     bucket and at K = 1,536;
   3. regenerate the first N held-out synthetic utterances (split "test",
      seed 1234) as WAVs in a temporary directory, and work out the shapes
      phases 4, 5 and 7 will run on them (each utterance's frame bucket,
@@ -25,12 +28,17 @@ its seconds:
      200, 300} at batch 1 and 4, and across a seam (L = 200 as two
      launches of 100: against the plain version and against one launch);
      the log-mel (from the reflect-padded signal, as the kernel frames it)
-     on single utterances of 200 and 600 frames and at every batch of the
+     on single utterances of 200 and 600 frames, at every batch of the
      device-mel training path (4 x 600 for 9a, 8 x every 600-frame bucket
-     up to 3,600 for 9b); and both int8 dense kernels at every shape of the
-     batched int8 path plus the 400-frame shapes at batch 1 and 16, one
-     128-aligned shape, one off every tile and K = 1012, the widest the
-     kernels take (identical codes, output within 1e-5 of max|out|); the
+     up to 3,600 for 9b) and on signals of 1, 150 and 200 samples, no
+     longer than the pad (bands below 1e-6 of their frame's power, rounding
+     noise in both versions, held below that floor); and both int8 dense
+     kernels, x in fp32 and in bf16, at every shape of the batched int8
+     path plus the 400-frame shapes at batch 1 and 16, one 128-aligned
+     shape, one off every tile, K = 1012, and K = 1,024, 1,536 and 1,537
+     at (37, K, 70) and (4800, K, 192), and rows whose every quotient
+     v / s lies within an ulp of a half-integer (identical codes, output
+     within 1e-5 of max|out|); the
      training scans at every training shape (batch 16, L = 100-400 at
      N=64 and L = 64 at N=32, and phase 8a's batch 4 at L = 200): the
      bounds-saving forward (y bit-equal to the no-bounds kernel's, bounds
@@ -119,9 +127,11 @@ its seconds:
      calls, which include the host's launch; rows 4s and 5s at (8, 100,
      384, 64) and (8, 64, 384, 32), row 5 also at phase 9b's offline term
      (batch 8 at the frame bucket 9b ran most often: L = 1,200 at 2,400
-     frames), the log-mel also at batch 8 at that bucket, and the whole
+     frames), the log-mel also at batch 8 at that bucket, the whole
      front end (compute_mel_spectrogram: pad, kernel, normalise) eagerly
-     beside the kernel alone at 400 frames and at that batch.
+     beside the kernel alone at 400 frames and at that batch, and both
+     int8 kernels at every distinct shape of the batched path and at K =
+     1,536, x in fp32 and in bf16, beside torch._int_mm and the bound.
 
 The line before the last is a JSON object listing the kernels; the last
 line is {"ok": true, "device": {...}} and is printed only when every
@@ -172,6 +182,10 @@ SCAN_MAX_REL = 1e-4  # max|kernel - plain| / max|plain|; fp32, other summation o
 # read back in fp32
 SEAM_MAX_REL = 1e-6
 MEL_MAX_ABS = 1e-3  # on log-mel; fp32 FMAs against cuBLAS fp32 matmuls
+# signals no longer than the reflect pad, and the power (of a frame's
+# largest) below which a band of such a signal is rounding noise
+MEL_SHORT_SAMPLES = (1, 150, 200)
+MEL_NOISE_FLOOR = 1e-6
 WER_MAX_DIFF = 0.01  # port WER within 1.0 point of the JAX WER
 LOGITS_FP32_MAX_ABS = 1e-2  # card against CPU, fp32 model, one utterance
 # card against CPU, fp32 model, two streaming chunks: every carried leaf
@@ -224,6 +238,14 @@ SCAN_REPLACES = "velocity_asr_tpu/ops/scan_pallas.py:79"
 MEL_REPLACES = "velocity_asr_tpu/ops/mel_pallas.py:74"
 INT8_DYNAMIC_REPLACES = "velocity_asr_tpu/ops/int8_matmul.py:88"
 INT8_STATIC_REPLACES = "velocity_asr_tpu/ops/int8_matmul.py:70"
+
+# the batched int8 path's most common frame bucket (16 x 300 rows), and a K
+# past what a block keeps in shared memory at 192 channels (7 stages of 224)
+INT8_MAIN_FRAMES = 600
+INT8_STAGED_K = 1536
+# the widest K's held in phase 3 (at 192 channels: 5, 7 and 7 stages, the
+# last off every tile, without 16-byte loads)
+INT8_WIDE_K = (1024, 1536, 1537)
 
 # every width the kernel picks (N <= 4, 8, 16, 128 and 200: one to 32
 # lanes; 24 fills 3/4 of its lanes; 300: two passes of 256 states)
@@ -422,17 +444,18 @@ def scan_bwd_cost(batch, length, d_inner, state_dim, with_state=False):
     return n_bytes, 20 * batch * length * d_inner * state_dim
 
 
-def int8_cost(m, k, n):
-    """Bytes (x fp32 read once, codes and channel scales read once, out
-    fp32 written once) and operations per type: 2*M*N*K int8 (products
-    and sums) and 5*M*K + 2*M*N fp32 (|x| max, divide, round, clamp;
+def int8_cost(m, k, n, x_bytes=4):
+    """Bytes (x read once at the width the call reads, x_bytes = 4 for
+    fp32 and 2 for bf16; codes and channel scales read once, out fp32
+    written once) and operations per type: 2*M*N*K int8 (products and
+    sums) and 5*M*K + 2*M*N fp32 (|x| max, divide, round, clamp;
     dequantize)."""
-    n_bytes = 4 * m * k + n * k + 4 * n + 4 * m * n + 4
+    n_bytes = x_bytes * m * k + n * k + 4 * n + 4 * m * n + 4
     return n_bytes, 2 * m * n * k, 5 * m * k + 2 * m * n
 
 
-def int8_bound_ms(m, k, n):
-    n_bytes, int8_ops, fp32_ops = int8_cost(m, k, n)
+def int8_bound_ms(m, k, n, x_bytes=4):
+    n_bytes, int8_ops, fp32_ops = int8_cost(m, k, n, x_bytes)
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = (int8_ops / PEAK_INT8_OPS_PER_S + fp32_ops / PEAK_FP32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -678,7 +701,7 @@ def phase_build():
     for line in lib.build_log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
-    # what the card makes of the two kernels this tree redesigned
+    # what the card makes of the redesigned kernels
     first, _, weight = band_table()
     occ = lib.occupancy("log_mel_occupancy", first.size, weight.size)
     log(f"  occupancy log_mel_kernel: {occ}")
@@ -688,6 +711,23 @@ def phase_build():
             log(f"  occupancy scan_bwd_kernel<G={lanes}, kWithState={with_state}> "
                 f"({4 * lanes} states a pass): {occ}; one wave {occ['clusters']} clusters of 8 "
                 f"= {8 * occ['clusters']} blocks on {torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    # the int8 kernels: each instantiation at the batched path's main shape,
+    # then the grid at every distinct shape of its most common bucket and
+    # at a K that runs in stages
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    main = (BATCH * INT8_MAIN_FRAMES // 2, 192, 192)
+    for static in (False, True):
+        for dtype, code in (("fp32", 0), ("bf16", 1)):
+            occ = lib.occupancy("int8_dense_occupancy", int(static), code, *main)
+            log(f"  occupancy int8_dense_kernel<kStatic={static}, x {dtype}> at (M, K, N) = "
+                f"{main}: {occ}")
+    shapes = sorted({(m, k, n) for _, m, k, n in int8_shapes(BATCH, INT8_MAIN_FRAMES)})
+    for m, k, n in shapes + [(main[0], INT8_STAGED_K, 192)]:
+        occ = lib.occupancy("int8_dense_occupancy", 0, 0, m, k, n)
+        log(f"  int8 grid at (M, K, N) = {(m, k, n)}: {occ['blocks']} blocks of "
+            f"{occ['threads']} threads, {occ['shared_bytes']} shared bytes, {occ['stages']} "
+            f"stage(s) of K, {occ['blocks'] / (occ['blocks_per_sm'] * sms):.2f} waves of "
+            f"{occ['blocks_per_sm']} x {sms} resident")
     occ = lib.occupancy("scan_bwd_occupancy", 16, 0)  # N = 64: 16 lanes of 4 states
     per_cluster = 8 * occ["threads"] // 16  # channels
     for shape in ((TRAIN_BATCH, 300, 384, 64), (STREAM_BATCH, 100, 384, 64)):
@@ -698,9 +738,10 @@ def phase_build():
             f"the {occ['clusters']} resident")
 
 
-def int8_inputs(rng, m, k, n):
-    """x (M, K) with rows of differing loudness, and the codes and scales
-    of a (N, K) weight, on the card."""
+def int8_inputs(rng, m, k, n, dtype="float32"):
+    """x (M, K) with rows of differing loudness, in `dtype` (float32 or
+    bfloat16: the batched path's model hands its projections bf16), and
+    the codes and scales of a (N, K) weight, on the card."""
     import torch
 
     from velocity_asr_tpu_torch.ops.int8_matmul import quantize_weight
@@ -709,19 +750,57 @@ def int8_inputs(rng, m, k, n):
     x = (rng.standard_normal((m, k)) * loud).astype(np.float32)
     w = (rng.standard_normal((n, k)) * 0.1).astype(np.float32)
     w_q, w_scale = quantize_weight(torch.tensor(w, device="cuda"))
-    return torch.tensor(x, device="cuda"), w_q, w_scale
+    return torch.tensor(x, device="cuda").to(getattr(torch, dtype)), w_q, w_scale
 
 
-def compare_int8(rng, m, k, n, static: bool):
-    """Kernel against plain on one shape: (max_abs, max_rel, code diffs)."""
+# a row's |x| max whose scale s = INT8_TIE_AMAX / 127 has a reciprocal
+# that moves v * (1 / s) across a half-integer from v / s for about a third
+# of the values near s (j + 1/2)
+INT8_TIE_AMAX = 124.58155059814453
+INT8_TIE_K = 768
+
+
+def int8_tie_inputs(rng, m, n):
+    """x (M, 768) fp32 whose every row holds INT8_TIE_AMAX and, for j =
+    -127..126, s (j + 1/2) rounded to fp32 and its two neighbours (zeros
+    for the rest), shuffled, times 1 or 2: every quotient v / s lies
+    within an ulp of a half-integer, where the kernel's product by the
+    scale's reciprocal gives way to the division. Returns x, the weights
+    as int8_inputs does, and s (the static scale of the same grid)."""
+    import torch
+
+    from velocity_asr_tpu_torch.ops.int8_matmul import quantize_weight
+
+    amax = np.float32(INT8_TIE_AMAX)
+    s = amax / np.float32(127.0)
+    near = (s * (np.arange(-127, 127) + 0.5)).astype(np.float32)
+    vals = np.concatenate([np.nextafter(near, -np.inf), near, np.nextafter(near, np.inf)])
+    vals = vals[np.abs(vals) <= amax].astype(np.float32)
+    row = np.zeros(INT8_TIE_K, np.float32)
+    row[:vals.size + 1] = np.concatenate([[amax], vals])
+    x = np.stack([rng.permutation(row) * np.float32(1 + i % 2) for i in range(m)])
+    w = (rng.standard_normal((n, INT8_TIE_K)) * 0.1).astype(np.float32)
+    w_q, w_scale = quantize_weight(torch.tensor(w, device="cuda"))
+    return torch.tensor(x, device="cuda"), w_q, w_scale, float(s)
+
+
+def compare_int8(rng, m, k, n, static: bool, dtype="float32", ties=False):
+    """Kernel against plain on one shape, x in `dtype` (or, with ties, the
+    near-half-integer quotients of int8_tie_inputs at K = 768 and its
+    static scale): (max_abs, max_rel, code diffs)."""
     import torch
 
     from velocity_asr_tpu_torch.ops.int8_matmul import (
         dynamic_scale, int8_dot, int8_dot_plain, quantize_activation, scale_of)
 
-    x, w_q, w_scale = int8_inputs(rng, m, k, n)
-    # a static scale that clips the loudest rows, as a calibrated one may
-    x_scale = scale_of(x.abs().amax() * 0.8) if static else None
+    if ties:
+        x, w_q, w_scale, tie_scale = int8_tie_inputs(rng, m, n)
+        k = x.shape[1]
+        x_scale = torch.full((), tie_scale, device="cuda") if static else None
+    else:
+        x, w_q, w_scale = int8_inputs(rng, m, k, n, dtype)
+        # a static scale that clips the loudest rows, as a calibrated one may
+        x_scale = scale_of(x.abs().amax() * 0.8) if static else None
     codes = torch.empty(m, k, dtype=torch.int8, device="cuda")
     ker = int8_dot(x, w_q, w_scale, x_scale, codes_out=codes)
     torch.cuda.synchronize()
@@ -748,6 +827,7 @@ def scan_cases(plan):
 def phase_compare(plan):
     import torch
 
+    from velocity_asr_tpu_torch.audio import N_FFT, frame_count, reflect_pad
     from velocity_asr_tpu_torch.ops.mel import log_mel, log_mel_plain
     from velocity_asr_tpu_torch.ops.scan import scan_fwd, scan_fwd_plain
 
@@ -876,32 +956,76 @@ def phase_compare(plan):
         if not ok:
             raise AssertionError("log-mel kernel disagrees with its plain version")
         errs["log_mel_f32"] = max(errs["log_mel_f32"], max_abs)
+    # signals no longer than the 200-sample reflect pad (padded by the
+    # repeated reflection). A 1-sample signal pads to a constant frame,
+    # whose spectrum is zero in exact arithmetic past the window's lowest
+    # bins: there both versions hold fp32 rounding noise (an FFT against
+    # a DFT product), so bands below MEL_NOISE_FLOOR of their frame's
+    # largest power are held below that floor instead of to each other
+    for n_samples in MEL_SHORT_SAMPLES:
+        audio = torch.tensor((rng.standard_normal((1, n_samples)) * 0.1).astype(np.float32),
+                             device="cuda")
+        padded = reflect_pad(audio, N_FFT // 2)
+        ker = log_mel(padded)
+        torch.cuda.synchronize()
+        ref = log_mel_plain(padded)
+        floor = MEL_NOISE_FLOOR * ref.exp().amax(dim=-1, keepdim=True)
+        live = ref.exp() > floor
+        max_abs = (ker - ref)[live].abs().max().item()
+        quiet = bool((ker.exp() <= floor)[~live].all().item())
+        ok = (ker.shape == (1, frame_count(n_samples), 80) and math.isfinite(max_abs)
+              and max_abs <= MEL_MAX_ABS and quiet)
+        log(f"log_mel of {n_samples} samples ({ker.shape[1]} frames): max_abs {max_abs:.3e} "
+            f"over {int(live.sum())} of {live.numel()} bands above {MEL_NOISE_FLOOR:g} of their "
+            f"frame's power (tol abs {MEL_MAX_ABS:g}); the rest below that floor: {quiet} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("log-mel kernel disagrees with its plain version on a short "
+                                 "signal")
+        errs["log_mel_f32"] = max(errs["log_mel_f32"], max_abs)
     # every shape of the batched int8 path (each batch's size and padded
     # frames), the 400-frame shapes at batch 1 and 16, one 128-aligned
     # shape, one with K, M and N off every tile (K % 4 != 0: the byte-wise
-    # weight path), and the widest K the kernels take
+    # weight path), and K past a block's shared memory (in stages), at a
+    # ragged M and N and at the main shape's; x in fp32 and in bf16
     groups = {f"batch {b}, {f} frames (batched path)": int8_shapes(b, f)
               for b, f in sorted(plan["batched"])}
     for b in (1, BATCH):
         groups.setdefault(f"batch {b}, 400 frames", int8_shapes(b, 400))
-    groups["aligned, ragged and widest K"] = [("aligned", 256, 256, 256), ("ragged", 37, 50, 70),
-                                              ("widest", 37, 1012, 70)]
+    groups["aligned, ragged and widest K"] = (
+        [("aligned", 256, 256, 256), ("ragged", 37, 50, 70), ("widest", 37, 1012, 70)]
+        + [("wide", m, k, n) for k in INT8_WIDE_K
+           for m, n in ((37, 70), (BATCH * INT8_MAIN_FRAMES // 2, 192))])
     for static, name in ((False, "int8_dense_dynamic_f32"), (True, "int8_dense_static_f32")):
-        for group, projections in groups.items():
-            shapes = sorted({(m, k, n) for _, m, k, n in projections})
-            worst = (0.0, 0.0)
-            for m, k, n in shapes:
-                max_abs, max_rel, code_diffs = compare_int8(rng, m, k, n, static)
-                ok = code_diffs == 0 and math.isfinite(max_rel) and max_rel <= INT8_MAX_REL
-                if not ok:
-                    log(f"{name} M={m} K={k} N={n}: code diffs {code_diffs}, max_abs "
-                        f"{max_abs:.3e} max_rel {max_rel:.3e} FAIL")
-                    raise AssertionError(f"{name} disagrees with its plain version")
-                worst = max(worst, (max_rel, max_abs))
-                errs[name] = max(errs[name], max_abs)
-            log(f"{name}, {group}: {len(shapes)} shapes (M {min(s[0] for s in shapes)}-"
-                f"{max(s[0] for s in shapes)}), codes identical, worst max_rel {worst[0]:.3e} "
-                f"(max_abs {worst[1]:.3e}; tol rel {INT8_MAX_REL:g}) ok")
+        for dtype in ("float32", "bfloat16"):
+            for group, projections in groups.items():
+                shapes = sorted({(m, k, n) for _, m, k, n in projections})
+                worst = (0.0, 0.0)
+                for m, k, n in shapes:
+                    max_abs, max_rel, code_diffs = compare_int8(rng, m, k, n, static, dtype)
+                    ok = code_diffs == 0 and math.isfinite(max_rel) and max_rel <= INT8_MAX_REL
+                    if not ok:
+                        log(f"{name} x {dtype} M={m} K={k} N={n}: code diffs {code_diffs}, "
+                            f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} FAIL")
+                        raise AssertionError(f"{name} disagrees with its plain version")
+                    worst = max(worst, (max_rel, max_abs))
+                    errs[name] = max(errs[name], max_abs)
+                log(f"{name}, x {dtype}, {group}: {len(shapes)} shapes (M "
+                    f"{min(s[0] for s in shapes)}-{max(s[0] for s in shapes)}, K "
+                    f"{min(s[1] for s in shapes)}-{max(s[1] for s in shapes)}), codes identical, "
+                    f"worst max_rel {worst[0]:.3e} (max_abs {worst[1]:.3e}; tol rel "
+                    f"{INT8_MAX_REL:g}) ok")
+        # quotients exactly at half-integers, where the kernel's product by
+        # the scale's reciprocal gives way to the division
+        for m, n in ((37, 70), (256, 192)):
+            max_abs, max_rel, code_diffs = compare_int8(rng, m, INT8_TIE_K, n, static, ties=True)
+            ok = code_diffs == 0 and math.isfinite(max_rel) and max_rel <= INT8_MAX_REL
+            log(f"{name}, x float32, near ties (every v / s within an ulp of a half-integer) "
+                f"M={m} K={INT8_TIE_K} N={n}: code diffs {code_diffs}, max_rel {max_rel:.3e} "
+                f"(tol rel {INT8_MAX_REL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} rounds a half-integer quotient otherwise")
+            errs[name] = max(errs[name], max_abs)
     torch.cuda.synchronize()
     return errs
 
@@ -1665,17 +1789,18 @@ def phase_stream_training(manifest, stream_wers):
     return {"counts": counts, "steps": STREAM_STEPS, "chunks": chunks, "buckets": buckets}
 
 
-def time_int8(rng, m, k, n):
+def time_int8(rng, m, k, n, dtype="float32"):
     """Times of both int8 kernels, their plain version and torch._int_mm
     (int8 x int8 -> int32 on pre-quantized operands, where its shape rules
-    allow; None elsewhere) at one shape: device time from CUDA graphs, and
-    the kernels' eager time (host launch included) from events."""
+    allow; None elsewhere) at one shape, x in `dtype`: device time from
+    CUDA graphs, and the kernels' eager time (host launch included) from
+    events."""
     import torch
 
     from velocity_asr_tpu_torch.ops.int8_matmul import (
         dynamic_scale, int8_dot, int8_dot_plain, quantize_activation, scale_of)
 
-    x, w_q, w_scale = int8_inputs(rng, m, k, n)
+    x, w_q, w_scale = int8_inputs(rng, m, k, n, dtype)
     x_scale = scale_of(x.abs().amax())
     times = {
         "dynamic": graph_time_ms(lambda: int8_dot(x, w_q, w_scale), iters=100),
@@ -1871,21 +1996,26 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
         f"{counts.get('log_mel_f32', 0)} offline (phase 4), {s_counts.get('log_mel_f32', 0)} "
         f"streaming-aware training (phase 9b)")
 
-    # int8 at the batched path's shapes (batch 16, its most common padded
-    # length); the JSON line carries the (16 * L) x 192 -> 192 shape, 3 of
-    # the 11 projections
+    # int8 at every distinct shape of the batched path (batch 16, its most
+    # common padded length) and at a K that runs in stages, with x in fp32
+    # and in bf16 (what the batched path's bf16 model hands its
+    # projections); the JSON line carries the (16 * L) x 192 -> 192 shape,
+    # 3 of the 11 projections, in bf16
     frames = batched["int8"]["bucket"]
     int8_rows = {}
-    for m, k, n in sorted({(m, k, n) for _, m, k, n in int8_shapes(BATCH, frames)}):
-        t = time_int8(rng, m, k, n)
-        b_ms, b_by = int8_bound_ms(m, k, n)
-        int_mm = "n/a" if t["int_mm"] is None else f"{t['int_mm']:.4f} ms"
-        log(f"time int8 M={m} K={k} N={n} (device, CUDA graph): dynamic {t['dynamic']:.4f} ms, "
-            f"static {t['static']:.4f} ms, plain {t['plain_dynamic']:.4f} / "
-            f"{t['plain_static']:.4f} ms, torch._int_mm {int_mm}, bound {b_ms:.5f} ms ({b_by}); "
-            f"eager (host launch included) {t['eager_dynamic']:.4f} / {t['eager_static']:.4f} ms")
-        int8_rows[(m, k, n)] = (t, b_ms, b_by)
-    t, i8_b, i8_by = int8_rows[(frames // 2 * BATCH, 192, 192)]
+    shapes = sorted({(m, k, n) for _, m, k, n in int8_shapes(BATCH, frames)})
+    for m, k, n in shapes + [(frames // 2 * BATCH, INT8_STAGED_K, 192)]:
+        for dtype, x_bytes in (("float32", 4), ("bfloat16", 2)):
+            t = time_int8(rng, m, k, n, dtype)
+            b_ms, b_by = int8_bound_ms(m, k, n, x_bytes)
+            int_mm = "n/a" if t["int_mm"] is None else f"{t['int_mm']:.4f} ms"
+            log(f"time int8 M={m} K={k} N={n} x {dtype} (device, CUDA graph): dynamic "
+                f"{t['dynamic']:.4f} ms, static {t['static']:.4f} ms, plain "
+                f"{t['plain_dynamic']:.4f} / {t['plain_static']:.4f} ms, torch._int_mm {int_mm}, "
+                f"bound {b_ms:.5f} ms ({b_by}); eager (host launch included) "
+                f"{t['eager_dynamic']:.4f} / {t['eager_static']:.4f} ms")
+            int8_rows[(m, k, n, dtype)] = (t, b_ms, b_by)
+    t, i8_b, i8_by = int8_rows[(frames // 2 * BATCH, 192, 192, "bfloat16")]
     per_utt = {mode: batched[mode]["counts"].get(name, 0) / (batched[mode]["batches"] * BATCH)
                for mode, name in (("int8", "int8_dense_dynamic_f32"),
                                   ("int8_static", "int8_dense_static_f32"))}

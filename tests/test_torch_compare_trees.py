@@ -23,7 +23,25 @@ def test_turns_of_one_tree_agree_bit_for_bit(capsys):
         assert "train" not in t and all("device_ms" not in b for b in t["backward"])
         # dx, ddt, dA, dB, dC, and dh0 with a carried state
         assert [len(b["sums"]) for b in t["backward"]] == [5, 6]
+        # both int8 kernels (their plain version here) at each shape and type of x
+        assert [(r["shape"], r["dtype"]) for r in t["int8"]] == [
+            (list(s), d) for s in compare_trees.INT8_CPU_SHAPES for d in compare_trees.INT8_TYPES]
+        for r in t["int8"]:
+            assert len(r["sums"]) == 2 and all(v > 0 for v in r["sums"])
+            assert "dynamic_cpu_wall_ms" in r and "dynamic_device_ms" not in r
     assert compare_trees._agree(result["turns"]) == 0.0
+    assert any(line.startswith("turn B int8 (37, 50, 30) x bfloat16:") for line in lines)
+
+
+def test_int8_summary_takes_each_trees_median_and_spread():
+    turns = [{"letter": letter, "int8": [{"shape": [4800, 192, 192], "dtype": "float32",
+                                          "dynamic_device_ms": d, "static_device_ms": d / 2}]}
+             for letter, d in (("A", 0.018), ("B", 0.005), ("B", 0.007), ("A", 0.020),
+                               ("A", 0.019), ("B", 0.006))]
+    lines = compare_trees._int8_summary(turns)
+    assert lines[0] == ("int8 dynamic (4800, 192, 192) x float32: A median 0.0190 ms (spread "
+                        "0.0020, 3 turns); B median 0.0060 ms (spread 0.0020, 3 turns)")
+    assert lines[1].startswith("int8 static (4800, 192, 192) x float32: A median 0.0095 ms")
 
 
 def test_an_order_naming_a_missing_tree_is_refused():

@@ -4,8 +4,9 @@ the JAX package's, on the same numpy weights and inputs.
 Tolerances:
   - weight codes and scales: bit-exact (the same fp32 divisions and
     round-half-to-even on both sides);
-  - ``int8_dot_plain`` against ``int8_dot_xla``, dynamic and static:
-    rtol 1e-6 (the same codes, int32 sums and fp32 dequantization);
+  - ``int8_dot_plain`` against ``int8_dot_xla``, dynamic and static, K
+    up to 1,536: rtol 1e-6 (the same codes, int32 sums and fp32
+    dequantization);
   - against ``int8_dot_pallas`` in interpret mode at K = N = 128: the
     Pallas kernels take amax * (1/127) and x * (1/scale) where the port
     divides, so at most 0.1% of the activation codes differ (by one),
@@ -63,7 +64,7 @@ def test_quantize_weight_bit_exact(k, n):
 
 
 @pytest.mark.parametrize("static", [False, True])
-@pytest.mark.parametrize("k,n", [(192, 48), (384, 192), (50, 30)])
+@pytest.mark.parametrize("k,n", [(192, 48), (384, 192), (50, 30), (1024, 70), (1536, 192)])
 def test_int8_dot_plain_matches_xla(static, k, n):
     w = _weights(k, k, n)
     x = _x(n, 3, 17, k)
@@ -227,3 +228,115 @@ def test_codes_out_is_for_the_kernels_only():
     with pytest.raises(ValueError, match="CUDA"):
         tint8.int8_dot(torch.zeros(2, 8), tq, ts, codes_out=torch.zeros(2, 8, dtype=torch.int8))
 
+
+
+class _RecordingLibrary:
+    """Stands in for the kernel library: records launches."""
+
+    def __init__(self):
+        self.calls = []
+
+    def launch(self, name, *args):
+        self.calls.append((name, args))
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0), (torch.bfloat16, 1)])
+def test_kernel_entry_reads_x_as_it_is(static, dtype, code):
+    """What int8_dot hands the C entry on a card: one launch with the
+    entry's argument count, x's own storage (a bf16 x is not converted)
+    with its type code, K = 1,536 passed through, the output at (M, N)."""
+    from velocity_asr_tpu_torch.ops import cuda_lib
+
+    k, n = 1536, 70
+    x = torch.from_numpy(_x(20, 2, 5, k)).to(dtype)
+    tq, ts = _port_codes(_weights(21, k, n))
+    xs = torch.tensor([0.01]) if static else None
+    lib = _RecordingLibrary()
+    out = tint8._launch_int8(lib, x, tq, ts, xs)
+    assert out.shape == (2, 5, n) and out.dtype == torch.float32
+    assert len(lib.calls) == 1
+    name, args = lib.calls[0]
+    assert name == ("int8_dense_static_f32" if static else "int8_dense_dynamic_f32")
+    assert len(args) + 1 == len(cuda_lib.SIGNATURES[name])  # + the stream
+    assert args[0] == x.data_ptr()
+    n_ptr = 6 if static else 5
+    assert args[n_ptr:] == (code, 10, k, n)
+    if static:
+        assert args[1] == xs.data_ptr()
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8])
+def test_kernel_entry_refuses_other_types(dtype):
+    tq, ts = _port_codes(_weights(22, 32, 8))
+    lib = _RecordingLibrary()
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        tint8._launch_int8(lib, torch.zeros(4, 32, dtype=dtype), tq, ts)
+    assert lib.calls == []
+
+
+def test_kernel_source_uses_tensor_cores_at_any_k():
+    """The products are mma.sync s8 on the tensor cores (no __dp4a), the
+    launcher opts into the shared memory it needs instead of refusing a
+    K past the default 48 KB, and a call is one kernel."""
+    import os
+
+    with open(os.path.join(cuda_lib.CSRC_DIR, "int8_dense.cu")) as f:
+        src = f.read()
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
+    assert "__dp4a" not in src
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+    assert "kStaticSmem" not in src and "1012" not in src
+    assert "atomicAdd" not in src and "atomicMax" not in src
+    assert src.count("<<<") == 1
+    with open(tint8.__file__) as f:
+        assert "1,012" not in f.read()
+
+
+def _f32(x):
+    return np.asarray(x, np.float32)
+
+
+def test_kernel_scale_rule_is_the_ieee_quotient():
+    """csrc/int8_dense.cu's row_scale: q = a * fl(1/127), then of q and its
+    two neighbours the one with the least residual |a - 127 c| (exact in
+    float64, as the kernel's FMA is) is fl(a / 127), for every significand
+    of one binade (the exponent only scales it) and at random magnitudes."""
+    sig = (np.arange(1 << 23, dtype=np.uint32) | np.uint32(0x3F800000)).view(np.float32)
+    rng = np.random.default_rng(5)
+    rand = _f32(np.exp(rng.uniform(-40, 40, 200_000)))
+    for a in (sig, rand, _f32(rand * 3.0)):
+        q = _f32(a * np.float32(1.0 / 127.0))
+        cands = np.stack([np.nextafter(q, -np.inf), q, np.nextafter(q, np.inf)])
+        res = np.abs(a.astype(np.float64) - 127.0 * cands.astype(np.float64))
+        picked = cands[np.argmin(res, axis=0), np.arange(a.size)]
+        np.testing.assert_array_equal(picked, _f32(a / np.float32(127.0)))
+
+
+@pytest.mark.parametrize("ulps", [-1, 0, 1])
+def test_kernel_code_rule_is_the_ieee_quotient(ulps):
+    """csrc/int8_dense.cu's codes4: rint(v * inv), inv within an ulp of 1/s
+    (rcp.approx; both extremes taken here), gives rint(fl(v / s)) wherever
+    |z - rint(z)| < 0.5 - 2e-6 |z|, and the rest (redone by the division)
+    are rare: held at random scales and values, and at values within an
+    ulp of s (j + 1/2) where the product and the quotient round apart."""
+    rng = np.random.default_rng(6 + ulps)
+    scales = _f32(np.exp(rng.uniform(-20, 8, 400)))
+    scales[0] = np.float32(124.58155059814453) / np.float32(127.0)  # chip_smoke's tie scale
+    checked = redone = 0
+    for s in scales:
+        inv = np.float32(1.0) / s
+        for _ in range(abs(ulps)):
+            inv = np.nextafter(inv, np.float32(np.inf) if ulps > 0 else np.float32(-np.inf))
+        near = _f32(s * (np.arange(-127, 127) + 0.5))
+        v = np.concatenate([_f32(rng.standard_normal(2000) * s * 60), near,
+                            np.nextafter(near, -np.inf), np.nextafter(near, np.inf)]).astype(np.float32)
+        z = _f32(v * inv)
+        t = np.rint(z)
+        flagged = np.abs(z - t).astype(np.float64) >= 0.5 - 2e-6 * np.abs(z).astype(np.float64)
+        exact = np.clip(np.rint(_f32(v / s)), -127, 127)
+        np.testing.assert_array_equal(np.clip(t, -127, 127)[~flagged], exact[~flagged])
+        checked += v.size
+        redone += int(flagged[:2000].sum())
+    assert redone <= 1e-3 * 2000 * scales.size  # random values rarely take the division
+    assert checked > 1_000_000

@@ -101,3 +101,12 @@ def test_reflect_pad_matches_numpy():
     x = np.random.default_rng(0).standard_normal((2, 1000)).astype(np.float32)
     np.testing.assert_array_equal(taudio.reflect_pad(torch.from_numpy(x), 200).numpy(),
                                   np.pad(x, ((0, 0), (200, 200)), mode="reflect"))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 150, 200, 201, 399, 400])
+def test_reflect_pad_short_signal_matches_numpy(n):
+    """A pad as long as the signal or longer reflects again and again, as
+    np.pad does (a single sample repeats), bit for bit."""
+    x = np.random.default_rng(n).standard_normal((2, n)).astype(np.float32)
+    np.testing.assert_array_equal(taudio.reflect_pad(torch.from_numpy(x), 200).numpy(),
+                                  np.pad(x, ((0, 0), (200, 200)), mode="reflect"))

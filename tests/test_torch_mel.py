@@ -157,3 +157,25 @@ def test_compute_mel_spectrogram_np_matches_jax(normalize):
         taudio.compute_mel_spectrogram_np(wav, normalize=normalize),
         jaudio.compute_mel_spectrogram_np(wav, normalize=normalize),
     )
+
+
+
+@pytest.mark.parametrize("n", [1, 2, 150, 200, 201, 400])
+def test_compute_mel_short_audio_matches_jax(n):
+    """A clip no longer than the 200-sample reflect pad: numpy's repeated
+    reflection on both sides, as the JAX package pads, then the same
+    log-mel frames within ATOL. A 1- or 2-sample clip pads to a constant
+    or an alternating frame, whose spectrum is zero in exact arithmetic
+    outside DC and Nyquist: there the bands hold fp32 rounding noise on
+    both sides (the JAX package's rfft and Pallas paths differ by up to
+    0.3 in log there), so bands below 1e-6 of their frame's largest power
+    are held to that floor instead of to each other."""
+    wav = _noise(30 + n, n)
+    ref = np.asarray(jaudio.compute_mel_spectrogram(wav, normalize=False, backend="xla"))
+    out = tmel.compute_mel_spectrogram(torch.from_numpy(wav), normalize=False).numpy()
+    assert out.shape == ref.shape == (taudio.frame_count(n), 80)
+    floor = 1e-6 * np.exp(ref).max(axis=-1, keepdims=True)
+    live = np.exp(ref) > floor
+    assert live.sum(axis=-1).min() >= 1 and (live.all() or n <= 2)
+    np.testing.assert_allclose(out[live], ref[live], rtol=0, atol=ATOL)
+    assert (np.exp(out) <= floor)[~live].all()

@@ -70,8 +70,25 @@ def frame_count(num_samples: int, n_fft: int = N_FFT, hop_length: int = HOP_LENG
 
 
 def reflect_pad(audio: torch.Tensor, pad: int) -> torch.Tensor:
-    """Reflect-pad the last axis of (batch, samples) by `pad` on each side."""
-    return F.pad(audio[:, None, :], (pad, pad), mode="reflect")[:, 0, :]
+    """Reflect-pad the last axis of (batch, samples) by `pad` on each side,
+    as ``np.pad(mode="reflect")`` does at any length: a pad as long as the
+    signal or longer reflects again and again (period 2 * (samples - 1)),
+    and a single sample repeats. The usual case (pad < samples) is one
+    ``F.pad``; the short one gathers through an index map built on the
+    signal's own device."""
+    n = audio.shape[-1]
+    if n == 0:
+        raise ValueError("cannot reflect-pad an empty signal")
+    if pad < n:
+        return F.pad(audio[:, None, :], (pad, pad), mode="reflect")[:, 0, :]
+    idx = torch.arange(-pad, n + pad, device=audio.device)
+    if n == 1:
+        idx = torch.zeros_like(idx)
+    else:
+        period = 2 * (n - 1)
+        idx = idx.remainder(period)
+        idx = torch.where(idx < n, idx, period - idx)
+    return audio.index_select(-1, idx)
 
 
 def frame_signal(audio: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:

@@ -11,6 +11,12 @@ the package's public wrappers:
 - the scan backward (``ops.scan.scan_bwd``, ``scan_bwd_state``) at the
   training paths' shapes: device time per call from a CUDA graph of many
   calls, and the host's time to issue one eager call;
+- both int8 dense kernels (``ops.int8_matmul.int8_dot``, dynamic and
+  static scale) at the batched int8 path's main shapes (16 x 300 rows:
+  192 -> 192, the gate's 384 -> 192, the CTC head's 192 -> 30) and one
+  pooled shape of 256 rows, x in fp32 and in bf16 (a tree whose wrapper
+  converts bf16 x to fp32 pays that conversion inside the time): device
+  time per call from a CUDA graph of many calls;
 - the training CLI's micro-step (``train.main`` on configs/train_synth.yaml
   and model_synth.yaml, ``--synthetic 3200``, bf16; the offline training
   path of chip_smoke.py's phase 8b): ms per micro-step to a synchronise,
@@ -19,11 +25,12 @@ the package's public wrappers:
 The order's letters name the trees in the order given (A = OLD, B = NEW);
 ``ABBAAB`` runs OLD, NEW, NEW, OLD, OLD, NEW, so that drift over the call
 falls on both. The turns' outputs at each shape are held against each
-other (sums of |.| of every gradient, within 1e-4 relative). Prints the
-card's name and power limit, one line per measurement, and last a JSON
-object with every turn. ``--device cpu`` runs small shapes with the plain
-versions and no micro-steps: it checks the tool, and times nothing of
-the card.
+other (sums of |.| of every gradient and int8 output, within 1e-4
+relative). Prints the card's name and power limit, one line per
+measurement, each tree's median and spread per int8 shape, and last a
+JSON object with every turn. ``--device cpu`` runs small shapes with the
+plain versions and no micro-steps: it checks the tool, and times nothing
+of the card.
 """
 
 from __future__ import annotations
@@ -37,9 +44,14 @@ import time
 
 CARD_SHAPES = ((16, 300, 384, 64, False), (8, 100, 384, 64, True), (8, 1200, 384, 64, False))
 CPU_SHAPES = ((2, 37, 16, 8, False), (2, 20, 16, 8, True))
+# (M, K, N) of the int8 turns, and the types of x
+INT8_CARD_SHAPES = ((4800, 192, 192), (4800, 384, 192), (4800, 192, 30), (256, 192, 192))
+INT8_CPU_SHAPES = ((37, 50, 30), (64, 192, 48))
+INT8_TYPES = ("float32", "bfloat16")
 AGREE_MAX_REL = 1e-4
 EAGER_CALLS = 50
 GRAPH_CALLS = 10
+INT8_GRAPH_CALLS = 100
 WARMUP_STEPS = 10  # micro-steps left out of the per-step figures
 
 _CHILD = ("import importlib.util, sys; "
@@ -68,6 +80,61 @@ def _inputs(shape, device):
     return [torch.tensor(a.astype(np.float32), device=device) for a in arrays]
 
 
+def _cpu_ms(call, calls=3):
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def _graph_ms(call, calls):
+    """Device ms per call: `calls` calls captured in a CUDA graph, one
+    replay timed between two events after a warm replay."""
+    import torch
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _time_int8(shape, dtype, device):
+    """Device ms per call (CUDA graph) of the dynamic and the static int8
+    kernel through ``int8_dot``, and the sums of |.| of their outputs, at
+    one (M, K, N) with x in `dtype`, from a fixed seed."""
+    import numpy as np
+    import torch
+
+    from velocity_asr_tpu_torch.ops import int8_matmul
+
+    m, k, n = shape
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((m, k)) * rng.uniform(0.25, 4.0, (m, 1))
+    w = rng.standard_normal((n, k)) * 0.1
+    x = torch.tensor(x.astype(np.float32), device=device).to(getattr(torch, dtype))
+    w_q, w_scale = int8_matmul.quantize_weight(torch.tensor(w.astype(np.float32), device=device))
+    x_scale = int8_matmul.scale_of(x.float().abs().amax() * 0.8)
+    calls = {"dynamic": lambda: int8_matmul.int8_dot(x, w_q, w_scale),
+             "static": lambda: int8_matmul.int8_dot(x, w_q, w_scale, x_scale)}
+    out = {"shape": list(shape), "dtype": dtype,
+           "sums": [float(call().double().abs().sum()) for call in calls.values()]}
+    for name, call in calls.items():
+        if device == "cpu":
+            out[f"{name}_cpu_wall_ms"] = _cpu_ms(call)
+        else:
+            out[f"{name}_device_ms"] = _graph_ms(call, INT8_GRAPH_CALLS)
+    return out
+
+
 def _time_backward(shape, device):
     """Device ms per call (CUDA graph), host ms to issue an eager call, and
     the sums of |.| of the outputs, for one shape."""
@@ -90,25 +157,9 @@ def _time_backward(shape, device):
     sums = [float(t.double().abs().sum()) for t in call()]
     out = {"shape": list(shape), "sums": sums}
     if device == "cpu":
-        t0 = time.perf_counter()
-        for _ in range(3):
-            call()
-        out["cpu_wall_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        out["cpu_wall_ms"] = _cpu_ms(call)
         return out
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(GRAPH_CALLS):
-            call()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    out["device_ms"] = start.elapsed_time(end) / GRAPH_CALLS
-    del graph
+    out["device_ms"] = _graph_ms(call, GRAPH_CALLS)
     t0 = time.perf_counter()
     for _ in range(EAGER_CALLS):
         call()
@@ -171,7 +222,9 @@ def turn(tree, device, steps):
 
     resolve_device(device)
     shapes = CPU_SHAPES if device == "cpu" else CARD_SHAPES
-    out = {"tree": tree, "backward": [_time_backward(s, device) for s in shapes]}
+    int8_shapes = INT8_CPU_SHAPES if device == "cpu" else INT8_CARD_SHAPES
+    out = {"tree": tree, "backward": [_time_backward(s, device) for s in shapes],
+           "int8": [_time_int8(s, dtype, device) for s in int8_shapes for dtype in INT8_TYPES]}
     if steps:
         out["train"] = _time_steps(tree, steps)
     print(json.dumps(out), flush=True)
@@ -188,13 +241,32 @@ def _card():
 
 def _agree(turns):
     """Largest relative gap of any output sum between the first turn and
-    the others, shape by shape."""
+    the others, shape by shape, over the backward and the int8 kernels."""
     worst = 0.0
     for t in turns[1:]:
-        for ref, got in zip(turns[0]["backward"], t["backward"]):
-            for a, b in zip(ref["sums"], got["sums"]):
-                worst = max(worst, abs(a - b) / max(abs(a), 1e-30))
+        for part in ("backward", "int8"):
+            for ref, got in zip(turns[0][part], t[part]):
+                for a, b in zip(ref["sums"], got["sums"]):
+                    worst = max(worst, abs(a - b) / max(abs(a), 1e-30))
     return worst
+
+
+def _int8_summary(turns):
+    """Per int8 shape, type and kernel: each tree's median device ms over
+    its turns and the spread (max - min) of its turns."""
+    import statistics
+
+    lines = []
+    for i, first in enumerate(turns[0]["int8"]):
+        for kernel in ("dynamic", "static"):
+            parts = []
+            for letter in sorted({t["letter"] for t in turns}):
+                ms = [t["int8"][i][f"{kernel}_device_ms"] for t in turns if t["letter"] == letter]
+                parts.append(f"{letter} median {statistics.median(ms):.4f} ms (spread "
+                             f"{max(ms) - min(ms):.4f}, {len(ms)} turns)")
+            lines.append(f"int8 {kernel} {tuple(first['shape'])} x {first['dtype']}: "
+                         + "; ".join(parts))
+    return lines
 
 
 def main(argv=None) -> int:
@@ -229,12 +301,20 @@ def main(argv=None) -> int:
             times = ", ".join(f"{k} {b[k]:.4f}" for k in ("device_ms", "host_issue_ms", "cpu_wall_ms")
                               if k in b)
             print(f"turn {letter} scan backward {tuple(b['shape'])}: {times}", flush=True)
+        for r in result["int8"]:
+            times = ", ".join(f"{k} {r[k]:.4f}" for k in (
+                "dynamic_device_ms", "static_device_ms", "dynamic_cpu_wall_ms",
+                "static_cpu_wall_ms") if k in r)
+            print(f"turn {letter} int8 {tuple(r['shape'])} x {r['dtype']}: {times}", flush=True)
         if "train" in result:
             print(f"turn {letter} train: {json.dumps(result['train'])}", flush=True)
+    if args.device == "cuda":
+        for line in _int8_summary(turns):
+            print(line, flush=True)
     worst = _agree(turns)
     ok = worst <= AGREE_MAX_REL
-    print(f"outputs across turns: max relative gap of the gradients' sums {worst:.3e} "
-          f"({'within' if ok else 'above'} {AGREE_MAX_REL:g})", flush=True)
+    print(f"outputs across turns: max relative gap of the gradients' and int8 outputs' sums "
+          f"{worst:.3e} ({'within' if ok else 'above'} {AGREE_MAX_REL:g})", flush=True)
     print(json.dumps({"ok": ok, "device": args.device, "turns": turns}))
     return 0 if ok else 1
 

@@ -57,22 +57,25 @@ SIGNATURES = {
     # padded, window, twiddle, band_first, band_offset, band_weight, out,
     # batch, padded_len, n_frames, hop, n_mels, n_weights, stream
     "log_mel_f32": [_P] * 7 + [_I] * 6 + [_P],
-    # x, w_q, w_scale, out, x_q_out (or None), M, K, N, stream
-    "int8_dense_dynamic_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x, x_scale, w_q, w_scale, out, x_q_out (or None), M, K, N, stream
-    "int8_dense_static_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, w_q, w_scale, out, x_q_out (or None), x_type, M, K, N, stream
+    "int8_dense_dynamic_f32": [_P] * 5 + [_I] * 4 + [_P],
+    # x, x_scale, w_q, w_scale, out, x_q_out (or None), x_type, M, K, N, stream
+    "int8_dense_static_f32": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 # Occupancy queries: the instantiation's arguments, then an int array out.
 OCCUPANCY_SIGNATURES = {
     "log_mel_occupancy": [_I, _I, _P],  # n_mels, n_weights, out
     "scan_bwd_occupancy": [_I, _I, _P],  # lanes per channel, with_state, out
+    "int8_dense_occupancy": [_I] * 5 + [_P],  # is_static, x_type, M, K, N, out
 }
 OCCUPANCY_KEYS = {
     "log_mel_occupancy": ("registers", "spill_bytes", "shared_bytes", "blocks_per_sm",
                           "threads"),
     "scan_bwd_occupancy": ("registers", "spill_bytes", "shared_bytes", "blocks_per_sm",
                            "clusters", "threads"),
+    "int8_dense_occupancy": ("registers", "spill_bytes", "shared_bytes", "blocks_per_sm",
+                             "threads", "blocks", "stages"),
 }
 
 launch_counts: collections.Counter = collections.Counter()

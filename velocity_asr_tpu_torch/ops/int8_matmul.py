@@ -11,7 +11,8 @@
 ``int8_dot_xla``, which is what it computes for every projection of the
 synth checkpoint (its Pallas kernels run only for K and N multiples of
 128 on a TPU). ``int8_dot`` launches ``csrc/int8_dense.cu`` on CUDA
-tensors and runs ``int8_dot_plain`` on CPU tensors.
+tensors (fp32 or bf16 x, read as it is) and runs ``int8_dot_plain`` on
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from .cuda_lib import check_tensor, library
 
 QMAX = 127.0
 MIN_SCALE = 1e-10
+# x's type code in the kernels' C entries: they read fp32 or bf16 x as it is
+X_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def scale_of(amax: torch.Tensor) -> torch.Tensor:
@@ -74,15 +77,40 @@ def int8_dot_plain(x, w_q, w_scale, x_scale=None) -> torch.Tensor:
     return acc.to(torch.float32) * (x_scale * w_scale)
 
 
+def _launch_int8(lib, x, w_q, w_scale, x_scale=None, codes_out=None) -> torch.Tensor:
+    """Allocate the (M, N) fp32 output and launch ``int8_dense_dynamic_f32``
+    (x_scale None) or ``int8_dense_static_f32`` on x as it is: its rows
+    (..., K) flattened to M without a copy when x is contiguous, its type
+    (fp32 or bf16, anything else raises) passed as a code. One kernel,
+    counted once; none for an empty product."""
+    if x.dtype not in X_TYPES:
+        raise ValueError(f"the int8 kernels read fp32 or bf16 x, got {x.dtype}")
+    k = x.shape[-1]
+    n = w_q.shape[0]
+    x2 = x.reshape(-1, k).contiguous()
+    m = x2.shape[0]
+    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
+    if m and n:
+        codes_ptr = None if codes_out is None else codes_out.data_ptr()
+        if x_scale is None:
+            lib.launch("int8_dense_dynamic_f32", x2.data_ptr(), w_q.data_ptr(),
+                       w_scale.data_ptr(), out.data_ptr(), codes_ptr, X_TYPES[x.dtype], m, k, n)
+        else:
+            lib.launch("int8_dense_static_f32", x2.data_ptr(), x_scale.data_ptr(),
+                       w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(), codes_ptr,
+                       X_TYPES[x.dtype], m, k, n)
+    return out.reshape(*x.shape[:-1], n)
+
+
 def int8_dot(x, w_q, w_scale, x_scale=None, codes_out=None) -> torch.Tensor:
     """Int8 dense of x (..., K) against codes w_q (N, K): (..., N) fp32.
 
     On CUDA tensors this launches ``int8_dense_dynamic_f32`` (x_scale
     None) or ``int8_dense_static_f32`` (x_scale a one-element fp32 device
-    tensor, read by the kernel); on CPU tensors it runs
-    ``int8_dot_plain``. codes_out, an int8 CUDA tensor of x's shape,
-    receives the kernel's activation codes (for checks). The kernels take
-    K up to 1,012 (a block keeps its rows' codes in shared memory).
+    tensor, read by the kernel) on x in fp32 or bf16 as it is, at any K;
+    on CPU tensors it runs ``int8_dot_plain``. codes_out, an int8 CUDA
+    tensor of x's shape, receives the kernel's activation codes (for
+    checks).
     """
     if not x.is_cuda:
         if codes_out is not None:
@@ -90,8 +118,6 @@ def int8_dot(x, w_q, w_scale, x_scale=None, codes_out=None) -> torch.Tensor:
         return int8_dot_plain(x, w_q, w_scale, x_scale)
     k = x.shape[-1]
     n = w_q.shape[0]
-    xf = x.reshape(-1, k).to(torch.float32).contiguous()
-    m = xf.shape[0]
     check_tensor(w_q, "w_q", (n, k), torch.int8)
     check_tensor(w_scale, "w_scale", (n,))
     tensors = [w_q, w_scale]
@@ -105,18 +131,8 @@ def int8_dot(x, w_q, w_scale, x_scale=None, codes_out=None) -> torch.Tensor:
     for t in tensors:
         if t.device != x.device:
             raise ValueError(f"int8_dot operands on {t.device} and {x.device}")
-    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
-    if m and n:
-        codes_ptr = None if codes_out is None else codes_out.data_ptr()
-        with torch.cuda.device(x.device):
-            if x_scale is None:
-                library().launch("int8_dense_dynamic_f32", xf.data_ptr(), w_q.data_ptr(),
-                                 w_scale.data_ptr(), out.data_ptr(), codes_ptr, m, k, n)
-            else:
-                library().launch("int8_dense_static_f32", xf.data_ptr(), x_scale.data_ptr(),
-                                 w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-                                 codes_ptr, m, k, n)
-    return out.reshape(*x.shape[:-1], n)
+    with torch.cuda.device(x.device):
+        return _launch_int8(library(), x, w_q, w_scale, x_scale, codes_out)
 
 
 def dynamic_int8_dense(x, w_q, w_scale, bias=None, x_scale=None) -> torch.Tensor:
