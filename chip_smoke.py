@@ -7,10 +7,13 @@ Needs one CUDA card; exits non-zero without one. Phases, each printing
 its seconds:
 
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the CUDA kernels (one nvcc call), with ptxas registers/spills,
+  2. build the CUDA kernels (an nvcc per source, in parallel, and a link),
+     with ptxas registers/spills,
      and, as the card reports them, the registers, spill bytes, shared
      bytes and resident blocks per SM (clusters of 8 for the backward) of
-     every instantiation of the log-mel, the scan backward and the int8
+     every instantiation of the log-mel, the scan forward (1, 2 and 4
+     states a thread, with and without a state and bounds), the scan
+     backward and the int8
      dense kernels (fp32 and bf16 x), the backward's workspace and grid,
      in waves of resident clusters, at the training shapes (16, 300, 384,
      64) and (8, 100, 384, 64), and the int8 grid (blocks, shared bytes,
@@ -27,7 +30,11 @@ its seconds:
      h0 at every shape of the streaming path, for N in {4, 8, 16, 32, 64,
      200, 300} at batch 1 and 4, and across a seam (L = 200 as two
      launches of 100: against the plain version and against one launch);
-     the log-mel (from the reflect-padded signal, as the kernel frames it)
+     all four forward entries at D = 383, a width no block's channels
+     divide, at batch 1, 8 and 16 with N = 64 and 32 (1, 2 and 4 states a
+     thread), L = 100 (a ragged last tile), with the same tolerances and
+     bit-equalities as at D = 384, and the carried-state scan across a
+     50 + 50 seam there; the log-mel (from the reflect-padded signal, as the kernel frames it)
      on single utterances of 200 and 600 frames, at every batch of the
      device-mel training path (4 x 600 for 9a, 8 x every 600-frame bucket
      up to 3,600 for 9b) and on signals of 1, 150 and 200 samples, no
@@ -124,7 +131,13 @@ its seconds:
   6. (after 7, 8 and 9, whose launch counts it reports) kernel timings beside
      their bounds and a library call: device time from CUDA graphs of many
      calls (what the JSON line reports), and CUDA events around eager
-     calls, which include the host's launch; rows 4s and 5s at (8, 100,
+     calls, which include the host's launch; each scan forward's bound
+     beside its exp floor (one expf per (b, t, d, n) at 16 a clock per SM)
+     and the launcher's plan at that shape (states a thread, channels a
+     block, grid, waves of resident blocks); the forward's per-phase
+     timeline of block (0, 0) (clock64 stamps of the timeline entry, which
+     no path calls) at (1, 200, 384, 64) and (16, 300, 384, 64), offline
+     and with bounds; rows 4s and 5s at (8, 100,
      384, 64) and (8, 64, 384, 32), row 5 also at phase 9b's offline term
      (batch 8 at the frame bucket 9b ran most often: L = 1,200 at 2,400
      frames), the log-mel also at batch 8 at that bucket, the whole
@@ -223,6 +236,11 @@ LOGITS_INT8_MIN_AGREE = 0.99  # argmax agreement, same comparison
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
 PEAK_INT8_OPS_PER_S = 1979e12
+# the SFU's exp2 results per clock per SM (one per IEEE expf) and the SMs
+# of an H100 SXM, at its boost clock of 1,980 MHz
+SFU_PER_CLOCK_PER_SM = 16
+H100_SMS = 132
+H100_BOOST_HZ = 1.98e9
 
 SCAN_SOURCE = "velocity_asr_tpu_torch/csrc/scan_fwd.cu"
 SCAN_BWD_SOURCE = "velocity_asr_tpu_torch/csrc/scan_bwd.cu"
@@ -247,9 +265,13 @@ INT8_STAGED_K = 1536
 # last off every tile, without 16-byte loads)
 INT8_WIDE_K = (1024, 1536, 1537)
 
-# every width the kernel picks (N <= 4, 8, 16, 128 and 200: one to 32
-# lanes; 24 fills 3/4 of its lanes; 300: two passes of 256 states)
+# widths for the forward's lanes (N = 4 to 32 at batch 1: 1 state a
+# thread on 4 to 32 lanes; 24 fills 3/4 of its lanes; 64 and 128: 2 and 4
+# states a thread; 200 and 300: passes of 128 states)
 SCAN_STATE_DIMS = (4, 8, 16, 24, 32, 64, 128, 200, 300)
+# a d_inner no block's channel count divides (prime): the forward's last
+# block of channels is partly empty at every plan
+ODD_D_INNER = 383
 STATE_SCAN_DIMS = (4, 8, 16, 32, 64, 200, 300)  # the carried-state scan's widths
 BWD_SCAN_DIMS = (4, 8, 16, 32, 64, 200, 300)  # the backward's widths (64 a pass)
 
@@ -541,6 +563,46 @@ def compare_seam(rng, state_dim, batch, length=200):
     return vs_plain[0], vs_plain[1], vs_one
 
 
+def compare_odd_width(rng, batch, state_dim, length=100, d_inner=ODD_D_INNER):
+    """All four forward entries at a d_inner no block's channel count
+    divides, from one seed: the worst max_rel of y and h_final (the
+    no-bounds entries) against the plain version, the bounds' max_rel and
+    max_abs against the plain chunk-entry states, whether the bounds
+    entries' y (and h_final) are bit-equal to the no-bounds entries' and
+    bounds[:, 0] is h0, and the carried-state scan across a seam at L / 2
+    against one launch (max_rel)."""
+    import torch
+
+    from velocity_asr_tpu_torch.ops.scan import (scan_fwd, scan_fwd_bounds,
+                                                 scan_fwd_bounds_plain, scan_fwd_bounds_state,
+                                                 scan_fwd_plain, scan_fwd_state)
+
+    x, dt, A, B, C, h0 = scan_inputs(rng, length, state_dim, d_inner=d_inner, batch=batch,
+                                     with_state=True)
+    y = scan_fwd(x, dt, A, B, C)
+    ys, hs = scan_fwd_state(x, dt, A, B, C, h0)
+    yb, bounds = scan_fwd_bounds(x, dt, A, B, C)
+    ybs, bounds_s, hbs = scan_fwd_bounds_state(x, dt, A, B, C, h0)
+    half = length // 2
+    y1, h1 = scan_fwd_state(*[t[:, :half].contiguous() for t in (x, dt)], A,
+                            *[t[:, :half].contiguous() for t in (B, C)], h0)
+    y2, h2 = scan_fwd_state(*[t[:, half:].contiguous() for t in (x, dt)], A,
+                            *[t[:, half:].contiguous() for t in (B, C)], h1)
+    torch.cuda.synchronize()
+    ref_y, ref_bounds = scan_fwd_bounds_plain(x, dt, A, B, C)
+    ref_ys, ref_bounds_s, ref_hs = scan_fwd_bounds_plain(x, dt, A, B, C, h0, return_state=True)
+    b_abs, b_rel = max(rel_err(bounds, ref_bounds), rel_err(bounds_s, ref_bounds_s),
+                       key=lambda e: e[1])
+    return {
+        "y": max(rel_err(y, ref_y)[1], rel_err(ys, ref_ys)[1], rel_err(hs, ref_hs)[1]),
+        "y_abs": max(rel_err(y, ref_y)[0], rel_err(ys, ref_ys)[0], rel_err(hs, ref_hs)[0]),
+        "bounds": (b_abs, b_rel),
+        "same": (torch.equal(yb, y) and torch.equal(ybs, ys) and torch.equal(hbs, hs)
+                 and torch.equal(bounds_s[:, 0], h0)),
+        "seam": max(rel_err(torch.cat([y1, y2], dim=1), ys)[1], rel_err(h2, hs)[1]),
+    }
+
+
 def launched_once_each(name, call):
     """Run `call` (two backward calls) and say whether the C entry `name`
     was launched once per call."""
@@ -697,7 +759,7 @@ def phase_build():
     from velocity_asr_tpu_torch.ops.mel import band_table
 
     lib = cuda_lib.library()
-    log(f"kernel build: {lib.build_seconds:.3f} s (one nvcc call) -> {os.path.relpath(lib.path, ROOT)}")
+    log(f"kernel build: {lib.build_seconds:.3f} s (an nvcc per source in parallel, then a link) -> {os.path.relpath(lib.path, ROOT)}")
     for line in lib.build_log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
@@ -705,6 +767,17 @@ def phase_build():
     first, _, weight = band_table()
     occ = lib.occupancy("log_mel_occupancy", first.size, weight.size)
     log(f"  occupancy log_mel_kernel: {occ}")
+    # the forward's instantiations by states a thread, at a shape of the
+    # paths that the launcher gives each: (1, 384, 32), (1, 384, 64) and
+    # (16, 384, 64)
+    for batch, state_dim in ((1, 32), (1, 64), (BATCH, 64)):
+        for with_state in (False, True):
+            for save_bounds in (False, True):
+                occ = lib.occupancy("scan_fwd_occupancy", batch, 384, state_dim, int(with_state),
+                                    int(save_bounds))
+                log(f"  occupancy scan_fwd_kernel<S={occ['states_per_thread']}, "
+                    f"kWithState={with_state}, kSaveBounds={save_bounds}> at (batch, D, N) = "
+                    f"({batch}, 384, {state_dim}): {occ}")
     for lanes in (1, 2, 4, 8, 16):
         for with_state in (False, True):
             occ = lib.occupancy("scan_bwd_occupancy", lanes, int(with_state))
@@ -872,6 +945,25 @@ def phase_compare(plan):
             if not ok:
                 raise AssertionError("carried-state scan breaks across a seam")
             errs["scan_fwd_state_f32"] = max(errs["scan_fwd_state_f32"], max_abs)
+    # every forward entry where the last block of channels is partly empty,
+    # at the three states-a-thread plans the paths use
+    for batch in (1, STREAM_BATCH, BATCH):
+        for state_dim in (64, 32):
+            r = compare_odd_width(rng, batch, state_dim)
+            ok = (math.isfinite(r["y"]) and r["y"] <= SCAN_MAX_REL and r["bounds"][1] <= BOUNDS_MAX_REL
+                  and r["same"] and r["seam"] <= SEAM_MAX_REL)
+            log(f"forward entries N={state_dim} B={batch} L=100 D={ODD_D_INNER}: y, h_final "
+                f"max_rel {r['y']:.3e} (tol {SCAN_MAX_REL:g}); bounds max_rel {r['bounds'][1]:.3e} "
+                f"(tol {BOUNDS_MAX_REL:g}); bounds entries' y, h_final "
+                f"{'bit-equal to' if r['same'] else 'DIFFER from'} the no-bounds entries', "
+                f"bounds[:, 0] = h0; seam 50+50 vs one launch max_rel {r['seam']:.3e} (tol "
+                f"{SEAM_MAX_REL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the forward disagrees at d_inner {ODD_D_INNER}")
+            for name in ("scan_fwd_f32", "scan_fwd_state_f32"):
+                errs[name] = max(errs[name], r["y_abs"])
+            for name in ("scan_fwd_bounds_f32", "scan_fwd_bounds_state_f32"):
+                errs[name] = max(errs[name], r["bounds"][0])
     # the training scans: every training shape (forward and backward),
     # then the backward's widths at batch 1 and 4, L off the 16-step chunk
     bwd_widths = {(b, length, n) for n in BWD_SCAN_DIMS for b in (1, 4) for length in (37, 100)}
@@ -1789,6 +1881,33 @@ def phase_stream_training(manifest, stream_wers):
     return {"counts": counts, "steps": STREAM_STEPS, "chunks": chunks, "buckets": buckets}
 
 
+def exp_floor_ms(batch, length, d_inner, state_dim):
+    """The least time the SFU takes for the forward's one IEEE expf per
+    (b, t, d, n): exp2 at SFU_PER_CLOCK_PER_SM a clock on every SM at the
+    boost clock."""
+    exps = batch * length * d_inner * state_dim
+    return exps / (SFU_PER_CLOCK_PER_SM * H100_SMS * H100_BOOST_HZ) * 1e3
+
+
+def fwd_plan(batch, state_dim, with_state=False, save_bounds=False, d_inner=384):
+    """The forward launcher's plan at one shape and what the card makes of
+    it, in words: states a thread, lanes a channel, channels a block,
+    grid, and waves of the resident blocks."""
+    import torch
+
+    from velocity_asr_tpu_torch.ops import cuda_lib
+
+    occ = cuda_lib.library().occupancy("scan_fwd_occupancy", batch, d_inner, state_dim,
+                                       int(with_state), int(save_bounds))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = occ["grid_x"] * occ["grid_y"]
+    return (f"plan S={occ['states_per_thread']} ({occ['lanes']} lanes a channel), "
+            f"{occ['channels']} channels a block of {occ['threads']} threads, grid "
+            f"{occ['grid_x']} x {occ['grid_y']} = {blocks} blocks, "
+            f"{blocks / (occ['blocks_per_sm'] * sms):.2f} waves of {occ['blocks_per_sm']} x {sms} "
+            f"resident ({occ['registers']} registers, {occ['shared_bytes']} shared bytes)")
+
+
 def time_int8(rng, m, k, n, dtype="float32"):
     """Times of both int8 kernels, their plain version and torch._int_mm
     (int8 x int8 -> int32 on pre-quantized operands, where its shape rules
@@ -1830,7 +1949,9 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
     from velocity_asr_tpu_torch.ops.scan import (scan_bwd, scan_bwd_plain, scan_bwd_state,
                                                  scan_fwd, scan_fwd_bounds,
                                                  scan_fwd_bounds_plain, scan_fwd_bounds_state,
-                                                 scan_fwd_plain, scan_fwd_state)
+                                                 scan_fwd_plain, scan_fwd_state,
+                                                 scan_fwd_timeline, timeline_shares,
+                                                 TIMELINE_PHASES)
 
     rng = np.random.default_rng(7)
     local_len = bucket // 2
@@ -1849,8 +1970,9 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
         plain = graph_time_ms(lambda: scan_fwd_plain(*args), iters=3)
         b_ms, b_by = bound_ms(*scan_cost(batch, length, 384, state_dim))
         log(f"time scan N={state_dim} L={length} B={batch} D=384 (device, CUDA graph): kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}); eager (host "
-            f"launch included) {eager:.4f} ms")
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}), exp floor "
+            f"{exp_floor_ms(batch, length, 384, state_dim):.5f} ms; eager (host launch included) "
+            f"{eager:.4f} ms; {fwd_plan(batch, state_dim)}")
         rows.append((ms, plain, b_ms, b_by))
 
     # the carried-state scan at the streaming path's shapes: the live
@@ -1866,8 +1988,9 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
         n_bytes, n_ops = scan_cost(batch, length, 384, state_dim)
         b_ms, b_by = bound_ms(n_bytes + carried_bytes(batch, 384, state_dim), n_ops)
         log(f"time state scan N={state_dim} L={length} B={batch} D=384 (device, CUDA graph): "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}); eager "
-            f"(host launch included) {eager:.4f} ms")
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}), exp floor "
+            f"{exp_floor_ms(batch, length, 384, state_dim):.5f} ms; eager (host launch included) "
+            f"{eager:.4f} ms; {fwd_plan(batch, state_dim, with_state=True)}")
         state_rows.append((ms, plain, b_ms, b_by))
     per_run = {run: c.get("scan_fwd_state_f32", 0) for run, c in streaming.items()}
     state_launches = sum(per_run.values())
@@ -1894,9 +2017,12 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
             eager = cuda_time_ms(kernel, iters=20)
             plain_ms = graph_time_ms(plain, iters=2)
             b_ms, b_by = bound_ms(*cost(TRAIN_BATCH, length, 384, state_dim))
+            fwd = (f", exp floor {exp_floor_ms(TRAIN_BATCH, length, 384, state_dim):.5f} ms; "
+                   f"{fwd_plan(TRAIN_BATCH, state_dim, save_bounds=True)}"
+                   if name == "scan_fwd_bounds_f32" else "")
             log(f"time {name} N={state_dim} L={length} B={TRAIN_BATCH} D=384 (device, CUDA "
                 f"graph): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
-                f"({b_by}); eager (host launch included) {eager:.4f} ms")
+                f"({b_by}); eager (host launch included) {eager:.4f} ms{fwd}")
             train_rows.setdefault(name, (ms, plain_ms, b_ms, b_by))
     t_counts = training["counts"]
     log(f"training launches over {training['steps']} micro-steps (phase 8b): {t_counts}; per "
@@ -1929,14 +2055,40 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
             eager = cuda_time_ms(kernel, iters=20)
             plain_ms = graph_time_ms(plain, iters=2)
             b_ms, b_by = bound_ms(*cost(STREAM_BATCH, length, 384, state_dim, with_state=True))
+            fwd = (f", exp floor {exp_floor_ms(STREAM_BATCH, length, 384, state_dim):.5f} ms; "
+                   f"{fwd_plan(STREAM_BATCH, state_dim, with_state=True, save_bounds=True)}"
+                   if name == "scan_fwd_bounds_state_f32" else "")
             log(f"time {name} N={state_dim} L={length} B={STREAM_BATCH} D=384 (device, CUDA "
                 f"graph): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
-                f"({b_by}); eager (host launch included) {eager:.4f} ms")
+                f"({b_by}); eager (host launch included) {eager:.4f} ms{fwd}")
             train_rows.setdefault(name, (ms, plain_ms, b_ms, b_by))
     s_counts = stream_training["counts"]
     s_steps = stream_training["steps"]
     log(f"streaming-aware training launches over {s_steps} micro-steps and "
         f"{stream_training['chunks']} chunks (phase 9b): {s_counts}")
+    # where a forward block's time goes: the timeline entry (the offline
+    # and the bounds instantiation with clock64 stamps; no path calls it)
+    # at the offline path's (1, 200) and the training path's (16, 300)
+    for batch, length, save_bounds in ((1, 200, False), (TRAIN_BATCH, 300, False),
+                                       (TRAIN_BATCH, 300, True)):
+        args = scan_inputs(rng, length, 64, batch=batch)
+        y, _, clocks = scan_fwd_timeline(*args, save_bounds=save_bounds)
+        same = torch.equal(y, scan_fwd(*args))
+        shares = timeline_shares(clocks.cpu(), length)
+        blocks = shares["blocks"]
+        log(f"timeline of block (0, 0), {'bounds forward' if save_bounds else 'scan forward'} "
+            f"N=64 L={length} B={batch} D=384: {shares['total'][0]} cycles at "
+            f"{shares['clock_ghz']:.3f} GHz; "
+            + ", ".join(f"{k} {shares[k][1] * 100:.1f}%" for k in TIMELINE_PHASES)
+            + f"; all {blocks['count']} blocks on {blocks['sms']} SMs (at most "
+            f"{blocks['per_sm_max']} an SM, {blocks['late_blocks']} started after the first "
+            f"ended) over {blocks['span_us']:.3f} us, a block's own time median "
+            f"{blocks['block_us'][0]:.3f} us ({blocks['block_us'][1]:.3f}-"
+            f"{blocks['block_us'][2]:.3f}); y {'bit-equal to' if same else 'DIFFERS from'} "
+            f"scan_fwd's")
+        if not same:
+            raise AssertionError("the timeline entry computes another y than scan_fwd")
+
     # row 5 at phase 9b's offline term: batch 8, local blocks at the frame
     # bucket 9b ran most often (L = frames / 2, N = 64)
     t_bucket = stream_training["buckets"].most_common(1)[0][0]

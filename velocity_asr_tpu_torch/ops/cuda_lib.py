@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-All ``csrc/*.cu`` files compile in one ``nvcc`` call into a shared
-library with a plain C interface (no PyTorch headers), keyed by a hash of
-the sources and flags, under ``velocity_asr_tpu_torch/_build/``. It is
-loaded with ``ctypes``; every pointer and the stream pass as
-``ctypes.c_void_p``. The build happens at the first launch, never at
-import, and a failed build raises.
+Each ``csrc/*.cu`` file compiles in an ``nvcc`` of its own, all started
+together, and one more ``nvcc`` links them into a shared library with a
+plain C interface (no PyTorch headers), keyed by a hash of the sources
+and flags, under ``velocity_asr_tpu_torch/_build/``. It is loaded with
+``ctypes``; every pointer and the stream pass as ``ctypes.c_void_p``.
+The build happens at the first launch, never at import, and a failed
+build raises.
 
 ``launch_counts`` counts the launches of each kernel: a wrapper adds one
 where it launches its kernel, and nowhere else. Every C entry starts
@@ -31,8 +32,9 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +50,9 @@ SIGNATURES = {
     # x, dt, A, B, C, h0, y, bounds, h_final, batch, length, d_inner,
     # state_dim, stream
     "scan_fwd_bounds_state_f32": [_P] * 9 + [_I, _I, _I, _I, _P],
+    # x, dt, A, B, C, y, bounds (or None), clocks, n_clocks, save_bounds,
+    # batch, length, d_inner, state_dim, stream
+    "scan_fwd_timeline_f32": [_P] * 8 + [_LL, _I, _I, _I, _I, _I, _P],
     # x, dt, A, B, C, bounds, g, dx, ddt, dA, dB, dC, work, work_floats,
     # batch, length, d_inner, state_dim, stream
     "scan_bwd_f32": [_P] * 13 + [_LL, _I, _I, _I, _I, _P],
@@ -66,12 +71,17 @@ SIGNATURES = {
 # Occupancy queries: the instantiation's arguments, then an int array out.
 OCCUPANCY_SIGNATURES = {
     "log_mel_occupancy": [_I, _I, _P],  # n_mels, n_weights, out
+    # batch, d_inner, state_dim, with_state, save_bounds, out
+    "scan_fwd_occupancy": [_I] * 5 + [_P],
     "scan_bwd_occupancy": [_I, _I, _P],  # lanes per channel, with_state, out
     "int8_dense_occupancy": [_I] * 5 + [_P],  # is_static, x_type, M, K, N, out
 }
 OCCUPANCY_KEYS = {
     "log_mel_occupancy": ("registers", "spill_bytes", "shared_bytes", "blocks_per_sm",
                           "threads"),
+    "scan_fwd_occupancy": ("registers", "spill_bytes", "shared_bytes", "blocks_per_sm",
+                           "threads", "states_per_thread", "lanes", "channels", "grid_x",
+                           "grid_y", "passes"),
     "scan_bwd_occupancy": ("registers", "spill_bytes", "shared_bytes", "blocks_per_sm",
                            "clusters", "threads"),
     "int8_dense_occupancy": ("registers", "spill_bytes", "shared_bytes", "blocks_per_sm",
@@ -101,6 +111,8 @@ class KernelLibrary:
         self.lib.kernel_error_string.restype = ctypes.c_char_p
         self.lib.scan_bwd_workspace_floats.argtypes = [_I, _I, _I, _I]
         self.lib.scan_bwd_workspace_floats.restype = _LL
+        self.lib.scan_fwd_timeline_clocks.argtypes = [_I, _I, _I, _I]
+        self.lib.scan_fwd_timeline_clocks.restype = _LL
         for name, argtypes in OCCUPANCY_SIGNATURES.items():
             fn = getattr(self.lib, name)
             fn.argtypes = argtypes
@@ -171,18 +183,32 @@ def _build_and_load() -> KernelLibrary:
     if os.path.exists(path):
         log = open(log_path).read() if os.path.exists(log_path) else ""
         return KernelLibrary(path, 0.0, log)
-    # Build to a private name and rename into place: a concurrent build
+    # Build to private names and rename into place: a concurrent build
     # never sees a half-written library, and no lock file is left behind.
     tmp = f"{path}.{os.getpid()}.tmp"
+    objects = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-        capture_output=True, text=True,
-    )
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objects)]
+    logs = [proc.communicate()[0] for proc in procs]
+    try:
+        failed = [(src, proc.returncode) for src, proc in zip(sources, procs) if proc.returncode]
+        if not failed:
+            link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objects],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode:
+                failed = [("link", link.returncode)]
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, path)

@@ -12,7 +12,8 @@ dtype (a bf16 carry would degrade every later chunk).
 ``selective_scan_sequential`` is the oracle. ``scan_fwd`` (h0 = 0) and
 ``scan_fwd_state`` (carried state) are the CUDA kernel
 ``csrc/scan_fwd.cu`` on a CUDA tensor and ``scan_fwd_plain``, a loop over
-t, on a CPU tensor.
+t, on a CPU tensor. ``scan_fwd_timeline`` runs the same kernel with a
+per-phase clock timeline of one block, for measuring only.
 
 Training: ``scan_fwd_bounds`` also returns the state entering every
 chunk of ``TRAIN_CHUNK`` steps, (batch, ceil(L/16), d_inner, state_dim)
@@ -268,6 +269,97 @@ def scan_fwd_bounds_state(x, dt, A, B, C, h0):
             h_final.data_ptr(), batch, length, d_inner, state_dim,
         )
     return y, bounds, h_final
+
+
+# The stamps of the timeline entry, in the order block (0, 0)'s thread 0
+# writes them: a phase is the time from the stamp before to its own
+# ("setup": the kernel's or pass's start to a tile's start, including the
+# load of A and h and the first tile's copies; "staging": waiting for the
+# tile's copies and the block's barrier; "issue": the next tile's copies;
+# "stores": the previous tile's y rows and this tile's bounds; "chain":
+# the 16 steps; "reduction": y's sum over the states; "tail": the last
+# rows and h_final).
+TIMELINE_TILE_PHASES = ("setup", "staging", "issue", "stores", "chain", "reduction")
+TIMELINE_PHASES = TIMELINE_TILE_PHASES + ("tail",)
+
+
+def timeline_shares(clocks, length: int) -> dict:
+    """Cycles of each phase in block (0, 0)'s timeline (``scan_fwd_timeline``)
+    of a scan of `length` steps: {phase: (cycles, share of the total)},
+    "total" (cycles from the kernel's start to its last stamp),
+    "clock_ghz" (those cycles over the global timer's nanoseconds between
+    the same two stamps: the SM clock they ran at) and "blocks": every
+    block's span, from the first block's start to the last one's end
+    ("span_us"), the median, least and most of a block's own time
+    ("block_us"), the blocks that started after the first block ended
+    ("late_blocks") and the most blocks one SM ran ("per_sm_max")."""
+    clocks = [int(v) for v in clocks]
+    n_blocks = clocks[0]
+    records = [clocks[1 + 3 * i:4 + 3 * i] for i in range(n_blocks)]
+    clocks = clocks[1 + 3 * n_blocks:]
+    stamps = clocks[:-2]
+    ns = clocks[-1] - clocks[-2]
+    n_tiles = -(-length // TRAIN_CHUNK)
+    per_pass = len(TIMELINE_TILE_PHASES) * n_tiles + 1
+    if (len(stamps) - 1) % per_pass:
+        raise ValueError(f"{len(stamps)} stamps do not fit {n_tiles} tiles a pass")
+    names = (list(TIMELINE_TILE_PHASES) * n_tiles + ["tail"]) * ((len(stamps) - 1) // per_pass)
+    cycles = dict.fromkeys(TIMELINE_PHASES, 0)
+    for name, before, after in zip(names, stamps, stamps[1:]):
+        cycles[name] += after - before
+    total = stamps[-1] - stamps[0]
+    out = {name: (n, n / total if total else 0.0) for name, n in cycles.items()}
+    out["total"] = (total, 1.0)
+    out["clock_ghz"] = total / ns if ns > 0 else 0.0
+    starts = [r[1] for r in records]
+    spans = sorted((r[2] - r[1]) / 1e3 for r in records)
+    per_sm = {}
+    for r in records:
+        per_sm[r[0]] = per_sm.get(r[0], 0) + 1
+    first_end = min(r[2] for r in records)
+    out["blocks"] = {"count": n_blocks, "sms": len(per_sm), "per_sm_max": max(per_sm.values()),
+                     "span_us": (max(r[2] for r in records) - min(starts)) / 1e3,
+                     "block_us": (spans[len(spans) // 2], spans[0], spans[-1]),
+                     "late_blocks": sum(s >= first_end for s in starts)}
+    return out
+
+
+def _launch_timeline(lib, x, dt, A, B, C, save_bounds: bool):
+    """Allocate y, the bounds (with save_bounds) and the clock buffer the
+    library asks for (its size passed too, which the C entry checks) and
+    launch ``scan_fwd_timeline_f32`` once. Returns (y, bounds or None,
+    clocks (int64))."""
+    batch, length, d_inner = x.shape
+    state_dim = A.shape[0]
+    n_clocks = lib.lib.scan_fwd_timeline_clocks(batch, length, d_inner, state_dim)
+    clocks = torch.zeros(n_clocks, dtype=torch.int64, device=x.device)
+    y = torch.empty_like(x)
+    bounds = (torch.empty(batch, -(-length // TRAIN_CHUNK), d_inner, state_dim,
+                          dtype=torch.float32, device=x.device) if save_bounds else None)
+    lib.launch("scan_fwd_timeline_f32", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+               B.data_ptr(), C.data_ptr(), y.data_ptr(),
+               None if bounds is None else bounds.data_ptr(), clocks.data_ptr(), n_clocks,
+               int(save_bounds), batch, length, d_inner, state_dim)
+    return y, bounds, clocks
+
+
+def scan_fwd_timeline(x, dt, A, B, C, save_bounds: bool = False):
+    """``scan_fwd`` (or, with save_bounds, ``scan_fwd_bounds``) through the
+    forward kernel's timeline instantiation: (y, bounds or None, clocks),
+    where clocks (int64) are block (0, 0)'s clock64() stamps at its phase
+    boundaries (``timeline_shares`` reads them). For measuring only: no
+    path calls it. On CPU tensors it runs the plain version and returns
+    no clocks. A non-empty scan only."""
+    if not x.is_cuda:
+        if save_bounds:
+            return scan_fwd_bounds_plain(x, dt, A, B, C) + (None,)
+        return scan_fwd_plain(x, dt, A, B, C), None, None
+    batch, length, d_inner, state_dim = _check_inputs(x, dt, A, B, C)
+    _refuse_grad(x, dt, A, B, C)
+    if batch == 0 or length == 0:
+        raise ValueError("the timeline needs a non-empty scan")
+    with torch.cuda.device(x.device):
+        return _launch_timeline(library(), x, dt, A, B, C, save_bounds)
 
 
 def _launch_bwd(lib, x, dt, A, B, C, bounds, g, gh=None):
