@@ -91,6 +91,32 @@ its seconds:
      batched lookahead-0 transcripts (at least 15 of 16 identical), with
      its per-chunk step latency; two chunks of one utterance at fp32,
      card against CPU (logits and every state leaf);
+ 10. (after 7) beam search, k = 8: (a) the first batch of 16 utterances'
+     masked fp32 logits on the card, beamed on the card and on the CPU
+     (identical tokens and lengths in every slot, scores within 1e-4),
+     through the host backend (the same best hypotheses) and through
+     ctc_beam_resume over phase 7's 100-frame chunks (equal to the
+     one-shot search); (b) the batched evaluation (batch 16, bf16) with
+     the beam, the beam + the committed LM at weight 0.5, and the beam +
+     the hot-word oracle at weight 2 and 4: each WER within 1.0 point of
+     the JAX package's over the same utterances (eval_beam8.json,
+     eval_beam8_lm.json, eval_hotwords_oracle.json,
+     eval_hotwords_oracle_w4.json), exactly 10 scan launches per batched
+     forward and no other kernel; (c) the batched streaming path (batch
+     16, 2 s chunks) with the beam, the beam + LM, and lookahead 1 with
+     the beam + LM: each WER within 1.0 point of eval_streaming_beam8.json,
+     eval_streaming_beam8_lm.json, eval_streaming_la1_beam8_lm.json, the
+     carried-state scan launches as planned; (d) the live
+     StreamingTranscriber at beam 8 on the first 16, fed 0.1 s blocks: at
+     least 15 of 16 transcripts identical to (c)'s beam transcripts, no
+     prefix-buffer overflow at beam_cap 256; (e) recorded, with no limit:
+     the beam decode alone of (a)'s batch (ms per batch, per frame, the
+     device operations per frame and their device time from a
+     torch.profiler window) and, the same way, the live path's beam work
+     alone at batch 1 (a StreamingBeam's update and commit over its
+     first row in 100-frame chunks), the beam's share of (b)'s wall
+     time, and the live step (advance and decode, to a synchronise) p50
+     and p95 at beam 8 against greedy;
   8. training: (a) one update of the checkpoint's full-width model at
      fp32, dropout and SpecAugment off, on one batch of 4 x 400 frames,
      card against CPU (loss within 1e-5 relative, every parameter's
@@ -187,6 +213,28 @@ CHUNK_FRAMES = 200  # streaming: 2 s chunks
 LIVE_UTTS = 16  # live StreamingTranscriber sessions
 LIVE_BLOCK = 1600  # samples per feed (0.1 s)
 LIVE_MIN_AGREE = 15  # of LIVE_UTTS transcripts equal to the batched path's
+
+# Beam search (phase 10): width, the committed LM and its weight, the JAX
+# package's batched beam evaluations by mode, and its streaming ones by
+# (lookahead, LM).
+BEAM_WIDTH = 8
+LM_PATH = os.path.join(RUN_DIR, "lm.json.gz")
+LM_WEIGHT = 0.5
+JAX_BEAM_EVALS = {
+    "beam8": os.path.join(RUN_DIR, "eval_beam8.json"),
+    "beam8_lm": os.path.join(RUN_DIR, "eval_beam8_lm.json"),
+    "oracle_w2": os.path.join(RUN_DIR, "eval_hotwords_oracle.json"),
+    "oracle_w4": os.path.join(RUN_DIR, "eval_hotwords_oracle_w4.json"),
+}
+JAX_STREAM_BEAM_EVALS = {
+    (0, False): os.path.join(RUN_DIR, "eval_streaming_beam8.json"),
+    (0, True): os.path.join(RUN_DIR, "eval_streaming_beam8_lm.json"),
+    (1, True): os.path.join(RUN_DIR, "eval_streaming_la1_beam8_lm.json"),
+}
+# card against CPU, the same fp32 logits: sums of a few hundred log
+# posteriors whose last bits differ between the two devices' log-softmax
+BEAM_SCORE_MAX_ABS = 1e-4
+BEAM_TIMING_REPS = 5
 
 # Tolerances (kernel against its plain version on the same inputs).
 SCAN_MAX_REL = 1e-4  # max|kernel - plain| / max|plain|; fp32, other summation order
@@ -1472,6 +1520,315 @@ def phase_streaming(manifest: str, plan):
     return out, wers
 
 
+def expect_launches(tag, counts, want):
+    log(f"[{tag}] launches {counts}, planned {want}")
+    if counts != want:
+        raise AssertionError(f"[{tag}] launches {counts}, expected {want}")
+
+
+def check_wer(tag, texts, refs, jax_path):
+    """Log the WER beside the JAX package's over the same utterances and
+    the count of identical transcripts; fail past WER_MAX_DIFF."""
+    from velocity_asr_tpu_torch.training import compute_cer, compute_wer
+
+    wer, cer = compute_wer(texts, refs), compute_cer(texts, refs)
+    jax_preds = read_jax_eval(jax_path, refs)
+    jax_wer, jax_cer = compute_wer(jax_preds, refs), compute_cer(jax_preds, refs)
+    same = sum(p == q for p, q in zip(texts, jax_preds))
+    log(f"[{tag}] WER {wer * 100:.4f}% CER {cer * 100:.4f}% | JAX ({os.path.basename(jax_path)}, "
+        f"same {len(refs)}) WER {jax_wer * 100:.4f}% CER {jax_cer * 100:.4f}% | identical "
+        f"transcripts {same}/{len(refs)}")
+    if abs(wer - jax_wer) > WER_MAX_DIFF:
+        raise AssertionError(f"[{tag}] WER {wer:.4f} is more than {WER_MAX_DIFF} from JAX "
+                             f"{jax_wer:.4f}")
+    return wer
+
+
+def beam_card_vs_cpu(ds, n, collator, decoder, chunk_out):
+    """10a: one batch's masked fp32 logits on the card, beamed on the card,
+    on the CPU, by the host backend and by chunked resume; returns the
+    card's logits (for the timing of 10e)."""
+    import torch
+
+    from velocity_asr_tpu_torch import evaluate as ev
+    from velocity_asr_tpu_torch.beam import (beam_state_init, ctc_beam_resume,
+                                             ctc_beam_search_torch)
+    from velocity_asr_tpu_torch.models.model import from_pretrained
+
+    batch = collator([ds[i] for i in range(min(n, BATCH))])
+    mel = torch.from_numpy(batch["mel_spectrogram"]).cuda()
+    lens = torch.from_numpy(batch["input_lengths"]).cuda()
+    model = from_pretrained(CHECKPOINT, device="cuda", dtype="float32")
+    logits = ev.masked_logits(model, mel, lens)
+    host_logits = logits.cpu()
+    if not torch.isfinite(host_logits).all():
+        raise AssertionError("[beam 10a] logits on the card are not finite")
+    b, t_len, _ = logits.shape
+    card = [x.cpu() for x in ctc_beam_search_torch(logits, BEAM_WIDTH)]
+    cpu = ctc_beam_search_torch(host_logits, BEAM_WIDTH)
+    same_tokens = torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1])
+    filled = cpu[2] > -1e29
+    score_err = (card[2] - cpu[2])[filled].abs().max().item()
+    host = decoder.decode_beam_search(host_logits, beam_width=BEAM_WIDTH, backend="host",
+                                      return_all_beams=True)
+    best = [card[0][i, 0, :card[1][i, 0]].tolist() for i in range(b)]
+    host_same = sum(h[0].tokens == w for h, w in zip(host, best))
+    # phase 7's chunking: chunk_out output frames a chunk, each row valid
+    # for its own output frames
+    out_lens = ((lens + 1) // 2).cpu().numpy()
+    state = beam_state_init(b, BEAM_WIDTH, t_len, device="cuda")
+    for c in range(-(-t_len // chunk_out)):
+        lo = c * chunk_out
+        state = ctc_beam_resume(state, logits[:, lo:lo + chunk_out],
+                                np.clip(out_lens - lo, 0, chunk_out), frame_base=lo)
+    resume = [state[key].cpu() for key in ("prefixes", "lengths", "scores")]
+    resume_same = torch.equal(resume[0], card[0]) and torch.equal(resume[1], card[1])
+    resume_err = (resume[2] - card[2])[filled].abs().max().item()
+    log(f"[beam 10a] {b} x {t_len} frames fp32 logits, k {BEAM_WIDTH}: card vs CPU tokens and "
+        f"lengths {'identical' if same_tokens else 'DIFFER'} in every slot, filled slots "
+        f"{int(filled.sum())}/{filled.numel()}, scores max_abs {score_err:.3e} (tol "
+        f"{BEAM_SCORE_MAX_ABS:g}); host backend's best identical for {host_same}/{b}; resume "
+        f"over {chunk_out}-frame chunks vs one-shot on the card: tokens and lengths "
+        f"{'identical' if resume_same else 'DIFFER'}, scores max_abs {resume_err:.3e}")
+    if not (same_tokens and score_err <= BEAM_SCORE_MAX_ABS):
+        raise AssertionError("[beam 10a] the card's beams disagree with the CPU's")
+    if host_same != b:
+        raise AssertionError("[beam 10a] the host backend's best hypotheses differ")
+    if not (resume_same and resume_err <= BEAM_SCORE_MAX_ABS):
+        raise AssertionError("[beam 10a] the chunked resume differs from the one-shot search")
+    return logits
+
+
+def profile_on_card(fn):
+    """fn's median host time to a synchronise over BEAM_TIMING_REPS calls
+    (after a warm-up), and one call under torch.profiler: (ms, the device
+    operations, their device ms, the times)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    times = []
+    for _ in range(BEAM_TIMING_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    return (float(np.median(times)), sum(e.count for e in events),
+            sum(device_us(e) for e in events) / 1e3, times)
+
+
+def time_beam_decode(logits, chunk_out):
+    """10e: the beam decode alone on the card, model excluded: the one-shot
+    search on (a)'s batch; and the live path's beam work at batch 1 on its
+    first row: a StreamingBeam's update and commit over chunk_out-frame
+    chunks (span tracks on, a host transfer per commit)."""
+    from velocity_asr_tpu_torch.beam import StreamingBeam, ctc_beam_search_torch
+
+    b, t_len, _ = logits.shape
+    ms, ops, device_ms, times = profile_on_card(lambda: ctc_beam_search_torch(logits,
+                                                                             BEAM_WIDTH))
+    log(f"[beam 10e] beam decode alone, k {BEAM_WIDTH}, batch {b} x {t_len} frames: {ms:.3f} ms "
+        f"a batch (median of {BEAM_TIMING_REPS}: {', '.join(f'{x:.3f}' for x in times)}), "
+        f"{ms / t_len:.4f} ms a frame; under the profiler {ops} device operations "
+        f"({ops / t_len:.1f} a frame), device time {device_ms:.3f} ms (card busy "
+        f"{device_ms / ms * 100:.1f}% of the untraced call)")
+    row = logits[:1]
+
+    def live_beam():
+        sb = StreamingBeam(1, BEAM_WIDTH, device=row.device)
+        for lo in range(0, t_len, chunk_out):
+            sb.update(row[:, lo:lo + chunk_out], min(chunk_out, t_len - lo), frame_base=lo)
+            sb.commit()
+
+    l_ms, l_ops, l_device_ms, l_times = profile_on_card(live_beam)
+    chunks = -(-t_len // chunk_out)
+    log(f"[beam 10e] live beam alone, k {BEAM_WIDTH}, batch 1 x {t_len} frames in {chunks} "
+        f"chunks (update and commit): {l_ms:.3f} ms ({l_ms / chunks:.3f} ms a chunk, "
+        f"{l_ms / t_len:.4f} ms a frame; median of {BEAM_TIMING_REPS}: "
+        f"{', '.join(f'{x:.3f}' for x in l_times)}); under the profiler {l_ops} device "
+        f"operations ({l_ops / t_len:.1f} a frame), device time {l_device_ms:.3f} ms (card busy "
+        f"{l_device_ms / l_ms * 100:.1f}%)")
+    return {"ms": ms, "frames": t_len, "ops_per_frame": ops / t_len, "device_ms": device_ms,
+            "live_chunk_ms": l_ms / chunks}
+
+
+def live_sessions(st, audios):
+    """Feed each utterance to the live session in LIVE_BLOCK-sample blocks;
+    returns the transcripts and each chunk step's ms (advance and decode,
+    from a synchronise before the advance to one after the decode), and
+    whether any session's beam overflowed."""
+    import torch
+
+    advance, consume = st._advance_chunk, st._consume
+    step_ms, start, overflow = [], [0.0], False
+
+    def timed_advance(chunk, offset):
+        torch.cuda.synchronize()
+        start[0] = time.perf_counter()
+        return advance(chunk, offset)
+
+    def timed_consume(out, out_valid, base):
+        consume(out, out_valid, base)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start[0]) * 1e3)
+
+    st._advance_chunk, st._consume = timed_advance, timed_consume
+    texts = []
+    for audio in audios:
+        st.reset()
+        text = "".join(st.feed(audio[i:i + LIVE_BLOCK]) for i in range(0, len(audio), LIVE_BLOCK))
+        texts.append(text + st.finish())
+        overflow |= st._sbeam is not None and st._sbeam.overflowed
+    return texts, step_ms, overflow
+
+
+def phase_beam(manifest: str, plan):
+    """Beam search (k = 8) on the card: 10a card against CPU, 10b batched
+    accuracy and launches, 10c streaming, 10d live, 10e timings. Returns
+    each counted run's launch counts and the timings."""
+    import torch
+
+    from velocity_asr_tpu_torch import evaluate as ev
+    from velocity_asr_tpu_torch.audio import load_audio
+    from velocity_asr_tpu_torch.data import ASRCollator
+    from velocity_asr_tpu_torch.lm import CharNGramLM
+    from velocity_asr_tpu_torch.models.model import from_pretrained
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.streaming import (BatchedStreamingTranscriber,
+                                                  StreamingTranscriber)
+    from velocity_asr_tpu_torch.transcribe import checkpoint_decoder
+
+    ds, n = ev.load_test_set(manifest)
+    collator = ASRCollator(frame_bucket=FRAME_BUCKET, target_bucket=1)
+    model = from_pretrained(CHECKPOINT, device="cuda")
+    decoder = checkpoint_decoder(CHECKPOINT, model.config.vocab_size)
+    t0 = time.perf_counter()
+    lm = CharNGramLM.load(LM_PATH)
+    log(f"[beam] LM {os.path.relpath(LM_PATH, ROOT)}: order {lm.order}, loaded in "
+        f"{time.perf_counter() - t0:.3f} s")
+    chunk_out = CHUNK_FRAMES // 2
+    logits = beam_card_vs_cpu(ds, n, collator, decoder, chunk_out)
+
+    # 10b: the batched evaluation's beam modes
+    n_batches = -(-n // BATCH)
+    modes = {"beam8": {}, "beam8_lm": {"lm": lm, "lm_weight": LM_WEIGHT},
+             "oracle_w2": {"oracle": True, "hotword_weight": 2.0},
+             "oracle_w4": {"oracle": True, "hotword_weight": 4.0}}
+    out = {"batched": {}, "stream": {}}
+    beam_seconds = []
+    beam_texts = ev.beam_texts
+
+    def timed_beam_texts(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        texts = beam_texts(*args, **kw)  # ends on the host
+        beam_seconds.append(time.perf_counter() - t)
+        return texts
+
+    for mode, kw in modes.items():
+        scorer_for = ev.fusion_scorer_for(decoder, **kw)
+        ev.evaluate(model, decoder, ds, min(n, BATCH), collator, BATCH, beam_width=BEAM_WIDTH,
+                    scorer_for=scorer_for)  # warm-up, not counted
+        torch.cuda.synchronize()
+        if mode == "beam8":
+            ev.beam_texts = timed_beam_texts
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            res = ev.evaluate(model, decoder, ds, n, collator, BATCH, beam_width=BEAM_WIDTH,
+                              scorer_for=scorer_for)
+        finally:
+            ev.beam_texts = beam_texts
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launch_counts)
+        tag = f"beam 10b {mode}"
+        check_wer(tag, [r["prediction"] for r in res["results"]],
+                  [r["reference"] for r in res["results"]], JAX_BEAM_EVALS[mode])
+        log(f"[{tag}] batch {BATCH}: {wall:.3f} s ({wall / n * 1e3:.3f} ms/utterance with host "
+            f"mel), {res['seconds'] / n * 1e3:.3f} ms/utterance model, beam and pick")
+        if mode == "beam8":
+            share = sum(beam_seconds) / wall
+            log(f"[{tag}] beam decode (to the host texts) {sum(beam_seconds):.3f} s of the "
+                f"evaluation's {wall:.3f} s wall time ({share * 100:.1f}%), "
+                f"{sum(beam_seconds) / n_batches * 1e3:.3f} ms a batch over {n_batches}")
+            out["share"] = share
+        expect_launches(tag, counts, {"scan_fwd_f32": 10 * n_batches})
+        out["batched"][mode] = counts
+
+    # 10c: the batched streaming path's beam modes
+    with open(manifest) as f:
+        rows = [json.loads(line) for line in f]
+    audios = [load_audio(r["audio_path"]) for r in rows]
+    refs = [r["text"] for r in rows]
+    stream = plan["stream"]
+    stream_texts = None
+    for (lookahead, with_lm), jax_path in JAX_STREAM_BEAM_EVALS.items():
+        tag = f"beam 10c la{lookahead}{' lm' if with_lm else ''}"
+        bt = BatchedStreamingTranscriber(
+            model, decoder, chunk_frames=CHUNK_FRAMES, batch_size=BATCH,
+            lookahead_chunks=lookahead, beam_width=BEAM_WIDTH,
+            beam_scorers=[(lm, LM_WEIGHT)] if with_lm else None)
+        bt.transcribe_batch(audios[:BATCH])  # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        texts = bt.transcribe_batch(audios)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launch_counts)
+        check_wer(tag, texts, refs, jax_path)
+        log(f"[{tag}] batch {BATCH}, {CHUNK_FRAMES}-frame chunks: {wall:.3f} s "
+            f"({wall / len(audios) * 1e3:.3f} ms/utterance with the host mel, "
+            f"{stream['steps']} advancing steps)")
+        expect_launches(tag, counts, {"scan_fwd_state_f32": stream["launches"][lookahead]})
+        out["stream"][tag] = counts
+        if (lookahead, with_lm) == (0, False):
+            stream_texts = texts
+
+    # 10d: live sessions at beam 8, against the batched beam transcripts
+    live = StreamingTranscriber(model, decoder, chunk_frames=CHUNK_FRAMES,
+                                beam_width=BEAM_WIDTH)
+    greedy = StreamingTranscriber(model, decoder, chunk_frames=CHUNK_FRAMES)
+    for st in (live, greedy):  # warm-up, not counted
+        st.feed(audios[0][:CHUNK_FRAMES * 160])
+        st.finish()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    texts, beam_ms, overflow = live_sessions(live, audios[:LIVE_UTTS])
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    _, greedy_ms, _ = live_sessions(greedy, audios[:LIVE_UTTS])
+    agree = sum(a == b for a, b in zip(texts, stream_texts))
+    log(f"[beam 10d] {LIVE_UTTS} live sessions at beam {BEAM_WIDTH} (beam_cap "
+        f"{live._sbeam.cap}) fed {LIVE_BLOCK}-sample blocks: {agree}/{LIVE_UTTS} transcripts "
+        f"identical to the batched beam path (need {LIVE_MIN_AGREE}); prefix buffer "
+        f"{'OVERFLOWED' if overflow else 'never overflowed'}")
+    log(f"[beam 10e] live step (advance and decode, to a synchronise) at batch 1 over "
+        f"{len(beam_ms)} chunks: beam {BEAM_WIDTH} p50 {np.percentile(beam_ms, 50):.3f} ms, p95 "
+        f"{np.percentile(beam_ms, 95):.3f} ms; greedy p50 {np.percentile(greedy_ms, 50):.3f} ms, "
+        f"p95 {np.percentile(greedy_ms, 95):.3f} ms")
+    expect_launches("beam 10d", counts, {"scan_fwd_state_f32": stream["launches"]["live"]})
+    if agree < LIVE_MIN_AGREE:
+        raise AssertionError("[beam 10d] live beam sessions disagree with the batched path")
+    if overflow:
+        raise AssertionError("[beam 10d] the live beam's prefix buffer overflowed")
+    out["stream"]["beam 10d live"] = counts
+    out["decode"] = time_beam_decode(logits, chunk_out)
+    return out
+
+
 def check_batch():
     """Phase 8a's batch: the first CHECK_BATCH train-split utterances of at
     most CHECK_FRAMES mel frames, padded to CHECK_FRAMES."""
@@ -1995,7 +2352,7 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
     per_run = {run: c.get("scan_fwd_state_f32", 0) for run, c in streaming.items()}
     state_launches = sum(per_run.values())
     log(f"state scan launches on the streaming path: {state_launches} (per run: lookahead "
-        f"0, lookahead 1, live: {per_run})")
+        f"0, lookahead 1, live, and phase 10's beam runs: {per_run})")
 
     # the training scans at the recipe's main shapes: local blocks at batch
     # 16 and 600 frames (L = 300, N = 64), global blocks (L = 64, N = 32)
@@ -2241,6 +2598,8 @@ def main(argv=None) -> int:
         batched = run_phase("5 batched int8 path", lambda: phase_batched(manifest, plan), t_start)
         streaming, stream_wers = run_phase(
             "7 streaming path", lambda: phase_streaming(manifest, plan), t_start)
+        beam = run_phase("10 beam search", lambda: phase_beam(manifest, plan), t_start)
+        streaming.update(beam["stream"])
         training = run_phase(
             "8 training", lambda: phase_training(manifest, batched), t_start)
         stream_training = run_phase(

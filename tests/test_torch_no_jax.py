@@ -76,6 +76,17 @@ def test_stream_training_modules_are_checked(module):
     assert module in _modules()
 
 
+@pytest.mark.parametrize("module", [
+    "velocity_asr_tpu_torch.beam", "velocity_asr_tpu_torch.lm",
+    "velocity_asr_tpu_torch.hotwords", "velocity_asr_tpu_torch.train_lm",
+    "velocity_asr_tpu_torch.decode",
+])
+def test_beam_search_modules_are_checked(module):
+    """The beam search, the n-gram LM, the hot-word booster and the LM
+    build are among the modules both checks walk."""
+    assert module in _modules()
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"

@@ -427,10 +427,15 @@ def test_batched_matches_live_session(transcriber_models):
 
 
 def test_beam_width_is_not_ported(transcriber_models):
+    """Both transcribers once refused beam_width > 1; they now carry a
+    beam from 2 up (tests/test_torch_beam_stream.py holds it against the
+    JAX package's) and stay greedy below."""
     port, dec = transcriber_models[3:]
-    for cls in (tstream.StreamingTranscriber, tstream.BatchedStreamingTranscriber):
-        with pytest.raises(NotImplementedError, match="ROADMAP module item 3"):
-            cls(port, dec, beam_width=4)
+    assert tstream.StreamingTranscriber(port, dec, beam_width=4)._sbeam.beam_width == 4
+    assert tstream.StreamingTranscriber(port, dec, beam_width=1)._sbeam is None
+    assert tstream.BatchedStreamingTranscriber(port, dec, beam_width=4).beam_width == 4
+    assert tstream.BatchedStreamingTranscriber(port, dec, beam_width=1).beam_width == 0
+    assert not hasattr(tstream, "BEAM_NOT_PORTED")
 
 
 # ------------------------------------------------------------ entry points
@@ -467,10 +472,15 @@ def test_evaluate_streaming_cli(tmp_path, capsys):
         result = json.load(f)
     with open("checkpoints/synth_run/eval_streaming_la1.json") as f:
         jax_result = json.load(f)
-    assert set(result) == {"wer", "cer", "rtf", "utterances", "streaming", "lookahead",
-                           "results"}
-    assert set(result) - {"lookahead"} == set(jax_result)
+    # the keys the JAX package's streaming evaluation writes now (its older
+    # eval_streaming_la1.json predates beam_width, lm and lookahead)
+    with open("checkpoints/synth_run/eval_streaming_la1_beam8_lm.json") as f:
+        assert set(result) == set(json.load(f))
+    assert set(result) == {"wer", "cer", "rtf", "utterances", "streaming", "beam_width", "lm",
+                           "lookahead", "results"}
+    assert set(result) - {"beam_width", "lm", "lookahead"} == set(jax_result)
     assert result["streaming"] is True and result["lookahead"] == 1
+    assert result["beam_width"] == 0 and result["lm"] is False
     assert [r["reference"] for r in result["results"]] == [
         r["reference"] for r in jax_result["results"][:3]]
     assert [r["prediction"] for r in result["results"]] == [

@@ -8,7 +8,11 @@ chunked streaming (``streaming.py``: a live ``StreamingTranscriber`` and
 the batched ``BatchedStreamingTranscriber``), whose SSM blocks run the
 carried-state scan kernel every chunk; and training of the offline CTC
 objective (``train.py``, ``training.Trainer``), whose SSM blocks run the
-bounds-saving scan forward and the scan backward kernels.
+bounds-saving scan forward and the scan backward kernels. Beam search
+(``beam.py``, ``decode.CTCDecoder.decode_beam_search``) runs offline and
+streaming on the logits' device, rescored by a character n-gram LM
+(``lm.py``, built by ``train_lm.py``) and hot-word boosting
+(``hotwords.py``).
 Nothing here imports JAX or the JAX package.
 """
 

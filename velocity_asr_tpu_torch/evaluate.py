@@ -1,7 +1,9 @@
-"""Batched WER/CER evaluation (the greedy branches of scripts/evaluate.py).
+"""Batched WER/CER evaluation (the --test-set branches of scripts/evaluate.py).
 
     python -m velocity_asr_tpu_torch.evaluate --checkpoint DIR --test-set MANIFEST \
         [--int8 | --int8-static] [--batch-size 16] [--frame-bucket 200] \
+        [--beam-width K [--lm LM.json.gz] [--lm-weight 0.5]
+         [--hotwords FILE|w1,w2 | --hotwords-oracle] [--hotword-weight 2.0]] \
         [--max-utts N] [--calib-batches 8] [--output results.json] [--device cuda] \
         [--streaming [--chunk-seconds 2.0] [--lookahead N] [--stream-tokens K]
          [--stream-memory M]]
@@ -9,15 +11,20 @@
 Utterances are read from a JSONL manifest, their log-mels computed on the
 host and padded batch by batch to a multiple of ``--frame-bucket`` frames
 (``data.ASRCollator``); the model runs on the device, blank is forced on
-each utterance's padded frames and the batch is greedily decoded on the
-device. ``--int8`` runs the ten global-context projections and the CTC
+each utterance's padded frames and the batch is decoded on the device:
+greedily, or with ``--beam-width`` K > 1 by the prefix beam (``beam.py``),
+its n-best rescored on the host by the LM (``--lm``) and hot words
+(``--hotwords``, or ``--hotwords-oracle``: each batch boosted with the
+words of its own reference transcripts, the contextual-biasing
+benchmark). ``--int8`` runs the ten global-context projections and the CTC
 head as int8 Dense layers with per-row dynamic scales; ``--int8-static``
 first calibrates one activation scale per layer on the first
 min(n, calib_batches * batch_size) utterances. ``--streaming`` decodes
 each utterance through the chunked streaming path instead, batched
-across utterances (``streaming.BatchedStreamingTranscriber``), and
-measures the streaming-vs-offline accuracy gap. The output JSON has the
-keys of the JAX package's ``eval_*.json`` files.
+across utterances (``streaming.BatchedStreamingTranscriber``; a beam
+carried across chunks, the LM and hot words rescoring each utterance's
+n-best at its end), and measures the streaming-vs-offline accuracy gap.
+The output JSON has the keys of the JAX package's ``eval_*.json`` files.
 """
 
 from __future__ import annotations
@@ -32,13 +39,16 @@ import numpy as np
 import torch
 
 from .audio import SAMPLE_RATE, load_audio
+from .beam import ctc_beam_search_torch
 from .data import ASRCollator, ASRDataset, calibration_batches
 from .decode import CTCDecoder, ctc_greedy_decode_torch, force_blank_beyond
+from .hotwords import HotwordBooster, load_hotwords_arg
+from .lm import CharNGramLM
 from .models.model import VelocityASR, from_pretrained
 from .quantize import calibrate_int8_model
 from .streaming import BatchedStreamingTranscriber
 from .training import compute_cer, compute_wer
-from .transcribe import checkpoint_decoder, chunk_frames_of
+from .transcribe import checkpoint_decoder, chunk_frames_of, combine_scorers
 
 logger = logging.getLogger("velocity_asr_tpu_torch.evaluate")
 
@@ -69,9 +79,64 @@ def calibrate(model: VelocityASR, ds, n: int, collator: ASRCollator, batch_size:
     return n_calib
 
 
+def fusion_scorer_for(decoder: CTCDecoder, lm=None, lm_weight: float = 0.5, booster=None,
+                      hotword_weight: float = 2.0, oracle: bool = False):
+    """The `scorer_for` of evaluate(): None without a scorer, else a
+    function of a batch's reference texts giving the (scorer, weight)
+    that rescores its n-best: the hot-word booster (fixed, or with oracle
+    the contextual-biasing benchmark's: the union of the batch's reference
+    words, each utterance's own words its domain vocabulary and the
+    others' distractors) and the LM, combined."""
+    if not (oracle or booster is not None or lm is not None):
+        return None
+
+    def scorer_for(texts):
+        parts = []
+        bst = booster
+        if oracle:
+            words = sorted({w for t in texts for w in t.lower().split()})
+            bst = HotwordBooster(words, decoder.token_to_idx)
+        if bst is not None:
+            parts.append((bst, hotword_weight))
+        if lm is not None:
+            parts.append((lm, lm_weight))
+        return combine_scorers(parts)
+
+    return scorer_for
+
+
+def beam_texts(decoder: CTCDecoder, logits: torch.Tensor, beam_width: int,
+               scorer=None, weight: float = 0.0) -> List[str]:
+    """Beam-decode a batch's masked logits on their device: each item's
+    best beam, or with a scorer the live beam of the highest acoustic +
+    weight * scorer.total_score (the first on ties), picked on the host."""
+    toks, lens, scores = ctc_beam_search_torch(logits, beam_width=beam_width,
+                                               blank_token=decoder.blank_token)
+    if scorer is None:
+        toks, lens = toks[:, 0].cpu(), lens[:, 0].cpu()
+        return [decoder.tokens_to_text(toks[b, : lens[b]].tolist())
+                for b in range(toks.shape[0])]
+    toks, lens, scores = toks.cpu().numpy(), lens.cpu().numpy(), scores.cpu().numpy()
+    texts = []
+    for b in range(toks.shape[0]):
+        best_text, best_s = "", -np.inf
+        for k in range(toks.shape[1]):
+            if scores[b, k] <= -1e29:  # a slot no hypothesis filled
+                continue
+            tl = toks[b, k, : lens[b, k]].tolist()
+            s = float(scores[b, k]) + weight * scorer.total_score(tl)
+            if s > best_s:
+                best_s, best_text = s, decoder.tokens_to_text(tl)
+        texts.append(best_text)
+    return texts
+
+
 def evaluate(model: VelocityASR, decoder: CTCDecoder, ds, n: int, collator: ASRCollator,
-             batch_size: int) -> dict:
-    """Greedy-decode the first n utterances batch by batch.
+             batch_size: int, beam_width: int = 0, scorer_for=None) -> dict:
+    """Decode the first n utterances batch by batch: greedily, or with
+    beam_width > 1 by the device beam. scorer_for, if given, maps a
+    batch's reference texts to the (scorer, weight) that rescores its
+    n-best (fixed LM and hot words ignore them; the oracle reads them).
 
     Returns wer, cer, rtf (model and decode seconds per second of audio,
     host mel excluded, as in the JAX package), utterances, results (one
@@ -87,10 +152,15 @@ def evaluate(model: VelocityASR, decoder: CTCDecoder, ds, n: int, collator: ASRC
         t0 = time.perf_counter()
         mel = torch.from_numpy(batch["mel_spectrogram"]).to(device)
         in_lens = torch.from_numpy(batch["input_lengths"]).to(device)
-        toks, lens = ctc_greedy_decode_torch(masked_logits(model, mel, in_lens))
-        toks, lens = toks.cpu(), lens.cpu()
-        predictions.extend(decoder.tokens_to_text(toks[b, : lens[b]].tolist())
-                           for b in range(toks.shape[0]))
+        logits = masked_logits(model, mel, in_lens)
+        if beam_width > 1:
+            scorer, weight = scorer_for(batch["texts"]) if scorer_for else (None, 0.0)
+            predictions.extend(beam_texts(decoder, logits, beam_width, scorer, weight))
+        else:
+            toks, lens = ctc_greedy_decode_torch(logits)
+            toks, lens = toks.cpu(), lens.cpu()
+            predictions.extend(decoder.tokens_to_text(toks[b, : lens[b]].tolist())
+                               for b in range(toks.shape[0]))
         total_wall += time.perf_counter() - t0
         references.extend(batch["texts"])
         total_audio_s += float(np.sum(batch["input_lengths"])) * HOP_SECONDS
@@ -108,14 +178,18 @@ def evaluate(model: VelocityASR, decoder: CTCDecoder, ds, n: int, collator: ASRC
 
 
 def evaluate_streaming(model: VelocityASR, decoder: CTCDecoder, ds, n: int,
-                       batch_size: int, chunk_frames: int = 200, lookahead: int = 0) -> dict:
-    """Greedy streaming decode of the first n utterances, batch by batch.
+                       batch_size: int, chunk_frames: int = 200, lookahead: int = 0,
+                       beam_width: int = 0, beam_scorers=None) -> dict:
+    """Streaming decode of the first n utterances, batch by batch: greedy,
+    or with beam_width > 1 the carried beam, each utterance's n-best
+    rescored by beam_scorers [(scorer, weight)].
 
     The same keys as ``evaluate``; rtf and seconds count the host mel and
     the chunk steps (not the WAV read), as in the JAX package.
     """
     st = BatchedStreamingTranscriber(model, decoder, chunk_frames=chunk_frames,
-                                     batch_size=batch_size, lookahead_chunks=lookahead)
+                                     batch_size=batch_size, lookahead_chunks=lookahead,
+                                     beam_width=beam_width, beam_scorers=beam_scorers)
     predictions: List[str] = []
     references: List[str] = []
     total_audio_s = total_wall = 0.0
@@ -153,6 +227,19 @@ def main(argv: List[str] | None = None) -> dict:
     parser.add_argument("--int8-static", action="store_true",
                         help="int8 projections with calibrated static activation scales")
     parser.add_argument("--calib-batches", type=int, default=8)
+    parser.add_argument("--beam-width", type=int, default=0, help=">1 enables beam search")
+    parser.add_argument("--hotwords", default=None,
+                        help="hot-word boosting for the beam search: a file (one word per "
+                             "line) or an inline comma-separated list; requires "
+                             "--beam-width > 1")
+    parser.add_argument("--hotword-weight", type=float, default=2.0)
+    parser.add_argument("--lm", default=None,
+                        help="character n-gram LM for beam shallow fusion (a train_lm "
+                             "artifact); requires --beam-width > 1")
+    parser.add_argument("--lm-weight", type=float, default=0.5)
+    parser.add_argument("--hotwords-oracle", action="store_true",
+                        help="contextual-biasing benchmark: boost each batch with the "
+                             "words of its own reference transcripts")
     parser.add_argument("--output", help="write per-utterance results (JSON)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--streaming", action="store_true",
@@ -173,6 +260,18 @@ def main(argv: List[str] | None = None) -> dict:
                      "streaming step); use --int8 (dynamic scales)")
     if args.lookahead and not args.streaming:
         parser.error("--lookahead requires --streaming")
+    if args.streaming and args.hotwords_oracle:
+        parser.error("--hotwords-oracle is not supported with --streaming "
+                     "(per-batch oracle bias lists need the offline beam); "
+                     "use --hotwords with a fixed list")
+    if (args.hotwords or args.hotwords_oracle) and args.beam_width <= 1:
+        parser.error("hotword boosting biases the beam search; add "
+                     "--beam-width (e.g. --beam-width 8)")
+    if args.hotwords and args.hotwords_oracle:
+        parser.error("--hotwords and --hotwords-oracle are mutually exclusive")
+    if args.lm and args.beam_width <= 1:
+        parser.error("--lm fuses into the beam search; add --beam-width "
+                     "(e.g. --beam-width 8)")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(levelname)s | %(message)s")
 
     overrides = {}
@@ -186,19 +285,29 @@ def main(argv: List[str] | None = None) -> dict:
         overrides["stream_memory_chunks"] = args.stream_memory
     model = from_pretrained(args.checkpoint, device=args.device, **overrides)
     decoder = checkpoint_decoder(args.checkpoint, model.config.vocab_size)
+    scorer_for = fusion_scorer_for(
+        decoder, lm=CharNGramLM.load(args.lm) if args.lm else None, lm_weight=args.lm_weight,
+        booster=(load_hotwords_arg(args.hotwords, decoder.token_to_idx)
+                 if args.hotwords else None),
+        hotword_weight=args.hotword_weight, oracle=args.hotwords_oracle)
 
     ds, n = load_test_set(args.test_set, args.max_utts)
     logger.info("Evaluating %d utterances from %s", n, args.test_set)
     if args.streaming:
+        # no oracle here: a fixed scorer, whatever the texts
+        scorer, weight = scorer_for([]) if scorer_for else (None, 0.0)
         result = evaluate_streaming(model, decoder, ds, n, args.batch_size,
-                                    chunk_frames_of(args.chunk_seconds), args.lookahead)
+                                    chunk_frames_of(args.chunk_seconds), args.lookahead,
+                                    beam_width=args.beam_width,
+                                    beam_scorers=[(scorer, weight)] if scorer else None)
         logger.info("STREAMING WER: %.2f%% | CER: %.2f%% | RTF: %.5f | utts/s: %.2f",
                     result["wer"] * 100, result["cer"] * 100, result["rtf"],
                     n / max(result["seconds"], 1e-9))
         if args.output:
             with open(args.output, "w") as f:
                 json.dump({"wer": result["wer"], "cer": result["cer"], "rtf": result["rtf"],
-                           "utterances": n, "streaming": True, "lookahead": args.lookahead,
+                           "utterances": n, "streaming": True, "beam_width": args.beam_width,
+                           "lm": bool(args.lm), "lookahead": args.lookahead,
                            "results": result["results"]}, f, indent=2)
         return {k: result[k] for k in ("wer", "cer", "rtf")}
     collator = ASRCollator(frame_bucket=args.frame_bucket, target_bucket=1)
@@ -206,7 +315,8 @@ def main(argv: List[str] | None = None) -> dict:
         n_calib = calibrate(model, ds, n, collator, args.batch_size, args.calib_batches)
         logger.info("Calibrated static int8 scales on %d utterances", n_calib)
 
-    result = evaluate(model, decoder, ds, n, collator, args.batch_size)
+    result = evaluate(model, decoder, ds, n, collator, args.batch_size,
+                      beam_width=args.beam_width, scorer_for=scorer_for)
     logger.info("WER: %.2f%% | CER: %.2f%% | RTF: %.5f | utts/s: %.2f",
                 result["wer"] * 100, result["cer"] * 100, result["rtf"],
                 n / max(result["seconds"], 1e-9))

@@ -1,4 +1,4 @@
-"""Chunked streaming transcription, greedy (mirrors velocity_asr_tpu/streaming.py).
+"""Chunked streaming transcription (mirrors velocity_asr_tpu/streaming.py).
 
     st = StreamingTranscriber(model, decoder)
     for block in audio_blocks:
@@ -15,7 +15,11 @@
   numpy, as in the JAX package). Chunk c is normalised with the
   statistics of raw frames [0, chunk c's end): the output depends only on
   the audio and the chunk length, never on how the samples were fed.
-- Greedy CTC decoding carries its collapse state across chunks.
+- Greedy CTC decoding carries its collapse state across chunks. With
+  ``beam_width`` > 1 each chunk's logits advance a carried prefix beam on
+  the device instead (``beam.StreamingBeam``); the live transcriber
+  emits the beams' common prefix every chunk and picks the best suffix
+  at finish, rescored by ``beam_scorers`` (LM, hot words).
 - ``lookahead_chunks`` > 0 emits each chunk that many chunks late,
   re-decoded with the statistics and global memory available by then
   (the model's ``frozen_mem`` pass).
@@ -25,26 +29,27 @@ same chunk step for evaluation, with the same results per utterance.
 ``streaming_forward`` is the training graph of the same step: a whole
 utterance's logits computed chunk by chunk through the carried state,
 differentiable (the streaming-aware objective, ``training.Trainer``).
-Beam search, word timestamps and confidences and the serving session
-batcher are not ported yet.
+Word timestamps and confidences and the serving session batcher are not
+ported yet (the beam path keeps its committed tokens' frame spans).
 """
 
 from __future__ import annotations
 
+import logging
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from .audio import HOP_LENGTH, N_FFT, N_MELS, SAMPLE_RATE, hann_window, mel_filterbank
+from .beam import StreamingBeam
 from .decode import BLANK_TOKEN, CTCDecoder
 from .models.model import VelocityASR, init_stream_state
 
 __all__ = ["BatchedStreamingTranscriber", "StreamingMel", "StreamingTranscriber",
            "init_stream_state", "streaming_forward"]
 
-BEAM_NOT_PORTED = ("streaming beam search (beam_width > 1) is not ported yet "
-                   "(ROADMAP module item 3: streaming beam)")
+logger = logging.getLogger(__name__)
 
 
 class StreamingMel:
@@ -275,7 +280,7 @@ def streaming_forward(model: VelocityASR, mel: torch.Tensor, chunk_frames: int,
 
 
 class StreamingTranscriber:
-    """Live chunked transcription with carried model state, greedy.
+    """Live chunked transcription with carried model state.
 
     feed(samples) returns the newly finalised text; finish() flushes the
     trailing audio. Chunks are ``chunk_frames`` mel frames (even; 200 =
@@ -288,19 +293,31 @@ class StreamingTranscriber:
     the N later chunks' summaries (the model's frozen_mem pass), from the
     chunk's own entry local state. The advancing steps, and so the
     carried state, are those of lookahead 0.
+
+    beam_width > 1: each chunk's logits (the emit pass's under lookahead)
+    advance a carried beam on the model's device, and the beams' common
+    prefix is committed as final text after every chunk; finish() picks
+    the best suffix among the live beams, rescored over the full n-best
+    by beam_scorers [(scorer, weight)]. beam_cap is the prefix buffer's
+    capacity in uncommitted tokens; past it the transcript is truncated
+    and finish() warns.
     """
 
     def __init__(self, model: VelocityASR, decoder: CTCDecoder, chunk_frames: int = 200,
-                 lookahead_chunks: int = 0, beam_width: int = 0):
+                 lookahead_chunks: int = 0, beam_width: int = 0, beam_scorers=None,
+                 beam_cap: int = 256):
         if chunk_frames % 2:
             raise ValueError(f"chunk_frames must be even, got {chunk_frames}")
-        if beam_width and beam_width > 1:
-            raise NotImplementedError(BEAM_NOT_PORTED)
         self.model = model.eval()
         self.decoder = decoder
         self.chunk_frames = chunk_frames
         self.lookahead_chunks = lookahead_chunks
         self.device = _model_device(model)
+        self._sbeam = None
+        if beam_width and beam_width > 1:
+            self._sbeam = StreamingBeam(1, beam_width, cap=beam_cap,
+                                        blank_token=decoder.blank_token,
+                                        scorers=beam_scorers, device=self.device)
         self.reset()
 
     def reset(self) -> None:
@@ -314,7 +331,15 @@ class StreamingTranscriber:
         self._pending: List[dict] = []
         self._prev_token = BLANK_TOKEN
         self._tokens: List[int] = []
+        # beam mode: (start, end) absolute output frames and [lp_sum,
+        # n_frames] of every committed token, from the in-beam span tracks
+        self._stamps: List[List[int]] = []
+        self._stamp_lp: List[list] = []
+        self._decoded_frames = 0  # absolute output frames those spans cover
         self._emitted_text = ""
+        self._beam_finalized = False
+        if self._sbeam is not None:
+            self._sbeam.reset()
 
     def _init_state(self) -> dict:
         return init_stream_state(self.model.config, 1, self.device)
@@ -322,20 +347,70 @@ class StreamingTranscriber:
     @torch.inference_mode()
     def _forward(self, chunk: np.ndarray, state: dict, offset: int,
                  frozen: bool = False):
-        """One chunk step: (per-frame argmax on the host, new state)."""
+        """One chunk step: (its output, new state). The output is the
+        per-frame argmax on the host, or in beam mode the (1, frames,
+        vocab) logits, left on the device for the beam."""
         mel = torch.from_numpy(np.ascontiguousarray(chunk[None])).to(self.device)
         logits, new_state = self.model(mel, stream_state=state, time_offset=offset,
                                        return_state=True, frozen_mem=frozen)
+        if self._sbeam is not None:
+            return logits, new_state
         lsm = torch.log_softmax(logits[0].to(torch.float32), dim=-1)
         return lsm.argmax(dim=-1).cpu().numpy(), new_state
 
-    def _advance_chunk(self, chunk: np.ndarray, offset: int) -> np.ndarray:
+    def _advance_chunk(self, chunk: np.ndarray, offset: int):
         """Run one (chunk_frames, mels) chunk through the advancing step,
-        replacing the carried state; returns its per-frame argmax."""
+        replacing the carried state; returns its output (see _forward)."""
         if self._state is None:
             self._state = self._init_state()
-        preds, self._state = self._forward(chunk, self._state, offset)
-        return preds
+        out, self._state = self._forward(chunk, self._state, offset)
+        return out
+
+    def _consume(self, out, out_valid: int, base: int) -> None:
+        """Decode one chunk's first out_valid output frames; `base` is its
+        first absolute output frame."""
+        if self._sbeam is not None:
+            self._consume_beam(out, out_valid, base)
+        else:
+            self._decode_tokens(out[:out_valid])
+
+    def _consume_beam(self, logits: torch.Tensor, out_valid: int, base: int) -> None:
+        """Advance the carried beam over one chunk's logits and commit the
+        beams' common prefix as final tokens."""
+        self._sbeam.update(logits, out_valid, frame_base=base)
+        self._apply_beam_commit(self._sbeam.commit()[0])
+
+    def _apply_beam_commit(self, info: dict) -> None:
+        """Fold one commit's tokens, frame spans and posteriors into the
+        transcriber's tracks."""
+        tail = info.get("tail")
+        if tail and self._stamps:
+            # frames that extended the previously committed token's run
+            end, lp, n = tail
+            self._stamps[-1][1] = max(self._stamps[-1][1], end)
+            self._stamp_lp[-1][0] += lp
+            self._stamp_lp[-1][1] += n
+            self._decoded_frames = max(self._decoded_frames, end)
+        self._tokens.extend(info["tokens"])
+        for (s, e), lp in zip(info["stamps"], info["lp"]):
+            self._stamps.append([s, e])
+            self._stamp_lp.append(list(lp))
+            self._decoded_frames = max(self._decoded_frames, e)
+
+    def _finalize_beam(self) -> None:
+        """The best suffix among the live beams (rescored by beam_scorers
+        over the full n-best) completes the transcript; its spans extend
+        the committed ones."""
+        fin = self._sbeam.finalize_full()[0]
+        self._tokens = fin["tokens"]
+        for (s, e), lp in zip(fin["suffix_stamps"], fin["suffix_lp"]):
+            self._stamps.append([s, e])
+            self._stamp_lp.append(list(lp))
+            self._decoded_frames = max(self._decoded_frames, e)
+        self._beam_finalized = True
+        if self._sbeam.overflowed:
+            logger.warning("streaming beam prefix buffer overflowed (cap=%d); the "
+                           "transcript may be truncated: raise beam_cap", self._sbeam.cap)
 
     def _decode_tokens(self, preds: np.ndarray) -> None:
         """Greedy collapse of one chunk's argmax; the previous token
@@ -371,8 +446,8 @@ class StreamingTranscriber:
             "gc_blocks": self._state["gc_blocks"],
             "gc_init": self._state["gc_init"],
         }
-        preds, _ = self._forward(chunk, state, p["offset"], frozen=True)
-        self._decode_tokens(preds[: (p["valid"] + 1) // 2])
+        out, _ = self._forward(chunk, state, p["offset"], frozen=True)
+        self._consume(out, (p["valid"] + 1) // 2, p["offset"])
 
     def _run_chunks(self, flush: bool = False) -> str:
         while True:
@@ -392,18 +467,20 @@ class StreamingTranscriber:
                 if self._state is None:
                     self._state = self._init_state()
                 self._pending.append(self._pending_entry(valid))
-            preds = self._advance_chunk(chunk, self._time_offset)
+            out = self._advance_chunk(chunk, self._time_offset)
             out_valid = (valid + 1) // 2  # odd valid only on the final flush
             self._time_offset += out_valid
             self._frame_cursor += valid
             if self.lookahead_chunks == 0:
-                self._decode_tokens(preds[:out_valid])
+                self._consume(out, out_valid, self._time_offset - out_valid)
             else:
                 while len(self._pending) > self.lookahead_chunks:
                     self._emit(self._pending.pop(0))
         if flush:
             while self._pending:
                 self._emit(self._pending.pop(0))
+            if self._sbeam is not None and not self._beam_finalized:
+                self._finalize_beam()
         # raw mel is only re-read for pending chunks: trim the rest
         oldest = self._pending[0]["frame_start"] if self._pending else self._frame_cursor
         self.mel.trim_raw_mel(oldest)
@@ -428,7 +505,7 @@ class StreamingTranscriber:
 
 
 class BatchedStreamingTranscriber:
-    """Streaming evaluation batched across utterances, greedy.
+    """Streaming evaluation batched across utterances.
 
     Runs ``batch_size`` independent streams through one chunk step (the
     carried state gains a batch axis) with the per-utterance semantics of
@@ -443,19 +520,27 @@ class BatchedStreamingTranscriber:
     with the memory after chunk min(c + L, last) and its mel re-normalised
     with the statistics over [0, (c + 1 + L) * chunk_frames), clamped to
     the utterance: the live transcriber's emission-time statistics.
+
+    beam_width > 1: each chunk's logits (the emit pass's under lookahead)
+    advance one carried beam per stream on the device, frames past an
+    utterance's output length masked out, and each utterance's best full
+    hypothesis is picked at the end, rescored by beam_scorers [(scorer,
+    weight)]. Nothing is committed along the way: the prefix buffer holds
+    the whole utterance.
     """
 
     def __init__(self, model: VelocityASR, decoder: CTCDecoder, chunk_frames: int = 200,
-                 batch_size: int = 8, lookahead_chunks: int = 0, beam_width: int = 0):
+                 batch_size: int = 8, lookahead_chunks: int = 0, beam_width: int = 0,
+                 beam_scorers=None):
         if chunk_frames % 2:
             raise ValueError(f"chunk_frames must be even, got {chunk_frames}")
-        if beam_width and beam_width > 1:
-            raise NotImplementedError(BEAM_NOT_PORTED)
         self.model = model.eval()
         self.decoder = decoder
         self.chunk_frames = chunk_frames
         self.batch_size = batch_size
         self.lookahead_chunks = lookahead_chunks
+        self.beam_width = beam_width if beam_width and beam_width > 1 else 0
+        self.beam_scorers = beam_scorers
         self.device = _model_device(model)
 
     def _causal_mel_raw(self, audio: np.ndarray):
@@ -509,12 +594,30 @@ class BatchedStreamingTranscriber:
         chunk_out = F // 2
         pending = []  # (chunk index, entry mel_carry, entry blocks)
         chunk_preds = []  # per chunk, (b, chunk_out) argmax token ids on the device
+        sbeam = None
+        if self.beam_width:
+            # no commits: the prefix buffer holds each whole utterance (at
+            # most its output frames), rounded up to a multiple of 256
+            cap = -(-max(out_frames + [1]) // 256) * 256
+            sbeam = StreamingBeam(b, self.beam_width, cap=cap,
+                                  blank_token=self.decoder.blank_token,
+                                  scorers=self.beam_scorers, device=device)
+            valid_frames = np.zeros(b, np.int32)
+            valid_frames[:n] = out_frames
 
         def step(chunk: np.ndarray, st: dict, offset: int, frozen: bool = False):
             mel = torch.from_numpy(np.ascontiguousarray(chunk)).to(device)
             logits, new_state = model(mel, stream_state=st, time_offset=offset,
                                       return_state=True, frozen_mem=frozen)
-            return logits.argmax(dim=-1), new_state
+            return (logits if sbeam is not None else logits.argmax(dim=-1)), new_state
+
+        def consume(out, c):
+            if sbeam is None:
+                chunk_preds.append(out)
+            else:
+                # frames of chunk c past an utterance's own output length
+                # are padding: the valid mask keeps them out of its beam
+                sbeam.update(out, np.clip(valid_frames - c * chunk_out, 0, chunk_out))
 
         def emit(c, mel_carry, blocks, stats_upto_chunk):
             # chunk c from its entry local state, with the current memory
@@ -525,18 +628,24 @@ class BatchedStreamingTranscriber:
                 buf[i, : seg.shape[0]] = seg
             st = {"mel_carry": mel_carry, "blocks": blocks, "gc_mem": state["gc_mem"],
                   "gc_blocks": state["gc_blocks"], "gc_init": state["gc_init"]}
-            chunk_preds.append(step(buf, st, c * chunk_out, frozen=True)[0])
+            consume(step(buf, st, c * chunk_out, frozen=True)[0], c)
 
         for c in range(num_chunks):
             if L > 0:
                 pending.append((c, state["mel_carry"], state["blocks"]))
-            preds_c, state = step(padded[:, c * F : (c + 1) * F], state, c * chunk_out)
+            out_c, state = step(padded[:, c * F : (c + 1) * F], state, c * chunk_out)
             if L == 0:
-                chunk_preds.append(preds_c)
+                consume(out_c, c)
             elif len(pending) > L:
                 emit(*pending.pop(0), stats_upto_chunk=c)
         while pending:
             emit(*pending.pop(0), stats_upto_chunk=num_chunks - 1)
+
+        if sbeam is not None:
+            best = sbeam.finalize()
+            if sbeam.overflowed:
+                logger.warning("streaming beam prefix buffer overflowed (cap=%d)", sbeam.cap)
+            return [self.decoder.tokens_to_text(t) for t in best[:n]]
 
         preds = torch.cat(chunk_preds, dim=1).cpu().numpy()  # (b, num_chunks * chunk_out)
         texts = []

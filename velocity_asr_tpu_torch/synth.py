@@ -177,6 +177,11 @@ class SyntheticSpeechDataset:
         unk = self.vocab["<unk>"]
         return [self.vocab.get(c, unk) for c in text]
 
+    def text_for(self, idx: int) -> str:
+        """Utterance idx's transcript, without rendering its audio."""
+        return sample_sentence(self.lexicon, _char_seed(self.seed, "text", self.split, idx),
+                               self.min_words, self.max_words)
+
     def __getitem__(self, idx: int) -> Dict:
         text, audio = utterance(idx, self.split, self.seed, self.lexicon, self.voice,
                                 self.min_words, self.max_words)

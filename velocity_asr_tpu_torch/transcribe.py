@@ -1,18 +1,25 @@
-"""Transcription (the greedy paths of scripts/transcribe.py).
+"""Transcription (the greedy and beam paths of scripts/transcribe.py).
 
     python -m velocity_asr_tpu_torch.transcribe utt.wav --checkpoint DIR \
+        [--beam-width K [--lm LM.json.gz] [--lm-weight 0.5] [--hotwords FILE|w1,w2]
+         [--hotword-weight 2.0]] \
         [--streaming [--chunk-seconds 2.0] [--lookahead N]] [--json] [--device cuda]
 
 Per utterance: reflect-pad the audio to its frame bucket (multiples of
 ``frame_bucket`` frames), round it to int16 as the JAX pipeline's wire
 format does, then on the device: log-mel (CUDA kernel), per-bin
 normalisation over the valid frames only, the model, blank forced beyond
-the valid output frames, and greedy CTC decode. The global context pools
-over the padded length, so the bucketing is part of the result.
+the valid output frames, and greedy CTC decode, or with ``--beam-width`` K > 1
+the prefix beam on the device (``beam.py``), its n-best rescored by the
+character n-gram LM (``--lm``, ``lm.py``) and the hot-word booster
+(``--hotwords``, ``hotwords.py``). The global context pools over the
+padded length, so the bucketing is part of the result.
 
 ``--streaming`` feeds the file chunk by chunk through a
 ``streaming.StreamingTranscriber`` instead (carried model state, host mel
-with causal statistics); ``--lookahead N`` emits each chunk N chunks late.
+with causal statistics; the beam carried across chunks, the LM and hot
+words rescoring its n-best at the end); ``--lookahead N`` emits each
+chunk N chunks late.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from .audio import HOP_LENGTH, SAMPLE_RATE, load_audio, masked_normalize_mel
 from .decode import (CTCDecoder, create_default_vocabulary, ctc_greedy_decode_torch,
                      force_blank_beyond)
 from .device import resolve_device
+from .hotwords import load_hotwords_arg
+from .lm import CharNGramLM, CombinedScorer
 from .models.model import VelocityASR, from_pretrained
 from .ops.mel import compute_mel_spectrogram
 from .streaming import StreamingTranscriber
@@ -43,13 +52,33 @@ def padded_frames(n_samples: int, frame_bucket: int = 200, hop: int = HOP_LENGTH
     return -(-min_frames // frame_bucket) * frame_bucket
 
 
-class Transcriber:
-    """Bucketed offline transcription on the model's device."""
+def combine_scorers(parts):
+    """(scorer, weight) for the decoders' single scorer slot from
+    [(scorer, weight)] parts: (None, 0.0) for none, the part itself for
+    one, a CombinedScorer of weight 1 for more."""
+    if not parts:
+        return None, 0.0
+    if len(parts) == 1:
+        return parts[0]
+    return CombinedScorer(parts), 1.0
 
-    def __init__(self, model: VelocityASR, decoder: CTCDecoder, frame_bucket: int = 200):
+
+class Transcriber:
+    """Bucketed offline transcription on the model's device.
+
+    beam_width > 1 decodes with the device beam, its n-best rescored by
+    lm_scorer at lm_weight (an LM, a hot-word booster, or a
+    CombinedScorer of both at weight 1).
+    """
+
+    def __init__(self, model: VelocityASR, decoder: CTCDecoder, frame_bucket: int = 200,
+                 beam_width: int = 0, lm_scorer=None, lm_weight: float = 0.0):
         self.model = model.eval()
         self.decoder = decoder
         self.frame_bucket = frame_bucket
+        self.beam_width = beam_width
+        self.lm_scorer = lm_scorer
+        self.lm_weight = lm_weight
         self.device = resolve_device(next(model.parameters()).device)
         self.hop = HOP_LENGTH
         self.sr = SAMPLE_RATE
@@ -88,12 +117,16 @@ class Transcriber:
     def transcribe_array(self, audio: np.ndarray) -> dict:
         padded, n_frames = self._pad_audio(audio)
         audio_dev = torch.from_numpy(self._to_wire(padded)).to(self.device)
-        toks, lens = ctc_greedy_decode_torch(self.masked_logits(audio_dev, n_frames))
-        toks, lens = toks.cpu(), lens.cpu()
-        return {
-            "text": self.decoder.tokens_to_text(toks[0, : lens[0]].tolist()),
-            "duration": len(audio) / self.sr,
-        }
+        logits = self.masked_logits(audio_dev, n_frames)
+        if self.beam_width > 1:
+            text = self.decoder.decode_beam_search(
+                logits, beam_width=self.beam_width, backend="device",
+                lm_scorer=self.lm_scorer, lm_weight=self.lm_weight)[0]
+        else:
+            toks, lens = ctc_greedy_decode_torch(logits)
+            toks, lens = toks.cpu(), lens.cpu()
+            text = self.decoder.tokens_to_text(toks[0, : lens[0]].tolist())
+        return {"text": text, "duration": len(audio) / self.sr}
 
     def transcribe_file(self, path: str) -> dict:
         t0 = time.perf_counter()
@@ -153,16 +186,43 @@ def main(argv: List[str] | None = None) -> int:
     parser.add_argument("--lookahead", type=int, default=0,
                         help="streaming: emit each chunk N chunks late, re-decoded with "
                              "the later chunks' global context and statistics")
+    parser.add_argument("--beam-width", type=int, default=0, help=">1 enables beam search")
+    parser.add_argument("--hotwords", default=None,
+                        help="hot-word boosting for the beam search: a file (one word per "
+                             "line) or an inline comma-separated list; requires "
+                             "--beam-width > 1")
+    parser.add_argument("--hotword-weight", type=float, default=2.0,
+                        help="shallow-fusion weight for --hotwords")
+    parser.add_argument("--lm", default=None,
+                        help="character n-gram LM for beam shallow fusion (a train_lm "
+                             "artifact); requires --beam-width > 1")
+    parser.add_argument("--lm-weight", type=float, default=0.5)
     args = parser.parse_args(argv)
     if args.lookahead and not args.streaming:
         parser.error("--lookahead requires --streaming")
+    if args.hotwords and args.beam_width <= 1:
+        parser.error("--hotwords biases the beam search; add --beam-width "
+                     "(e.g. --beam-width 8)")
+    if args.lm and args.beam_width <= 1:
+        parser.error("--lm fuses into the beam search; add --beam-width "
+                     "(e.g. --beam-width 8)")
 
     pipeline = load_transcriber(args.checkpoint, device=args.device)
+    pipeline.beam_width = args.beam_width
+    parts = []
+    if args.hotwords:
+        parts.append((load_hotwords_arg(args.hotwords, pipeline.decoder.token_to_idx),
+                      args.hotword_weight))
+    if args.lm:
+        parts.append((CharNGramLM.load(args.lm), args.lm_weight))
+    pipeline.lm_scorer, pipeline.lm_weight = combine_scorers(parts)
     streamer = None
     if args.streaming:  # one live session; each file resets it
-        streamer = StreamingTranscriber(pipeline.model, pipeline.decoder,
-                                        chunk_frames=chunk_frames_of(args.chunk_seconds),
-                                        lookahead_chunks=args.lookahead)
+        streamer = StreamingTranscriber(
+            pipeline.model, pipeline.decoder, chunk_frames=chunk_frames_of(args.chunk_seconds),
+            lookahead_chunks=args.lookahead, beam_width=args.beam_width,
+            beam_scorers=[(pipeline.lm_scorer, pipeline.lm_weight)] if pipeline.lm_scorer
+            else None)
     for path in args.audio:
         if streamer is not None:
             result = transcribe_streaming(streamer, path)
