@@ -25,9 +25,12 @@ its seconds:
      each batch's size and padded frames, each streaming group's chunks);
      then each kernel against its plain PyTorch version, from a numpy
      seed, with the stated tolerance: the scan at every (batch, length, N)
-     of the offline and batched paths and for N in {4, 8, 16, 24, 32, 64,
+     of the offline and batched paths and of phase 11's micro-batches (8
+     rows of every offline bucket), and for N in {4, 8, 16, 24, 32, 64,
      128, 200, 300} at batch 1 and 4; the carried-state scan from a random
-     h0 at every shape of the streaming path, for N in {4, 8, 16, 32, 64,
+     h0 at every shape of the streaming path (batch 16, 8 and 1: the
+     batched path, the server's shared step at 16 and at its default 8,
+     the live session), for N in {4, 8, 16, 32, 64,
      200, 300} at batch 1 and 4, and across a seam (L = 200 as two
      launches of 100: against the plain version and against one launch);
      all four forward entries at D = 383, a width no block's channels
@@ -35,11 +38,14 @@ its seconds:
      thread), L = 100 (a ragged last tile), with the same tolerances and
      bit-equalities as at D = 384, and the carried-state scan across a
      50 + 50 seam there; the log-mel (from the reflect-padded signal, as the kernel frames it)
-     on single utterances of 200 and 600 frames, at every batch of the
+     on single utterances of 200 and 600 frames, at 8 x every offline
+     bucket (the server's micro-batches at their largest), at every batch of the
      device-mel training path (4 x 600 for 9a, 8 x every 600-frame bucket
      up to 3,600 for 9b) and on signals of 1, 150 and 200 samples, no
-     longer than the pad (bands below 1e-6 of their frame's power, rounding
-     noise in both versions, held below that floor); and both int8 dense
+     longer than the pad, against the plain version run in fp64 (every
+     band within 1e-3 + 4 * 2^-24 / sqrt(its share of its frame's largest
+     band power): the fp32 rounding noise of a transform, which the log
+     magnifies in a band far below its frame's power); and both int8 dense
      kernels, x in fp32 and in bf16, at every shape of the batched int8
      path plus the 400-frame shapes at batch 1 and 16, one 128-aligned
      shape, one off every tile, K = 1012, and K = 1,024, 1,536 and 1,537
@@ -82,11 +88,15 @@ its seconds:
      mode's int8 kernel (none without int8); int8-dynamic logits at fp32
      on one 400-frame batch of 4, card against CPU;
   7. streaming path: the same utterances through the port's
-     BatchedStreamingTranscriber at batch 16 with 2 s chunks, lookahead 0
-     and 1, each WER within 1.0 point of the JAX package's over the same
-     utterances (eval_streaming.json, eval_streaming_la1.json); exactly the
-     planned carried-state scan launches (10 per advancing step, 8 more per
-     emit under lookahead 1) and no other kernel; the live
+     BatchedStreamingTranscriber at batch 16 with 2 s chunks, lookahead 0,
+     1 and 2, each WER within 1.0 point of the JAX package's over the same
+     utterances (eval_streaming.json, eval_streaming_la1.json,
+     eval_streaming_la2.json); the 40 long-form utterances (40-72 s,
+     regenerated with write_corpus(split="longform", seed=1234, 90-110
+     words)) at lookahead 0, within 1.0 point of
+     eval_longform_streaming.json over all 40; exactly the planned
+     carried-state scan launches (10 per advancing step, 8 more per emit
+     under lookahead) and no other kernel; the live
      StreamingTranscriber on the first 16, fed 0.1 s blocks, against the
      batched lookahead-0 transcripts (at least 15 of 16 identical), with
      its per-chunk step latency; two chunks of one utterance at fp32,
@@ -104,9 +114,10 @@ its seconds:
      eval_hotwords_oracle_w4.json), exactly 10 scan launches per batched
      forward and no other kernel; (c) the batched streaming path (batch
      16, 2 s chunks) with the beam, the beam + LM, and lookahead 1 with
-     the beam + LM: each WER within 1.0 point of eval_streaming_beam8.json,
-     eval_streaming_beam8_lm.json, eval_streaming_la1_beam8_lm.json, the
-     carried-state scan launches as planned; (d) the live
+     the beam + LM, and lookahead 2 with the beam + LM: each WER within
+     1.0 point of eval_streaming_beam8.json, eval_streaming_beam8_lm.json,
+     eval_streaming_la1_beam8_lm.json, eval_streaming_la2_beam8_lm.json,
+     the carried-state scan launches as planned; (d) the live
      StreamingTranscriber at beam 8 on the first 16, fed 0.1 s blocks: at
      least 15 of 16 transcripts identical to (c)'s beam transcripts, no
      prefix-buffer overflow at beam_cap 256; (e) recorded, with no limit:
@@ -117,6 +128,31 @@ its seconds:
      first row in 100-frame chunks), the beam's share of (b)'s wall
      time, and the live step (advance and decode, to a synchronise) p50
      and p95 at beam 8 against greedy;
+ 11. (after 10) serving: (a) ASRService on the checkpoint with the
+     committed LM at 0.5 and --max-streams 16, a ThreadingHTTPServer on
+     127.0.0.1 in a thread, GET /health ok on cuda; (b) the N WAVs POSTed
+     to /transcribe from 8 client threads: WER within 1.0 point of
+     eval_fp32_final.json, at least 98% of the texts identical to phase
+     4's, fewer micro-batched calls than requests, exactly 10 scan and 1
+     log-mel launches per batched forward and no other kernel; 16
+     requests with ?timestamps=1 and 16 with ?beam=8&timestamps=1: words
+     join to the text, starts monotone, confidences in (0, 1]; (c) /stream
+     from 16 sessions at once (the first 16 as int16 PCM in 0.1 s chunked
+     blocks, 2 s chunks, ?timestamps=1), greedy at lookahead 0 and 1 and
+     at beam 8 with the LM: at least 15 of 16 final texts identical to
+     phase 7's / 10c's, increments and their words joining to the final
+     line's, fewer shared advancing calls than chunks, exactly 10
+     carried-state scans per shared advancing call and 8 per shared emit,
+     no other kernel; then once more at lookahead 0 in real time (a block
+     every 0.1 s, starts staggered over 2 s by a seeded draw) with the
+     same checks but the sharing, its fill recorded; a 17th session past
+     the budget gets a 503; (d) python -m velocity_asr_tpu_torch.serve as
+     a subprocess on a free port answers /health and one /transcribe as
+     the in-process server did, and is stopped; (e) recorded, with no
+     limit, beside the card's name and power limit: the shared step's
+     submit-to-result p50 and p95 at 16 sessions (as fast as they go and
+     in real time) against 1, and /transcribe p50 and requests/s at 8
+     clients against 1;
   8. training: (a) one update of the checkpoint's full-width model at
      fp32, dropout and SpecAugment off, on one batch of 4 x 400 frames,
      card against CPU (loss within 1e-5 relative, every parameter's
@@ -154,7 +190,7 @@ its seconds:
      micro-steps 61-65; (c) its final_pretrained/params.msgpack reads
      back bit-equal, and its streaming WER (batched, lookahead 0) over
      the same utterances is within 0.5 point of phase 7's;
-  6. (after 7, 8 and 9, whose launch counts it reports) kernel timings beside
+  6. (after 7, 10, 11, 8 and 9, whose launch counts it reports) kernel timings beside
      their bounds and a library call: device time from CUDA graphs of many
      calls (what the JSON line reports), and CUDA events around eager
      calls, which include the host's launch; each scan forward's bound
@@ -199,7 +235,14 @@ CHECKPOINT = os.path.join(RUN_DIR, "final_pretrained")
 JAX_EVAL = os.path.join(RUN_DIR, "eval_fp32_final.json")
 # The JAX package's batched streaming evaluations (2 s chunks, batch 16), by lookahead.
 JAX_STREAM_EVALS = {0: os.path.join(RUN_DIR, "eval_streaming.json"),
-                    1: os.path.join(RUN_DIR, "eval_streaming_la1.json")}
+                    1: os.path.join(RUN_DIR, "eval_streaming_la1.json"),
+                    2: os.path.join(RUN_DIR, "eval_streaming_la2.json")}
+# The long-form corpus (40 utterances of 90-110 words, 40-72 s each) and
+# the JAX package's batched streaming evaluation of it (2 s chunks,
+# lookahead 0)
+LONGFORM_UTTS = 40
+LONGFORM_WORDS = (90, 110)
+JAX_LONGFORM_EVAL = os.path.join(RUN_DIR, "eval_longform_streaming.json")
 # The JAX package's batched evaluations of the same checkpoint, by mode.
 JAX_BATCH_EVALS = {
     "bf16": JAX_EVAL,
@@ -230,11 +273,27 @@ JAX_STREAM_BEAM_EVALS = {
     (0, False): os.path.join(RUN_DIR, "eval_streaming_beam8.json"),
     (0, True): os.path.join(RUN_DIR, "eval_streaming_beam8_lm.json"),
     (1, True): os.path.join(RUN_DIR, "eval_streaming_la1_beam8_lm.json"),
+    (2, True): os.path.join(RUN_DIR, "eval_streaming_la2_beam8_lm.json"),
 }
 # card against CPU, the same fp32 logits: sums of a few hundred log
 # posteriors whose last bits differ between the two devices' log-softmax
 BEAM_SCORE_MAX_ABS = 1e-4
 BEAM_TIMING_REPS = 5
+
+# Serving (phase 11): the server's stream budget and micro-batch, the
+# concurrent clients, the requests with timestamps (greedy, then beam),
+# and the share of /transcribe texts that must equal phase 4's
+SERVE_MAX_STREAMS = 16
+SERVE_DEFAULT_STREAMS = 8  # the CLI server's --max-streams and --max-batch
+SERVE_CLIENTS = 8
+SERVE_RICH_REQUESTS = 16
+SERVE_SOLO_REQUESTS = 50  # /transcribe from one client, for the latency at 1
+SERVE_MIN_AGREE = 0.98
+SERVE_START_S = 180.0  # the CLI server must answer /health within this
+# the real-time /stream run: each client sends a 0.1 s block every 0.1 s,
+# its start drawn uniformly over one 2 s chunk (a seeded draw)
+SERVE_PACE_S = 0.1
+SERVE_STAGGER_S = 2.0
 
 # Tolerances (kernel against its plain version on the same inputs).
 SCAN_MAX_REL = 1e-4  # max|kernel - plain| / max|plain|; fp32, other summation order
@@ -242,11 +301,16 @@ SCAN_MAX_REL = 1e-4  # max|kernel - plain| / max|plain|; fp32, other summation o
 # launch: the same arithmetic in the same order, the state stored and
 # read back in fp32
 SEAM_MAX_REL = 1e-6
-MEL_MAX_ABS = 1e-3  # on log-mel; fp32 FMAs against cuBLAS fp32 matmuls
-# signals no longer than the reflect pad, and the power (of a frame's
-# largest) below which a band of such a signal is rounding noise
-MEL_SHORT_SAMPLES = (1, 150, 200)
-MEL_NOISE_FLOOR = 1e-6
+# on log-mel, the kernel (fp32 FFT) against the plain version run in fp64.
+# An fp32 transform's rounding leaves in every bin an amplitude error of
+# a few fp32 units (2^-24) of its frame's amplitude, whatever the bin's
+# own, and the log divides it by the band's own amplitude: a band at
+# `share` of its frame's largest band power is held within MEL_MAX_ABS +
+# MEL_FP32_NOISE / sqrt(share) (1e-3 at the frame's largest band, 1.24e-3
+# at 1e-6 of it, 8.5e-3 at 1e-9)
+MEL_MAX_ABS = 1e-3
+MEL_FP32_NOISE = 4 * 2.0 ** -24
+MEL_SHORT_SAMPLES = (1, 150, 200)  # signals no longer than the reflect pad
 WER_MAX_DIFF = 0.01  # port WER within 1.0 point of the JAX WER
 LOGITS_FP32_MAX_ABS = 1e-2  # card against CPU, fp32 model, one utterance
 # card against CPU, fp32 model, two streaming chunks: every carried leaf
@@ -784,6 +848,33 @@ def mel_inputs(rng, n_frames, batch=1):
     return audio_t, reflect_pad(audio_t, N_FFT // 2)
 
 
+def mel_errors(ker, padded, log_mel_plain):
+    """The log-mel kernel's output `ker` on `padded` against the plain
+    version run in fp64, band by band: the largest |error| over every
+    band, the largest share of its tolerance a band used, that band's
+    share of its frame's largest band power, and the plain version in
+    fp32's largest share of the same tolerance."""
+    import torch
+
+    ref = log_mel_plain(padded.double())
+    rel = ref - ref.amax(dim=-1, keepdim=True)  # log of each band's share
+    tol = MEL_MAX_ABS + MEL_FP32_NOISE * torch.exp(-0.5 * rel)
+    err = (ker.double() - ref).abs()
+    used = (err / tol).flatten()
+    worst = int(used.argmax())
+    plain = ((log_mel_plain(padded).double() - ref).abs() / tol).max().item()
+    return {"max_abs": err.max().item(), "used": used[worst].item(),
+            "share": rel.flatten()[worst].exp().item(), "plain_used": plain}
+
+
+def mel_report(r) -> str:
+    return (f"against the plain version in fp64 max_abs {r['max_abs']:.3e} over every band; "
+            f"at most {r['used']:.3f} of a band's tolerance used (at a band of "
+            f"{r['share']:.2e} of its frame's largest; tol {MEL_MAX_ABS:g} + "
+            f"{MEL_FP32_NOISE:.3g} / sqrt(share)); the plain version in fp32 used at most "
+            f"{r['plain_used']:.3f}")
+
+
 # ---------------------------------------------------------------- phases
 
 
@@ -935,10 +1026,13 @@ def compare_int8(rng, m, k, n, static: bool, dtype="float32", ties=False):
 def scan_cases(plan):
     """(N, batch, length) of every scan that phases 4 and 5 launch (local
     blocks N=64 at L = frames / 2, global blocks N=32 at the level-1 pool
-    size), then every width at batch 1 (the offline path) and 4."""
+    size) and phase 11's micro-batches at their largest (the server's
+    --max-batch rows of one offline bucket), then every width at batch 1
+    (the offline path) and 4."""
     from velocity_asr_tpu_torch.ops.pooling import pool_size_level1
 
-    shapes = [(1, f) for f in plan["offline"]] + list(plan["batched"])
+    shapes = ([(b, f) for f in plan["offline"] for b in (1, SERVE_DEFAULT_STREAMS)]
+              + list(plan["batched"]))
     path = {(n, b, length) for b, f in shapes
             for n, length in ((64, f // 2), (32, pool_size_level1(f // 2)))}
     widths = {(n, b, 100) for n in SCAN_STATE_DIMS for b in (1, 4)}
@@ -1074,55 +1168,52 @@ def phase_compare(plan):
                 f"{GRAD_SEAM_MAX_REL:g}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError("the carried-state gradient breaks across a seam")
-    # the log-mel: the offline path's single utterances, then every batch
-    # of the device-mel training path (9a's, and 9b's at every bucket up
+    # the log-mel: the offline path's single utterances, the server's
+    # micro-batches at their largest at every offline bucket, then every
+    # batch of the device-mel training path (9a's, and 9b's at every bucket up
     # to STREAM_MAX_FRAMES), each one launch over batch x frames rows
     mel_shapes = ([(1, 200, ""), (1, 600, "")]
+                  + [(SERVE_DEFAULT_STREAMS, f, " (serve micro-batch)")
+                     for f in sorted(plan["offline"])]
                   + [(CHECK_BATCH, STREAM_CHECK_FRAMES, " (training path, 9a)")]
                   + [(STREAM_BATCH, f, " (training path, 9b)") for f in STREAM_BUCKETS])
+    # held against the plain version run in fp64, each band within its
+    # tolerance (MEL_MAX_ABS, widened by MEL_FP32_NOISE in bands far below
+    # their frame's power); the plain version in fp32, held to the same
+    # tolerance, is the reading of what fp32 rounding alone takes of it
     for batch, n_frames, path in mel_shapes:
         _, padded = mel_inputs(rng, n_frames, batch)
         ker = log_mel(padded)
         torch.cuda.synchronize()
-        ref = log_mel_plain(padded)
         if ker.shape != (batch, n_frames, 80):
             raise AssertionError(f"log-mel kernel returned {tuple(ker.shape)}")
-        max_abs = (ker - ref).abs().max().item()
-        max_rel = ((ker - ref).abs() / ref.abs().clamp_min(1e-6)).max().item()
-        ok = math.isfinite(max_abs) and max_abs <= MEL_MAX_ABS
-        log(f"log_mel B={batch} T={n_frames} ({batch * n_frames} rows){path}: max_abs "
-            f"{max_abs:.3e} max_rel {max_rel:.3e} (tol abs {MEL_MAX_ABS:g}) "
-            f"{'ok' if ok else 'FAIL'}")
+        r = mel_errors(ker, padded, log_mel_plain)
+        ok = math.isfinite(r["max_abs"]) and r["used"] <= 1.0
+        log(f"log_mel B={batch} T={n_frames} ({batch * n_frames} rows){path}: "
+            + mel_report(r) + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("log-mel kernel disagrees with its plain version")
-        errs["log_mel_f32"] = max(errs["log_mel_f32"], max_abs)
+        errs["log_mel_f32"] = max(errs["log_mel_f32"], r["max_abs"])
     # signals no longer than the 200-sample reflect pad (padded by the
     # repeated reflection). A 1-sample signal pads to a constant frame,
     # whose spectrum is zero in exact arithmetic past the window's lowest
-    # bins: there both versions hold fp32 rounding noise (an FFT against
-    # a DFT product), so bands below MEL_NOISE_FLOOR of their frame's
-    # largest power are held below that floor instead of to each other
+    # bins: there the kernel's bands hold fp32 rounding noise, and the
+    # tolerance's noise term covers them
     for n_samples in MEL_SHORT_SAMPLES:
         audio = torch.tensor((rng.standard_normal((1, n_samples)) * 0.1).astype(np.float32),
                              device="cuda")
         padded = reflect_pad(audio, N_FFT // 2)
         ker = log_mel(padded)
         torch.cuda.synchronize()
-        ref = log_mel_plain(padded)
-        floor = MEL_NOISE_FLOOR * ref.exp().amax(dim=-1, keepdim=True)
-        live = ref.exp() > floor
-        max_abs = (ker - ref)[live].abs().max().item()
-        quiet = bool((ker.exp() <= floor)[~live].all().item())
-        ok = (ker.shape == (1, frame_count(n_samples), 80) and math.isfinite(max_abs)
-              and max_abs <= MEL_MAX_ABS and quiet)
-        log(f"log_mel of {n_samples} samples ({ker.shape[1]} frames): max_abs {max_abs:.3e} "
-            f"over {int(live.sum())} of {live.numel()} bands above {MEL_NOISE_FLOOR:g} of their "
-            f"frame's power (tol abs {MEL_MAX_ABS:g}); the rest below that floor: {quiet} "
-            f"{'ok' if ok else 'FAIL'}")
+        r = mel_errors(ker, padded, log_mel_plain)
+        ok = (ker.shape == (1, frame_count(n_samples), 80) and math.isfinite(r["max_abs"])
+              and r["used"] <= 1.0)
+        log(f"log_mel of {n_samples} samples ({ker.shape[1]} frames): " + mel_report(r)
+            + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("log-mel kernel disagrees with its plain version on a short "
                                  "signal")
-        errs["log_mel_f32"] = max(errs["log_mel_f32"], max_abs)
+        errs["log_mel_f32"] = max(errs["log_mel_f32"], r["max_abs"])
     # every shape of the batched int8 path (each batch's size and padded
     # frames), the 400-frame shapes at batch 1 and 16, one 128-aligned
     # shape, one with K, M and N off every tile (K % 4 != 0: the byte-wise
@@ -1194,18 +1285,22 @@ def streaming_plan(n_samples):
     a short group runs padded to the batch size, as in the JAX package),
     the carried-state scan shapes, and the exact launch counts: one scan
     per SSM block and advancing step, one more per local block and emit
-    under lookahead 1 (the frozen global SSM does not run)."""
+    under lookahead 1 or 2 (every chunk is emitted once; the frozen global
+    SSM does not run)."""
     cfg = checkpoint_config()
     chunks = [-(-(1 + n // 160) // CHUNK_FRAMES) for n in n_samples]
     steps = sum(max(chunks[s:s + BATCH]) for s in range(0, len(chunks), BATCH))
     per_step = cfg.ssm_layers + cfg.global_ssm_layers
     live_chunks = sum(chunks[:LIVE_UTTS])
-    shapes = {(b, length, n) for b in (BATCH, 1)
+    # batch 16 (the batched path, and the shared session step of phase 11
+    # at --max-streams 16), 8 (the server's default --max-streams) and 1
+    shapes = {(b, length, n) for b in (BATCH, SERVE_DEFAULT_STREAMS, 1)
               for length, n in ((CHUNK_FRAMES // 2, cfg.ssm_state_dim),
                                 (cfg.stream_summary_tokens, cfg.global_ssm_state_dim))}
+    with_emits = (per_step + cfg.ssm_layers) * steps
     return {"chunks": chunks, "steps": steps, "live_chunks": live_chunks,
             "shapes": sorted(shapes),
-            "launches": {0: per_step * steps, 1: (per_step + cfg.ssm_layers) * steps,
+            "launches": {0: per_step * steps, 1: with_emits, 2: with_emits,
                          "live": per_step * live_chunks}}
 
 
@@ -1308,7 +1403,7 @@ def phase_main_path(manifest: str, plan):
         f"(tol {LOGITS_FP32_MAX_ABS:g}), argmax agreement {agree:.4f}")
     if not max_abs <= LOGITS_FP32_MAX_ABS:
         raise AssertionError("card logits disagree with the CPU")
-    return counts, buckets.most_common(1)[0][0]
+    return counts, buckets.most_common(1)[0][0], preds
 
 
 def phase_batched(manifest: str, plan):
@@ -1397,9 +1492,10 @@ def phase_batched(manifest: str, plan):
 
 
 def phase_streaming(manifest: str, plan):
-    """The streaming path: batched at lookahead 0 and 1, then live
-    sessions, then two chunks at fp32 card against CPU. Returns each
-    counted run's launch counts and the batched runs' WER by lookahead."""
+    """The streaming path: batched at lookahead 0, 1 and 2, then the
+    long-form corpus, then live sessions, then two chunks at fp32 card
+    against CPU. Returns each counted run's launch counts, the batched
+    runs' WER by lookahead and their transcripts."""
     import torch
 
     from velocity_asr_tpu_torch.audio import load_audio
@@ -1420,7 +1516,7 @@ def phase_streaming(manifest: str, plan):
     decoder = checkpoint_decoder(CHECKPOINT, model.config.vocab_size)
     out, wers = {}, {}
     batched_texts = {}
-    for lookahead in (0, 1):
+    for lookahead in (0, 1, 2):
         bt = BatchedStreamingTranscriber(model, decoder, chunk_frames=CHUNK_FRAMES,
                                          batch_size=BATCH, lookahead_chunks=lookahead)
         bt.transcribe_batch(audios[:BATCH])  # warm-up, not counted
@@ -1452,17 +1548,19 @@ def phase_streaming(manifest: str, plan):
         wers[lookahead] = wer
         batched_texts[lookahead] = texts
 
+    out["longform"] = streaming_longform(model, decoder, os.path.dirname(manifest))
+
     # live sessions, fed 0.1 s blocks, each advancing step timed to its sync
     st = StreamingTranscriber(model, decoder, chunk_frames=CHUNK_FRAMES)
     step_ms = []
     advance = st._advance_chunk
 
-    def timed_advance(chunk, offset):
+    def timed_advance(chunk, offset, valid=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        preds = advance(chunk, offset)  # ends in the argmax's copy to the host
+        out = advance(chunk, offset, valid)  # ends in the argmax's copy to the host
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        return preds
+        return out
 
     st._advance_chunk = timed_advance
     st.feed(audios[0][:CHUNK_FRAMES * 160])  # warm-up, not counted
@@ -1517,7 +1615,46 @@ def phase_streaming(manifest: str, plan):
         f"{LOGITS_FP32_MAX_ABS:g}), state leaves max_abs {st_err:.3e} (tol {STATE_FP32_MAX_ABS:g})")
     if not (lg_err <= LOGITS_FP32_MAX_ABS and st_err <= STATE_FP32_MAX_ABS):
         raise AssertionError("streaming card logits or state disagree with the CPU")
-    return out, wers
+    return out, wers, batched_texts
+
+
+def streaming_longform(model, decoder, tmp: str):
+    """7, long form: the 40-utterance long-form corpus (40-72 s each)
+    through the batched streaming path at 2 s chunks and lookahead 0,
+    held over all 40 to the JAX package's eval_longform_streaming.json,
+    with the planned carried-state launches; returns the launch counts."""
+    import torch
+
+    from velocity_asr_tpu_torch import synth
+    from velocity_asr_tpu_torch.audio import load_audio
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.streaming import BatchedStreamingTranscriber
+
+    t0 = time.perf_counter()
+    manifest = synth.write_corpus(os.path.join(tmp, "longform"), LONGFORM_UTTS, split="longform",
+                                  seed=1234, min_words=LONGFORM_WORDS[0],
+                                  max_words=LONGFORM_WORDS[1])
+    with open(manifest) as f:
+        rows = [json.loads(line) for line in f]
+    audios = [load_audio(r["audio_path"]) for r in rows]
+    plan = streaming_plan([len(a) for a in audios])
+    seconds = [len(a) / 16000 for a in audios]
+    log(f"[streaming long form] {len(rows)} utterances of {min(seconds):.1f}-{max(seconds):.1f} s "
+        f"written in {time.perf_counter() - t0:.3f} s; chunks per utterance "
+        f"{min(plan['chunks'])}-{max(plan['chunks'])}, {plan['steps']} advancing steps at "
+        f"batch {BATCH}")
+    bt = BatchedStreamingTranscriber(model, decoder, chunk_frames=CHUNK_FRAMES, batch_size=BATCH)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    texts = bt.transcribe_batch(audios)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    check_wer("streaming long form", texts, [r["text"] for r in rows], JAX_LONGFORM_EVAL)
+    log(f"[streaming long form] {wall:.3f} s for {sum(seconds):.1f} s of audio")
+    expect_launches("streaming long form", counts, {"scan_fwd_state_f32": plan["launches"][0]})
+    return counts
 
 
 def expect_launches(tag, counts, want):
@@ -1673,10 +1810,10 @@ def live_sessions(st, audios):
     advance, consume = st._advance_chunk, st._consume
     step_ms, start, overflow = [], [0.0], False
 
-    def timed_advance(chunk, offset):
+    def timed_advance(chunk, offset, valid=None):
         torch.cuda.synchronize()
         start[0] = time.perf_counter()
-        return advance(chunk, offset)
+        return advance(chunk, offset, valid)
 
     def timed_consume(out, out_valid, base):
         consume(out, out_valid, base)
@@ -1796,6 +1933,8 @@ def phase_beam(manifest: str, plan):
         out["stream"][tag] = counts
         if (lookahead, with_lm) == (0, False):
             stream_texts = texts
+        if (lookahead, with_lm) == (0, True):
+            out["lm_texts"] = texts  # phase 11's /stream ?beam against these
 
     # 10d: live sessions at beam 8, against the batched beam transcripts
     live = StreamingTranscriber(model, decoder, chunk_frames=CHUNK_FRAMES,
@@ -1826,6 +1965,365 @@ def phase_beam(manifest: str, plan):
         raise AssertionError("[beam 10d] the live beam's prefix buffer overflowed")
     out["stream"]["beam 10d live"] = counts
     out["decode"] = time_beam_decode(logits, chunk_out)
+    return out
+
+
+def http_json(port: int, method: str, path: str, body=None, timeout: float = 300.0):
+    """(status, parsed JSON body) of one request to the local server."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"null")
+    finally:
+        conn.close()
+
+
+def http_stream(port: int, pcm: bytes, query: str, block: int = 2 * LIVE_BLOCK,
+                pace: float = 0.0, delay: float = 0.0):
+    """POST int16 PCM to /stream in chunked blocks (0.1 s each): as fast as
+    it can, or with pace > 0 block i at delay + i * pace seconds from the
+    call, as a live source sends. Returns the status and the NDJSON lines."""
+    import http.client
+
+    start = time.perf_counter() + delay
+    if pace:
+        time.sleep(delay)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.putrequest("POST", f"/stream?{query}")
+        conn.putheader("Transfer-Encoding", "chunked")
+        conn.endheaders()
+        for n, i in enumerate(range(0, len(pcm), block)):
+            if pace:
+                time.sleep(max(0.0, start + n * pace - time.perf_counter()))
+            piece = pcm[i:i + block]
+            conn.send(b"%x\r\n" % len(piece) + piece + b"\r\n")
+        conn.send(b"0\r\n\r\n")
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        if resp.status != 200:
+            return resp.status, [json.loads(body)]
+        return resp.status, [json.loads(x) for x in body.splitlines() if x.strip()]
+    finally:
+        conn.close()
+
+
+def check_words(tag, text, words):
+    """Words that join to the text, with monotone starts, ends at or after
+    them and confidences in (0, 1]."""
+    if " ".join(w["word"] for w in words) != " ".join(text.split()):
+        raise AssertionError(f"[{tag}] words do not join to the text: {text!r}")
+    starts = [w["start"] for w in words]
+    if starts != sorted(starts) or any(w["end"] < w["start"] for w in words):
+        raise AssertionError(f"[{tag}] word times out of order: {words}")
+    if not all(0.0 < w["confidence"] <= 1.0 for w in words):
+        raise AssertionError(f"[{tag}] a confidence outside (0, 1]: {words}")
+
+
+def same_words(a, b) -> bool:
+    return len(a) == len(b) and all(
+        (x["word"], x["start"], x["end"]) == (y["word"], y["start"], y["end"])
+        and abs(x["confidence"] - y["confidence"]) <= 1e-9 for x, y in zip(a, b))
+
+
+def serve_transcribe(port, bodies, clients, query=""):
+    """POST every body to /transcribe[?query] from `clients` threads;
+    returns the responses in input order, each request's ms and the wall
+    seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(body):
+        t0 = time.perf_counter()
+        status, res = http_json(port, "POST", f"/transcribe?{query}", body)
+        if status != 200:
+            raise AssertionError(f"/transcribe answered {status}: {res}")
+        return res, (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        out = list(pool.map(one, bodies))
+    return [r for r, _ in out], [ms for _, ms in out], time.perf_counter() - t0
+
+
+def phase_serve(manifest: str, plan, card: str, offline_texts, stream_texts, lm_texts):
+    """11: the server in process (a /health, /transcribe from 8 clients,
+    with timestamps and the beam, /stream from 16 sessions greedy at
+    lookahead 0 and 1 and at beam 8 with the LM, the budget's 503), the
+    CLI server as a subprocess, and the recorded latencies. Returns the
+    launch counts of the counted runs."""
+    import socket
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from velocity_asr_tpu_torch import streaming as tstream
+    from velocity_asr_tpu_torch.audio import load_audio
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.serve import ASRService, ServiceBusy, make_handler
+
+    with open(manifest) as f:
+        rows = [json.loads(line) for line in f]
+    n = len(rows)
+    refs = [r["text"] for r in rows]
+    bodies = []
+    for r in rows:
+        with open(r["audio_path"], "rb") as f:
+            bodies.append(f.read())
+    out = {"stream": {}}
+
+    # (a) the server in process, on the checkpoint, --max-streams 16
+    t0 = time.perf_counter()
+    svc = ASRService.from_checkpoint(CHECKPOINT, device="cuda", lm_path=LM_PATH,
+                                     lm_weight=LM_WEIGHT, max_streams=SERVE_MAX_STREAMS)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    try:
+        status, health = http_json(port, "GET", "/health")
+        log(f"[serve 11a] in-process server on port {port} up in {time.perf_counter() - t0:.3f} s; "
+            f"/health {status} {health}")
+        if (status != 200 or health.get("status") != "ok"
+                or not health["model"]["device"].startswith("cuda")):
+            raise AssertionError("/health did not answer ok on cuda")
+
+        # (b) /transcribe from 8 concurrent clients: micro-batched forwards
+        tr = svc.transcriber
+        forwards = [0]
+        masked_logits = tr.masked_logits
+
+        def counted(*args):
+            forwards[0] += 1
+            return masked_logits(*args)
+
+        tr.masked_logits = counted
+        serve_transcribe(port, bodies[:SERVE_CLIENTS], SERVE_CLIENTS)  # warm-up, not counted
+        torch.cuda.synchronize()
+        calls0, reqs0, forwards[0] = svc.batcher.calls, svc.batcher.requests, 0
+        reset_launch_counts()
+        results, ms8, wall8 = serve_transcribe(port, bodies, SERVE_CLIENTS)
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+        calls, fw = svc.batcher.calls - calls0, forwards[0]
+        del tr.masked_logits
+        texts = [r["text"] for r in results]
+        check_wer("serve 11b /transcribe", texts, refs, JAX_EVAL)
+        same = sum(a == b for a, b in zip(texts, offline_texts))
+        log(f"[serve 11b] {n} requests from {SERVE_CLIENTS} clients in {wall8:.3f} s "
+            f"({n / wall8:.2f} requests/s); {calls} batched calls ({n / calls:.2f} requests a "
+            f"call), {fw} forwards (one per frame bucket of a call); {same}/{n} texts identical "
+            f"to phase 4's batch-1 transcripts (need {SERVE_MIN_AGREE:.0%})")
+        expect_launches("serve 11b", counts, {"scan_fwd_f32": 10 * fw, "log_mel_f32": fw})
+        if not calls < n:
+            raise AssertionError("[serve 11b] the micro-batcher made no fewer calls than requests")
+        if same < SERVE_MIN_AGREE * n:
+            raise AssertionError("[serve 11b] /transcribe disagrees with the offline path")
+        out["transcribe"] = counts
+
+        for query in ("timestamps=1", f"beam={BEAM_WIDTH}&timestamps=1"):
+            tag = f"serve 11b ?{query}"
+            res, _, wall = serve_transcribe(port, bodies[:SERVE_RICH_REQUESTS], SERVE_CLIENTS,
+                                            query)
+            for r in res:
+                check_words(tag, r["text"], r["words"])
+            log(f"[{tag}] {SERVE_RICH_REQUESTS} requests in {wall:.3f} s: every response's "
+                f"words join to its text, starts monotone, confidences in (0, 1] (min "
+                f"{min(w['confidence'] for r in res for w in r['words']):.4f})")
+
+        # (c) /stream: 16 concurrent sessions at the default cadence
+        # the WAVs' own int16 samples: the sessions see what phase 7 read
+        pcm = [np.round(load_audio(r["audio_path"]) * 32768).astype("<i2").tobytes()
+               for r in rows[:LIVE_UTTS]]
+        # a session's submit-to-result time of its advancing steps, and the
+        # dispatcher's own time a group with an advancing call (its shared
+        # calls, to the results)
+        step_ms, group_ms = [], []
+        request = tstream.BatchedStreamSession._request
+        run_group = tstream.StreamSessionBatcher._run_group
+
+        def timed_request(self, kind, *payload):
+            t = time.perf_counter()
+            res = request(self, kind, *payload)
+            if kind == "step":
+                step_ms.append((time.perf_counter() - t) * 1e3)
+            return res
+
+        def timed_group(self, group):
+            t = time.perf_counter()
+            run_group(self, group)
+            if any(g[0] == "step" for g in group):
+                group_ms.append((time.perf_counter() - t) * 1e3)
+
+        tstream.BatchedStreamSession._request = timed_request
+        tstream.StreamSessionBatcher._run_group = timed_group
+        try:
+            # (name, query, the batcher's (lookahead, beam), the batched
+            # texts, real time): the clients send as fast as they can, then
+            # (recorded) in real time from staggered starts
+            runs = (("la0", "lookahead=0", (0, 0), stream_texts[0], False),
+                    ("la1", "lookahead=1", (1, 0), stream_texts[1], False),
+                    (f"beam{BEAM_WIDTH} lm", f"beam={BEAM_WIDTH}", (0, BEAM_WIDTH), lm_texts,
+                     False),
+                    ("la0 real time", "lookahead=0", (0, 0), stream_texts[0], True))
+            delays = np.random.default_rng(0).uniform(0.0, SERVE_STAGGER_S, LIVE_UTTS)
+            chunks = sum(plan["stream"]["chunks"][:LIVE_UTTS])
+            for name, query, key, want, real_time in runs:
+                tag = f"serve 11c {name}"
+                query += "&timestamps=1"
+                http_stream(port, pcm[0], query)  # warm-up: builds the shape's batcher
+                stats0 = dict(svc.stream_batchers[key].stats)
+                step_ms.clear()
+                group_ms.clear()
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(LIVE_UTTS) as pool:
+                    if real_time:
+                        sessions = list(pool.map(
+                            lambda p, d: http_stream(port, p, query, pace=SERVE_PACE_S, delay=d),
+                            pcm, delays))
+                    else:
+                        sessions = list(pool.map(lambda p: http_stream(port, p, query), pcm))
+                wall = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                counts = dict(launch_counts)
+                stats = {k: v - stats0.get(k, 0) for k, v in svc.stream_batchers[key].stats.items()}
+                finals = []
+                for status, lines in sessions:
+                    if status != 200 or not lines[-1].get("final"):
+                        raise AssertionError(f"[{tag}] a session ended with {status} {lines[-1]}")
+                    final = lines[-1]
+                    if "".join(x.get("text", "") for x in lines[:-1]) != final["text"]:
+                        raise AssertionError(f"[{tag}] increments do not join to the final text")
+                    if not same_words([w for x in lines[:-1] for w in x.get("words", [])],
+                                      final["words"]):
+                        raise AssertionError(f"[{tag}] increments' words do not join to the "
+                                             "final words")
+                    check_words(tag, final["text"], final["words"])
+                    finals.append(final["text"])
+                agree = sum(a == b for a, b in zip(finals, want))
+                steps, emits = stats.get("step_calls", 0), stats.get("emit_calls", 0)
+                sent = ("every 0.1 s, starts staggered over 2 s" if real_time
+                        else "as fast as they go")
+                log(f"[{tag}] {LIVE_UTTS} sessions, 0.1 s chunked blocks sent {sent}, in "
+                    f"{wall:.3f} s: "
+                    f"{agree}/{LIVE_UTTS} final texts identical to the batched path's (need "
+                    f"{LIVE_MIN_AGREE}); increments join to the final text and words; "
+                    f"{steps} shared advancing calls for {chunks} chunks (mean "
+                    f"{stats.get('step_rows', 0) / max(steps, 1):.2f} active rows a call), "
+                    f"{emits} shared emit calls (mean "
+                    f"{stats.get('emit_rows', 0) / max(emits, 1):.2f} rows); step submit-to-"
+                    f"result p50 {np.percentile(step_ms, 50):.3f} ms, p95 "
+                    f"{np.percentile(step_ms, 95):.3f} ms")
+                expect_launches(tag, counts, {"scan_fwd_state_f32": 10 * steps + 8 * emits})
+                if agree < LIVE_MIN_AGREE:
+                    raise AssertionError(f"[{tag}] sessions disagree with the batched path")
+                # real time promises no sharing: its fill is the reading
+                if not real_time and not steps < chunks:
+                    raise AssertionError(f"[{tag}] no fewer shared calls than chunks")
+                out["stream"][tag] = counts
+                if name == "la0":
+                    many_ms, many_group_ms = list(step_ms), list(group_ms)
+                if real_time:
+                    paced = (list(step_ms), list(group_ms), steps,
+                             stats.get("step_rows", 0) / max(steps, 1))
+
+            # the shared step's latency with one session at a time
+            step_ms.clear()
+            group_ms.clear()
+            for p in pcm[:4]:
+                http_stream(port, p, "lookahead=0")
+            one_ms, one_group_ms = list(step_ms), list(group_ms)
+        finally:
+            tstream.BatchedStreamSession._request = request
+            tstream.StreamSessionBatcher._run_group = run_group
+
+        # the budget is shared across shapes: 16 held sessions, then a 503
+        held = [svc.open_stream(2.0, lookahead, beam)
+                for lookahead, beam in [(0, 0)] * 6 + [(1, 0)] * 5 + [(0, BEAM_WIDTH)] * 5]
+        try:
+            # a short Content-Length body: the 503 comes before it is read
+            status, res = http_json(port, "POST", "/stream?lookahead=0", pcm[0][:3200])
+            try:
+                svc.open_stream(2.0, 1, 0)
+                busy = False
+            except ServiceBusy:
+                busy = True
+        finally:
+            for st in held:
+                svc.release_stream(st)
+        log(f"[serve 11c] with {len(held)} sessions held across 3 shapes a 17th /stream "
+            f"answered {status} {res}; open_stream raised ServiceBusy: {busy}")
+        if status != 503 or not busy:
+            raise AssertionError("[serve 11c] no 503 past --max-streams")
+
+        # (e) /transcribe latency from one client
+        _, ms1, wall1 = serve_transcribe(port, bodies[:SERVE_SOLO_REQUESTS], 1)
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+
+    # (d) the entry point as a subprocess
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        cli_port = sock.getsockname()[1]
+    log_path = os.path.join(os.path.dirname(manifest), "serve_cli.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "velocity_asr_tpu_torch.serve", "--checkpoint", CHECKPOINT,
+             "--port", str(cli_port), "--max-streams", str(SERVE_DEFAULT_STREAMS)],
+            cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            try:
+                status, health = http_json(cli_port, "GET", "/health", timeout=10)
+                break
+            except OSError:
+                if proc.poll() is not None or time.perf_counter() - t0 > SERVE_START_S:
+                    raise AssertionError("the CLI server did not come up")
+                time.sleep(0.5)
+        up = time.perf_counter() - t0
+        status_t, res = http_json(cli_port, "POST", "/transcribe", bodies[0])
+        log(f"[serve 11d] python -m velocity_asr_tpu_torch.serve answered /health {status} in "
+            f"{up:.3f} s and /transcribe {status_t}: {res.get('text')!r} (phase 4: "
+            f"{offline_texts[0]!r})")
+        if status != 200 or status_t != 200 or res["text"] != offline_texts[0]:
+            raise AssertionError("the CLI server did not answer as the in-process one")
+    except Exception:
+        with open(log_path) as f:
+            log("[serve 11d] the CLI server's log:\n" + f.read()[-4000:])
+        raise
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+    log(f"[serve 11e] {card}: shared /stream step submit-to-result at {LIVE_UTTS} sessions p50 "
+        f"{np.percentile(many_ms, 50):.3f} ms, p95 {np.percentile(many_ms, 95):.3f} ms over "
+        f"{len(many_ms)} steps (the dispatcher's own time a group p50 "
+        f"{np.percentile(many_group_ms, 50):.3f} ms over {len(many_group_ms)}); at 1 session p50 "
+        f"{np.percentile(one_ms, 50):.3f} ms, p95 {np.percentile(one_ms, 95):.3f} ms over "
+        f"{len(one_ms)} steps (a group p50 {np.percentile(one_group_ms, 50):.3f} ms over "
+        f"{len(one_group_ms)})")
+    log(f"[serve 11e] {card}: in real time ({LIVE_UTTS} sessions, a 0.1 s block every 0.1 s, "
+        f"starts staggered over {SERVE_STAGGER_S:g} s) the shared step p50 "
+        f"{np.percentile(paced[0], 50):.3f} ms, p95 {np.percentile(paced[0], 95):.3f} ms over "
+        f"{len(paced[0])} steps (a group p50 {np.percentile(paced[1], 50):.3f} ms); {paced[2]} "
+        f"shared advancing calls, mean {paced[3]:.2f} active rows a call")
+    log(f"[serve 11e] {card}: /transcribe at {SERVE_CLIENTS} clients p50 "
+        f"{np.percentile(ms8, 50):.3f} ms, {n / wall8:.2f} requests/s over {n}; at 1 client p50 "
+        f"{np.percentile(ms1, 50):.3f} ms, {SERVE_SOLO_REQUESTS / wall1:.2f} requests/s over "
+        f"{SERVE_SOLO_REQUESTS}")
     return out
 
 
@@ -2297,7 +2795,8 @@ def time_int8(rng, m, k, n, dtype="float32"):
     return times
 
 
-def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream_training):
+def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream_training,
+                 served):
     import torch
 
     from velocity_asr_tpu_torch.audio import mel_filterbank
@@ -2351,8 +2850,9 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
         state_rows.append((ms, plain, b_ms, b_by))
     per_run = {run: c.get("scan_fwd_state_f32", 0) for run, c in streaming.items()}
     state_launches = sum(per_run.values())
-    log(f"state scan launches on the streaming path: {state_launches} (per run: lookahead "
-        f"0, lookahead 1, live, and phase 10's beam runs: {per_run})")
+    log(f"state scan launches on the streaming path: {state_launches} (per run: phase 7's "
+        f"lookahead 0, 1, 2, long form and live, phase 10's beam runs and phase 11's /stream "
+        f"runs: {per_run})")
 
     # the training scans at the recipe's main shapes: local blocks at batch
     # 16 and 600 frames (L = 300, N = 64), global blocks (L = 64, N = 32)
@@ -2503,7 +3003,8 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
         f"({tb_by}); eager (host launch included): kernel {t_eager:.4f} ms, the whole front "
         f"end (normalise over the batch) {t_front:.4f} ms; launches: "
         f"{counts.get('log_mel_f32', 0)} offline (phase 4), {s_counts.get('log_mel_f32', 0)} "
-        f"streaming-aware training (phase 9b)")
+        f"streaming-aware training (phase 9b), {served.get('log_mel_f32', 0)} /transcribe "
+        f"(phase 11b)")
 
     # int8 at every distinct shape of the batched path (batch 16, its most
     # common padded length) and at a K that runs in stages, with x in fp32
@@ -2541,7 +3042,8 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
 
     return {"kernels": [
         {"name": "scan_fwd_f32", "route": "cuda", "source": SCAN_SOURCE,
-         "replaces": SCAN_REPLACES, "launches": counts.get("scan_fwd_f32", 0),
+         "replaces": SCAN_REPLACES,
+         "launches": counts.get("scan_fwd_f32", 0) + served.get("scan_fwd_f32", 0),
          "max_abs_err": errs["scan_fwd_f32"], "ms": scan_ms, "plain_ms": scan_plain,
          "bound_ms": scan_b, "bound_by": scan_by, "library_ms": None},
         {"name": "scan_fwd_state_f32", "route": "cuda", "source": SCAN_SOURCE,
@@ -2551,7 +3053,8 @@ def phase_timing(counts, bucket: int, errs, batched, streaming, training, stream
          "bound_by": state_rows[0][3], "library_ms": None},
         {"name": "log_mel_f32", "route": "cuda", "source": MEL_SOURCE,
          "replaces": MEL_REPLACES,
-         "launches": counts.get("log_mel_f32", 0) + s_counts.get("log_mel_f32", 0),
+         "launches": (counts.get("log_mel_f32", 0) + s_counts.get("log_mel_f32", 0)
+                      + served.get("log_mel_f32", 0)),
          "max_abs_err": errs["log_mel_f32"], "ms": mel_ms, "plain_ms": mel_plain,
          "bound_ms": mb_ms, "bound_by": mb_by, "library_ms": lib_ms},
         int8_entry("int8_dense_dynamic_f32", INT8_DYNAMIC_REPLACES, "int8", "dynamic"),
@@ -2588,18 +3091,22 @@ def main(argv=None) -> int:
 
     tmp = tempfile.mkdtemp(prefix="velocity_asr_smoke_")
     try:
-        run_phase("1 card", phase_card, t_start)
+        card = run_phase("1 card", phase_card, t_start)
         run_phase("2 build", phase_build, t_start)
         manifest, plan = run_phase(
             "3a corpus and shapes", lambda: phase_corpus(tmp, args.utterances), t_start)
         errs = run_phase("3 kernels vs plain", lambda: phase_compare(plan), t_start)
-        counts, bucket = run_phase(
+        counts, bucket, offline_texts = run_phase(
             "4 offline path", lambda: phase_main_path(manifest, plan), t_start)
         batched = run_phase("5 batched int8 path", lambda: phase_batched(manifest, plan), t_start)
-        streaming, stream_wers = run_phase(
+        streaming, stream_wers, stream_texts = run_phase(
             "7 streaming path", lambda: phase_streaming(manifest, plan), t_start)
         beam = run_phase("10 beam search", lambda: phase_beam(manifest, plan), t_start)
         streaming.update(beam["stream"])
+        serve = run_phase(
+            "11 serve", lambda: phase_serve(manifest, plan, card, offline_texts, stream_texts,
+                                            beam["lm_texts"]), t_start)
+        streaming.update(serve["stream"])
         training = run_phase(
             "8 training", lambda: phase_training(manifest, batched), t_start)
         stream_training = run_phase(
@@ -2608,7 +3115,7 @@ def main(argv=None) -> int:
         kernels = run_phase(
             "6 timing",
             lambda: phase_timing(counts, bucket, errs, batched, streaming, training,
-                                 stream_training), t_start)
+                                 stream_training, serve["transcribe"]), t_start)
     except PhaseFailed as e:
         print(f"chip_smoke: phase {e} failed", file=sys.stderr)
         return 1

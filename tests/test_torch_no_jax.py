@@ -87,6 +87,15 @@ def test_beam_search_modules_are_checked(module):
     assert module in _modules()
 
 
+@pytest.mark.parametrize("module", [
+    "velocity_asr_tpu_torch.serve", "velocity_asr_tpu_torch.transcribe",
+])
+def test_serving_modules_are_checked(module):
+    """The HTTP server and the offline transcriber behind it are among the
+    modules both checks walk."""
+    assert module in _modules()
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"

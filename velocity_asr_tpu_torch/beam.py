@@ -415,23 +415,9 @@ class StreamingBeam:
         self._state, nc, info = beam_commit(self._state)
         nc = nc.cpu().numpy()
         info = {key: v.cpu().numpy() for key, v in info.items()}
-        out = []
-        for b in range(self.batch):
-            n = nc[b]
-            new = info["tokens"][b, :n].tolist()
-            self.committed[b].extend(new)
-            tail = None
-            if info["tail_n"][b] > 0:
-                tail = (int(info["tail_end"][b]), float(info["tail_lp"][b]),
-                        int(info["tail_n"][b]))
-            out.append({
-                "tokens": new,
-                "stamps": [(int(s), int(e))
-                           for s, e in zip(info["starts"][b, :n], info["ends"][b, :n])],
-                "lp": [[float(s), int(c)]
-                       for s, c in zip(info["lp_sum"][b, :n], info["lp_n"][b, :n])],
-                "tail": tail,
-            })
+        out = [commit_row(nc, info, b) for b in range(self.batch)]
+        for b, row in enumerate(out):
+            self.committed[b].extend(row["tokens"])
         return out
 
     def finalize(self) -> List[List[int]]:
@@ -453,6 +439,23 @@ class StreamingBeam:
         self.overflowed |= bool(np.asarray(overflow).any())
         return [finalize_pick(self.committed[b], beams_full[b], self.scorers)
                 for b in range(self.batch)]
+
+
+def commit_row(nc: np.ndarray, info: dict, b: int) -> dict:
+    """Row b of a beam_commit's (ncommit, info), both on the host: its
+    newly committed "tokens", their "stamps" [(start, end)] and "lp"
+    [[lp_sum, n_frames]], and the "tail" (end, lp_sum, n) that extended
+    the previously committed token's run (None if none)."""
+    n = nc[b]
+    tail = None
+    if info["tail_n"][b] > 0:
+        tail = (int(info["tail_end"][b]), float(info["tail_lp"][b]), int(info["tail_n"][b]))
+    return {
+        "tokens": info["tokens"][b, :n].tolist(),
+        "stamps": [(int(s), int(e)) for s, e in zip(info["starts"][b, :n], info["ends"][b, :n])],
+        "lp": [[float(s), int(c)] for s, c in zip(info["lp_sum"][b, :n], info["lp_n"][b, :n])],
+        "tail": tail,
+    }
 
 
 def rescore_pick_best(committed, beams, scorers, return_index: bool = False):

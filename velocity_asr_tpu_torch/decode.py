@@ -7,11 +7,15 @@ logits' device, with an LM or hot words applied as n-best rescoring; and
 "host", a numpy prefix beam that scores an LM inside the search. Both
 keep the reference's max-merge semantics and agree at lm_weight 0.
 ``align_tokens_to_frames`` is the CTC Viterbi alignment of a chosen
-token sequence.
+token sequence. Word timestamps: ``timestamps_from_predictions`` gives
+each greedy token its frame span, ``words_with_timestamps`` assembles
+words with their times (frame -> seconds: frame * 2 * hop / sr) and,
+given each token's mean log posterior, their confidences.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, List, Optional, Tuple
 
@@ -77,6 +81,95 @@ def ctc_greedy_decode(logits: torch.Tensor, blank_token: int = BLANK_TOKEN,
     tokens, lengths = ctc_greedy_decode_torch(logits, blank_token, collapse_repeated)
     tokens, lengths = tokens.cpu(), lengths.cpu()
     return [tokens[b, : lengths[b]].tolist() for b in range(tokens.shape[0])]
+
+
+def ctc_greedy_decode_with_timestamps(logits, blank_token: int = BLANK_TOKEN
+                                      ) -> List[Tuple[List[int], List[Tuple[int, int]]]]:
+    """Greedy decode with a (start_frame, end_frame) span per emitted
+    token: a token's span runs from its first frame to the frame where a
+    blank or another token appears (or seq_len for the last run)."""
+    preds = torch.argmax(torch.as_tensor(logits), dim=-1).cpu().numpy()
+    return timestamps_from_predictions(preds, blank_token)
+
+
+def timestamps_from_predictions(preds: np.ndarray, blank_token: int = BLANK_TOKEN
+                                ) -> List[Tuple[List[int], List[Tuple[int, int]]]]:
+    """(tokens, spans) per row of per-frame argmax predictions (batch, T)."""
+    batch, seq_len = preds.shape
+    results = []
+    for b in range(batch):
+        pred = preds[b]
+        # emission frames: non-blank and unlike the previous frame
+        prev = np.concatenate([[blank_token], pred[:-1]])
+        keep = (pred != blank_token) & (pred != prev)
+        starts = np.nonzero(keep)[0]
+        tokens = pred[starts].tolist()
+        # a span ends at the first later frame whose prediction changes
+        change = np.concatenate([np.nonzero(pred[1:] != pred[:-1])[0] + 1, [seq_len]])
+        ends = [int(change[np.searchsorted(change, s, side="right")]) for s in starts]
+        results.append((tokens, [(int(s), int(e)) for s, e in zip(starts, ends)]))
+    return results
+
+
+def frame_to_seconds(frame: int, hop_length: int, sample_rate: int) -> float:
+    """Output frame -> seconds: an output frame covers 2 hops after the
+    stride-2 temporal binding."""
+    return frame * 2 * hop_length / sample_rate
+
+
+def words_with_timestamps(tokens, stamps, vocabulary, hop_length, sample_rate,
+                          token_logprobs=None) -> List[dict]:
+    """Words {"word", "start", "end"[, "confidence"]} from character
+    tokens and their frame spans.
+
+    token_logprobs (optional, aligned with tokens): each token's mean
+    per-frame log posterior over its span; each word then gets the exp of
+    the span-length-weighted mean over its content tokens (word-boundary
+    spaces excluded, like the characters themselves).
+    """
+    words, current, start_t = [], [], None
+    lp_sum = lp_n = 0.0
+
+    def close(end_t):
+        w = {"word": "".join(current), "start": start_t, "end": end_t}
+        if token_logprobs is not None:
+            w["confidence"] = math.exp(lp_sum / max(lp_n, 1.0))
+        words.append(w)
+
+    for i, (tok, (s, e)) in enumerate(zip(tokens, stamps)):
+        ch = vocabulary[tok] if 0 <= tok < len(vocabulary) else "<unk>"
+        # "▁" marks a subword's word start: a token beginning with it
+        # closes the current word, as tokens_to_text maps it to a space
+        if ch == " " or ch.startswith("▁"):
+            if current:
+                close(frame_to_seconds(e, hop_length, sample_rate))
+                current, start_t = [], None
+                lp_sum = lp_n = 0.0
+            if ch == " ":
+                continue
+            ch = ch.replace("▁", "")
+            if not ch:
+                continue
+        elif "▁" in ch:
+            ch = ch.replace("▁", "")  # mid-token marker: no word boundary
+        if not current:
+            start_t = frame_to_seconds(s, hop_length, sample_rate)
+        current.append(ch)
+        if token_logprobs is not None:
+            n = max(e - s, 1)
+            lp_sum += float(token_logprobs[i]) * n
+            lp_n += n
+        last_end = frame_to_seconds(e, hop_length, sample_rate)
+    if current:
+        close(last_end)
+    return words
+
+
+def token_logprobs_from_frames(frame_lp, stamps) -> List[float]:
+    """Mean per-frame log posterior over each token span; frame_lp (T,)
+    is each frame's argmax log posterior (every frame of a span predicts
+    its token)."""
+    return [float(np.mean(frame_lp[s:max(e, s + 1)])) for s, e in stamps]
 
 
 def align_tokens_to_frames(log_probs: np.ndarray, tokens: List[int],
@@ -278,6 +371,13 @@ class CTCDecoder:
         ]
         # Subword marker cleanup.
         return "".join(chars).replace("▁", " ").strip()
+
+    def text_to_tokens(self, text: str) -> List[int]:
+        """Character ids of `text`; a character outside the vocabulary
+        maps to <unk> where the vocabulary has one, else is dropped."""
+        unk = self.token_to_idx.get("<unk>")
+        return [self.token_to_idx.get(ch, unk) for ch in text
+                if ch in self.token_to_idx or unk is not None]
 
 
 def create_default_vocabulary(vocab_size: int = 50000) -> List[str]:

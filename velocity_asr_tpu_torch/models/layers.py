@@ -115,40 +115,59 @@ def _time_encoding(seq_len: int, dim: int, device: torch.device) -> torch.Tensor
         return torch.tensor(sinusoidal_time_encoding(seq_len, dim), device=device)
 
 
-def time_encoding(time_offset: int, seq_len: int, dim: int,
+def time_encoding(time_offset, seq_len: int, dim: int,
                   device: torch.device) -> torch.Tensor:
-    """(seq_len, dim) sinusoid at absolute positions time_offset + t, in
-    fp32: a cached table at offset 0 (offline and a stream's first chunk),
-    computed from the positions after that, as the JAX package computes
-    it (no table cap on a session's length)."""
+    """Sinusoid at absolute positions time_offset + t, in fp32.
+
+    An int offset gives (seq_len, dim): a cached table at offset 0
+    (offline and a stream's first chunk), computed from the positions
+    after that, as the JAX package computes it (no table cap on a
+    session's length). A (batch,) tensor of offsets (independent sessions
+    batched through one step) gives (batch, seq_len, dim), each row
+    exactly what its offset gives as an int: rows at 0 read the table.
+    """
+    if isinstance(time_offset, torch.Tensor):
+        offs = time_offset.to(device=device, dtype=torch.float32).reshape(-1, 1)
+        pe = _sinusoid(offs + torch.arange(seq_len, dtype=torch.float32, device=device), dim)
+        at_zero = (offs == 0)[:, :, None]
+        return torch.where(at_zero, _time_encoding(seq_len, dim, device), pe)
     if time_offset == 0:
         return _time_encoding(seq_len, dim, device)
-    div_term = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+    return _sinusoid(float(time_offset) + torch.arange(seq_len, dtype=torch.float32,
+                                                       device=device), dim)
+
+
+def _sinusoid(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """(..., dim) sinusoid of fp32 positions (...,): sines in the even
+    columns, cosines in the odd ones."""
+    div_term = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device)
                          * (-math.log(10000.0) / dim))
-    positions = float(time_offset) + torch.arange(seq_len, dtype=torch.float32,
-                                                  device=device)
-    ang = positions[:, None] * div_term
+    ang = positions[..., None] * div_term
     n_even = (dim + 1) // 2
-    pe = torch.empty(seq_len, dim, dtype=torch.float32, device=device)
-    pe[:, 0::2] = torch.sin(ang[:, :n_even])
-    pe[:, 1::2] = torch.cos(ang[:, : dim - n_even])
+    pe = torch.empty(positions.shape + (dim,), dtype=torch.float32, device=positions.device)
+    pe[..., 0::2] = torch.sin(ang[..., :n_even])
+    pe[..., 1::2] = torch.cos(ang[..., : dim - n_even])
     return pe
 
 
 class PositionalEncoding2D(nn.Module):
     """First d_model/2 dims: fixed sinusoid over time; last d_model/2: one
     learned frequency vector broadcast over time. time_offset is the
-    absolute output frame of x's first frame (streaming)."""
+    absolute output frame of x's first frame (streaming): an int, or a
+    (batch,) tensor with one offset per row."""
 
     def __init__(self, d_model: int):
         super().__init__()
         self.half = d_model // 2
         self.pe_freq = nn.Parameter(torch.zeros(1, 1, self.half))
 
-    def forward(self, x: torch.Tensor, time_offset: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time_offset=0) -> torch.Tensor:
         batch, seq_len, _ = x.shape
-        pe_time = time_encoding(time_offset, seq_len, self.half, x.device)[None]
-        pos = torch.cat([pe_time, self.pe_freq.expand(1, seq_len, self.half)], dim=-1)
+        pe_time = time_encoding(time_offset, seq_len, self.half, x.device)
+        if pe_time.dim() == 2:  # one offset for the whole batch
+            pe_time = pe_time[None]
+        pos = torch.cat([pe_time, self.pe_freq.expand(pe_time.shape[0], seq_len, self.half)],
+                        dim=-1)
         return x + pos.to(x.dtype)
 
 
@@ -172,7 +191,7 @@ class TemporalBindingLayer(nn.Module):
         self.norm = LayerNorm(d_model, dtype)
 
     def forward(self, mel: torch.Tensor, carry: torch.Tensor | None = None,
-                time_offset: int = 0, return_carry: bool = False):
+                time_offset=0, return_carry: bool = False):
         k = self.conv.kernel_size[0]
         if not return_carry:
             x = strided_conv1d(mel.to(self.dtype), self.conv.weight, self.conv.bias,

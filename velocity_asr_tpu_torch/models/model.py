@@ -60,7 +60,7 @@ class VelocityASR(nn.Module):
                                       **int8)
 
     def forward(self, mel_spectrogram: torch.Tensor, stream_state: Optional[dict] = None,
-                time_offset: int = 0, return_state: bool = False, frozen_mem: bool = False,
+                time_offset=0, return_state: bool = False, frozen_mem: bool = False,
                 return_features: bool = False, rng: Optional[torch.Generator] = None):
         """(batch, frames, mel_bins) -> fp32 logits (batch, (frames+1)//2, vocab)
         [, features dict] offline. In training mode both forwards apply
@@ -69,7 +69,8 @@ class VelocityASR(nn.Module):
 
         Streaming (``stream_state`` given or ``return_state``): one chunk
         of an even number of frames, its first output frame at
-        ``time_offset``. The local path carries its state exactly; the
+        ``time_offset`` (an int, or a (batch,) tensor: one offset per row,
+        the independent sessions of a shared step). The local path carries its state exactly; the
         chunk's local features pool to ``stream_summary_tokens`` summary
         tokens that advance the global context's SSM and rolling memory
         (``HierarchicalGlobalContext``). With ``return_state`` it returns

@@ -10,7 +10,8 @@ build raises.
 
 ``launch_counts`` counts the launches of each kernel: a wrapper adds one
 where it launches its kernel, and nowhere else. Every C entry starts
-exactly one kernel.
+exactly one kernel. The server launches from several threads at once, so
+the count is taken under a lock.
 """
 
 from __future__ import annotations
@@ -89,10 +90,12 @@ OCCUPANCY_KEYS = {
 }
 
 launch_counts: collections.Counter = collections.Counter()
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    launch_counts.clear()
+    with _COUNT_LOCK:
+        launch_counts.clear()
 
 
 class KernelLibrary:
@@ -127,7 +130,8 @@ class KernelLibrary:
         """Call one launcher on the current stream and raise on its error."""
         stream = torch.cuda.current_stream().cuda_stream
         self._check(name, getattr(self.lib, name)(*args, stream))
-        launch_counts[name] += 1
+        with _COUNT_LOCK:
+            launch_counts[name] += 1
 
     def occupancy(self, name: str, *args) -> dict:
         """What the build and the card give one kernel instantiation:

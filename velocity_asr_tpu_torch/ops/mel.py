@@ -7,7 +7,9 @@ the hop and returns (batch, frames, n_mels): the CUDA kernel
 each frame itself: a 400-point real FFT and a sparse filterbank, from the
 tables ``fft_tables`` and ``band_table`` built on the host), and
 ``log_mel_plain`` (the frames times fp32 window-folded DFT matrices, as
-the Pallas kernel computes it) on a CPU tensor. Reflect padding and
+the Pallas kernel computes it) on a CPU tensor. Given an fp64 signal the
+plain version runs the same transform in double precision: the yardstick
+that holds the kernel on the card. Reflect padding and
 normalisation stay in torch, as they stay in XLA on the TPU.
 """
 
@@ -41,17 +43,18 @@ def _frozen(*arrays):
 
 @functools.lru_cache(maxsize=4)
 def dft_mel_matrices(n_fft: int = N_FFT, n_mels: int = N_MELS,
-                     sample_rate: int = SAMPLE_RATE):
+                     sample_rate: int = SAMPLE_RATE, dtype=np.float32):
     """Window-folded DFT real (n_fft, n_freq) and imaginary parts, and the
-    transposed HTK filterbank (n_freq, n_mels), fp32 numpy, unpadded."""
+    transposed HTK filterbank (n_freq, n_mels), numpy, unpadded: computed
+    in float64 and rounded once to `dtype` (fp32 unless asked)."""
     n_freq = n_fft // 2 + 1
     k = np.arange(n_fft)[:, None]
     f = np.arange(n_freq)[None, :]
     ang = 2.0 * np.pi * k * f / n_fft
     w = hann_window(n_fft).astype(np.float64)[:, None]
-    real = (w * np.cos(ang)).astype(np.float32)
-    imag = (-w * np.sin(ang)).astype(np.float32)
-    fb_t = np.ascontiguousarray(mel_filterbank(n_fft, n_mels, sample_rate).T)
+    real = (w * np.cos(ang)).astype(dtype)
+    imag = (-w * np.sin(ang)).astype(dtype)
+    fb_t = np.ascontiguousarray(mel_filterbank(n_fft, n_mels, sample_rate).T, dtype=dtype)
     return _frozen(real, imag, fb_t)
 
 
@@ -85,9 +88,11 @@ def band_table(n_fft: int = N_FFT, n_mels: int = N_MELS, sample_rate: int = SAMP
 
 
 @functools.lru_cache(maxsize=8)
-def _device_matrices(device: torch.device, n_fft: int, n_mels: int, sample_rate: int):
+def _device_matrices(device: torch.device, n_fft: int, n_mels: int, sample_rate: int,
+                     dtype: torch.dtype = torch.float32):
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     return tuple(torch.tensor(m, device=device)
-                 for m in dft_mel_matrices(n_fft, n_mels, sample_rate))
+                 for m in dft_mel_matrices(n_fft, n_mels, sample_rate, np_dtype))
 
 
 @functools.lru_cache(maxsize=8)
@@ -105,10 +110,13 @@ def log_mel_plain(padded: torch.Tensor, hop_length: int = HOP_LENGTH, n_fft: int
 
     Frames the signal and multiplies by the window-folded DFT matrices and
     the dense filterbank in fp32; on a card the caller keeps TF32 off
-    (torch.backends.cuda.matmul.allow_tf32 = False)."""
+    (torch.backends.cuda.matmul.allow_tf32 = False). An fp64 signal runs
+    the same in fp64 (matrices rounded once from float64) and returns fp64.
+    """
     frames = frame_signal(padded, n_fft, hop_length)
     batch, t = frames.shape[:2]
-    real, imag, fb_t = _device_matrices(padded.device, n_fft, n_mels, sample_rate)
+    real, imag, fb_t = _device_matrices(padded.device, n_fft, n_mels, sample_rate,
+                                        padded.dtype)
     flat = frames.reshape(batch * t, n_fft).contiguous()
     re = flat @ real
     im = flat @ imag

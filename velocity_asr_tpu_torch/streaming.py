@@ -24,30 +24,42 @@
   re-decoded with the statistics and global memory available by then
   (the model's ``frozen_mem`` pass).
 
+- ``words()`` and ``take_new_words()`` give word timestamps and
+  confidences: the greedy collapse keeps each token's absolute frame
+  span and log posteriors, the beam its in-beam span tracks.
+
 ``BatchedStreamingTranscriber`` runs a batch of utterances through the
 same chunk step for evaluation, with the same results per utterance.
+``StreamSessionBatcher`` runs independent live sessions (the server's
+/stream) through one shared step: their carried states are the rows of
+one stacked state on the device, each row at its own time offset.
 ``streaming_forward`` is the training graph of the same step: a whole
 utterance's logits computed chunk by chunk through the carried state,
 differentiable (the streaming-aware objective, ``training.Trainer``).
-Word timestamps and confidences and the serving session batcher are not
-ported yet (the beam path keeps its committed tokens' frame spans).
 """
 
 from __future__ import annotations
 
+import collections
 import logging
+import queue
+import threading
+import time
+from concurrent.futures import Future
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from .audio import HOP_LENGTH, N_FFT, N_MELS, SAMPLE_RATE, hann_window, mel_filterbank
-from .beam import StreamingBeam
-from .decode import BLANK_TOKEN, CTCDecoder
+from .beam import (StreamingBeam, beam_commit, beam_finalize_full, beam_state_init, commit_row,
+                   ctc_beam_resume, finalize_pick)
+from .decode import BLANK_TOKEN, CTCDecoder, words_with_timestamps
 from .models.model import VelocityASR, init_stream_state
 
-__all__ = ["BatchedStreamingTranscriber", "StreamingMel", "StreamingTranscriber",
-           "init_stream_state", "streaming_forward"]
+__all__ = ["BatchedStreamSession", "BatchedStreamingTranscriber", "StreamSessionBatcher",
+           "StreamSlotsExhausted", "StreamingMel", "StreamingTranscriber", "init_stream_state",
+           "streaming_forward"]
 
 logger = logging.getLogger(__name__)
 
@@ -301,6 +313,11 @@ class StreamingTranscriber:
     by beam_scorers [(scorer, weight)]. beam_cap is the prefix buffer's
     capacity in uncommitted tokens; past it the transcript is truncated
     and finish() warns.
+
+    words() gives the word timestamps and confidences of everything
+    decoded so far, take_new_words() the words finalised since its last
+    call: the greedy collapse keeps each token's absolute frame span and
+    summed log posterior, the beam its in-beam span tracks.
     """
 
     def __init__(self, model: VelocityASR, decoder: CTCDecoder, chunk_frames: int = 200,
@@ -331,11 +348,15 @@ class StreamingTranscriber:
         self._pending: List[dict] = []
         self._prev_token = BLANK_TOKEN
         self._tokens: List[int] = []
-        # beam mode: (start, end) absolute output frames and [lp_sum,
-        # n_frames] of every committed token, from the in-beam span tracks
+        # (start, end) absolute output frames of every emitted token (the
+        # rule of decode.timestamps_from_predictions: end is the first
+        # frame whose prediction changes; -1 while the greedy token's run
+        # is open at the newest decoded frame), and [lp_sum, n_frames] of
+        # its log posteriors
         self._stamps: List[List[int]] = []
         self._stamp_lp: List[list] = []
-        self._decoded_frames = 0  # absolute output frames those spans cover
+        self._decoded_frames = 0  # absolute output frames decoded so far
+        self._words_emitted = 0
         self._emitted_text = ""
         self._beam_finalized = False
         if self._sbeam is not None:
@@ -345,38 +366,51 @@ class StreamingTranscriber:
         return init_stream_state(self.model.config, 1, self.device)
 
     @torch.inference_mode()
-    def _forward(self, chunk: np.ndarray, state: dict, offset: int,
-                 frozen: bool = False):
-        """One chunk step: (its output, new state). The output is the
-        per-frame argmax on the host, or in beam mode the (1, frames,
-        vocab) logits, left on the device for the beam."""
+    def _forward(self, chunk: np.ndarray, state: dict, offset: int, frozen: bool = False):
+        """One chunk step: ((preds, frame_lp, logits), new state). Greedy:
+        the per-frame argmax and its log posterior on the host, logits
+        None; beam: (None, None, the (1, frames, vocab) logits left on the
+        device for the beam)."""
         mel = torch.from_numpy(np.ascontiguousarray(chunk[None])).to(self.device)
         logits, new_state = self.model(mel, stream_state=state, time_offset=offset,
                                        return_state=True, frozen_mem=frozen)
         if self._sbeam is not None:
-            return logits, new_state
-        lsm = torch.log_softmax(logits[0].to(torch.float32), dim=-1)
-        return lsm.argmax(dim=-1).cpu().numpy(), new_state
+            return (None, None, logits), new_state
+        return _frame_preds(logits[0]), new_state
 
-    def _advance_chunk(self, chunk: np.ndarray, offset: int):
+    def _advance_chunk(self, chunk: np.ndarray, offset: int, valid: Optional[int] = None):
         """Run one (chunk_frames, mels) chunk through the advancing step,
-        replacing the carried state; returns its output (see _forward)."""
+        replacing the carried state; returns (preds, frame_lp, logits) as
+        _forward. `valid` is the chunk's real frames (fewer than
+        chunk_frames only on the final flush): a shared batched step
+        needs it inside its device call, this one does not."""
         if self._state is None:
             self._state = self._init_state()
         out, self._state = self._forward(chunk, self._state, offset)
         return out
 
     def _consume(self, out, out_valid: int, base: int) -> None:
-        """Decode one chunk's first out_valid output frames; `base` is its
-        first absolute output frame."""
+        """Decode one chunk's first out_valid output frames; `out` is
+        (preds, frame_lp, logits) and `base` its first absolute output
+        frame."""
+        preds, frame_lp, logits = out
         if self._sbeam is not None:
-            self._consume_beam(out, out_valid, base)
+            self._consume_beam(logits, out_valid, base)
         else:
-            self._decode_tokens(out[:out_valid])
+            self._decode_tokens(preds[:out_valid], frame_lp[:out_valid], base)
+
+    @torch.inference_mode()
+    def _decode_logits(self, logits: torch.Tensor, out_valid: int, base: int) -> None:
+        """Decode one chunk's (1, frames, vocab) logits, as _consume."""
+        if self._sbeam is not None:
+            self._consume_beam(logits, out_valid, base)
+        else:
+            self._decode_tokens(*_frame_preds(logits[0, :out_valid])[:2], base)
 
     def _consume_beam(self, logits: torch.Tensor, out_valid: int, base: int) -> None:
         """Advance the carried beam over one chunk's logits and commit the
-        beams' common prefix as final tokens."""
+        beams' common prefix as final tokens; `base` makes the in-beam
+        spans absolute."""
         self._sbeam.update(logits, out_valid, frame_base=base)
         self._apply_beam_commit(self._sbeam.commit()[0])
 
@@ -412,14 +446,28 @@ class StreamingTranscriber:
             logger.warning("streaming beam prefix buffer overflowed (cap=%d); the "
                            "transcript may be truncated: raise beam_cap", self._sbeam.cap)
 
-    def _decode_tokens(self, preds: np.ndarray) -> None:
-        """Greedy collapse of one chunk's argmax; the previous token
-        carries across chunks, so a run crossing a boundary emits once."""
-        for tok in preds:
+    def _decode_tokens(self, preds: np.ndarray, frame_lp: np.ndarray, base: int) -> None:
+        """Greedy collapse of one chunk's argmax into tokens and absolute
+        frame spans (`base`: the chunk's first absolute output frame). The
+        previous token carries across chunks, so a run crossing a boundary
+        extends its open span instead of emitting again: frame-exact with
+        decode.timestamps_from_predictions over the concatenated
+        predictions."""
+        for i, tok in enumerate(preds):
             tok = int(tok)
-            if tok != self._prev_token and tok != BLANK_TOKEN:
-                self._tokens.append(tok)
+            if tok != self._prev_token:
+                if self._stamps and self._stamps[-1][1] < 0:
+                    self._stamps[-1][1] = base + i
+                if tok != BLANK_TOKEN:
+                    self._tokens.append(tok)
+                    self._stamps.append([base + i, -1])
+                    self._stamp_lp.append([0.0, 0])
+            if tok != BLANK_TOKEN and self._stamps and self._stamps[-1][1] < 0:
+                # the frame belongs to the open token's span
+                self._stamp_lp[-1][0] += float(frame_lp[i])
+                self._stamp_lp[-1][1] += 1
             self._prev_token = tok
+        self._decoded_frames = max(self._decoded_frames, base + len(preds))
 
     def _pending_entry(self, valid: int) -> dict:
         """The entry (pre-advance) local state of a lookahead chunk."""
@@ -431,6 +479,19 @@ class StreamingTranscriber:
             "frame_start": self._frame_cursor,
         }
 
+    def _emit_forward(self, chunk: np.ndarray, p: dict):
+        """The frozen-memory re-decode of a pending chunk from its entry
+        local state and the current memory; returns (preds, frame_lp,
+        logits) as _advance_chunk."""
+        state = {
+            "mel_carry": p["mel_carry"],
+            "blocks": p["blocks"],
+            "gc_mem": self._state["gc_mem"],
+            "gc_blocks": self._state["gc_blocks"],
+            "gc_init": self._state["gc_init"],
+        }
+        return self._forward(chunk, state, p["offset"], frozen=True)[0]
+
     def _emit(self, p: dict) -> None:
         """Lookahead emission of a pending chunk: its mel re-normalised
         with the statistics at emission time (the end of the chunk whose
@@ -439,15 +500,7 @@ class StreamingTranscriber:
         chunk = self.mel.normalize_span(p["frame_start"], p["valid"], self._frame_cursor)
         if chunk.shape[0] < self.chunk_frames:
             chunk = np.pad(chunk, ((0, self.chunk_frames - chunk.shape[0]), (0, 0)))
-        state = {
-            "mel_carry": p["mel_carry"],
-            "blocks": p["blocks"],
-            "gc_mem": self._state["gc_mem"],
-            "gc_blocks": self._state["gc_blocks"],
-            "gc_init": self._state["gc_init"],
-        }
-        out, _ = self._forward(chunk, state, p["offset"], frozen=True)
-        self._consume(out, (p["valid"] + 1) // 2, p["offset"])
+        self._consume(self._emit_forward(chunk, p), (p["valid"] + 1) // 2, p["offset"])
 
     def _run_chunks(self, flush: bool = False) -> str:
         while True:
@@ -467,7 +520,7 @@ class StreamingTranscriber:
                 if self._state is None:
                     self._state = self._init_state()
                 self._pending.append(self._pending_entry(valid))
-            out = self._advance_chunk(chunk, self._time_offset)
+            out = self._advance_chunk(chunk, self._time_offset, valid)
             out_valid = (valid + 1) // 2  # odd valid only on the final flush
             self._time_offset += out_valid
             self._frame_cursor += valid
@@ -502,6 +555,33 @@ class StreamingTranscriber:
     @property
     def text(self) -> str:
         return self._emitted_text
+
+    def words(self) -> List[dict]:
+        """Word timestamps and confidences of everything decoded so far,
+        assembled as the offline --timestamps path assembles them
+        (decode.words_with_timestamps). The last word may still grow: its
+        last token's run can extend into the next chunk."""
+        stamps = [(s, e if e >= 0 else self._decoded_frames) for s, e in self._stamps]
+        token_lp = [lp / max(n, 1) for lp, n in self._stamp_lp]
+        return words_with_timestamps(self._tokens, stamps, self.decoder.vocabulary,
+                                     HOP_LENGTH, SAMPLE_RATE, token_logprobs=token_lp)
+
+    def take_new_words(self, flush: bool = False) -> List[dict]:
+        """The words finalised since the last call. A word is final once a
+        later word has started; flush=True (after finish()) also releases
+        the last one."""
+        w = self.words()
+        cut = len(w) if flush else max(len(w) - 1, self._words_emitted)
+        new = w[self._words_emitted:cut]
+        self._words_emitted = cut
+        return new
+
+
+def _frame_preds(logits: torch.Tensor):
+    """(argmax, max log posterior, None) per frame of (..., frames,
+    vocab) logits, on the host."""
+    lsm = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return lsm.argmax(dim=-1).cpu().numpy(), lsm.amax(dim=-1).cpu().numpy(), None
 
 
 class BatchedStreamingTranscriber:
@@ -658,3 +738,339 @@ class BatchedStreamingTranscriber:
                 prev = tok
             texts.append(self.decoder.tokens_to_text(tokens))
         return texts
+
+
+class StreamSlotsExhausted(RuntimeError):
+    """All StreamSessionBatcher slots are in use (capacity, not a fault)."""
+
+
+def _tree_map(fn, tree, *rest):
+    """fn over the tensors of a carried-state tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def collect_group(q: "queue.Queue", window: float, cap: int):
+    """Block for q's next item, then take more until `window` seconds after
+    it or `cap` items: (group, stop). A None item is the stop signal: the
+    group ends there (empty if None came first) and stop is True."""
+    first = q.get()
+    if first is None:
+        return [], True
+    group = [first]
+    deadline = time.perf_counter() + window
+    while len(group) < cap:
+        t = deadline - time.perf_counter()
+        if t <= 0:
+            break
+        try:
+            item = q.get(timeout=t)
+        except queue.Empty:
+            break
+        if item is None:
+            return group, True
+        group.append(item)
+    return group, False
+
+
+def _keep_active(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """new in the active rows, old elsewhere."""
+    return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new.to(old.dtype), old)
+
+
+class StreamSessionBatcher:
+    """Independent live sessions batched through one shared chunk step.
+
+    Every session's carried state is a row of one stacked (max_slots,
+    ...) state on the model's device, owned by one dispatcher thread.
+    Chunks that arrive within ``window_ms`` of each other run as one
+    call, with a (max_slots,) vector of per-row absolute time offsets
+    and an active mask: inactive rows' state leaves pass through by
+    torch.where. Each row is independent in the step, and the host mel
+    and decode are the StreamingTranscriber's, so a session's text and
+    words are a dedicated transcriber's.
+
+    lookahead > 0: the advancing call also writes each active row's entry
+    (pre-advance) local state into a device ring (max_slots, lookahead +
+    1, ...), and the frozen-memory re-decodes run as a second shared
+    "emit" call that reads its rows back.
+
+    beam_width > 1: the sessions' carried beams are the rows of one
+    beam_state_init(max_slots, k, cap); the beam's resume (valid = 0 on
+    inactive rows, each row's offset as its frame base) and commit run
+    inside the shared call (the emit call under lookahead), and only the
+    committed tokens go to the host. LM and hot-word rescoring stay on
+    the host per session at finish.
+
+    open() returns a BatchedStreamSession (the StreamingTranscriber API);
+    its close() frees the slot. ``stats`` counts the shared calls and the
+    rows they served, by kind ("step", "emit"). Every device operation
+    runs in the dispatcher thread under torch.inference_mode (autograd
+    state is per thread).
+    """
+
+    def __init__(self, model: VelocityASR, decoder: CTCDecoder, chunk_frames: int = 200,
+                 max_slots: int = 8, window_ms: float = 5.0, lookahead: int = 0,
+                 beam_width: int = 0, beam_cap: int = 256, beam_scorers=None):
+        if chunk_frames % 2:
+            raise ValueError(f"chunk_frames must be even, got {chunk_frames}")
+        self.model = model.eval()
+        self.decoder = decoder
+        self.chunk_frames = chunk_frames
+        self.max_slots = max_slots
+        self.window = window_ms / 1e3
+        self.lookahead = lookahead
+        self.beam_width = beam_width if beam_width and beam_width > 1 else 0
+        self.beam_cap = beam_cap
+        self.beam_scorers = beam_scorers
+        self.device = _model_device(model)
+        self.stats = collections.Counter()
+        self._init_stacked_state()
+        self._failed: set = set()  # slots whose last shared call failed (dispatcher only)
+        self._free = list(range(max_slots))
+        self._lock = threading.Lock()
+        self._q: "queue.Queue" = queue.Queue()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="stream-session-batcher")
+        self._thread.start()
+
+    @torch.inference_mode()
+    def _init_stacked_state(self) -> None:
+        """Build the stacked carried state, the entry ring and the stacked
+        beams."""
+        self._states = init_stream_state(self.model.config, self.max_slots, self.device)
+        self._pend = None
+        if self.lookahead > 0:
+            depth = self.lookahead + 1
+            self._pend = _tree_map(
+                lambda x: x.new_zeros((x.shape[0], depth) + x.shape[1:]),
+                {"mel_carry": self._states["mel_carry"], "blocks": self._states["blocks"]})
+        self._beam = self._beam_init1 = None
+        if self.beam_width:
+            self._beam = beam_state_init(self.max_slots, self.beam_width, self.beam_cap,
+                                         self.device)
+            self._beam_init1 = beam_state_init(1, self.beam_width, self.beam_cap, self.device)
+
+    def open(self) -> "BatchedStreamSession":
+        """Take a free slot, reset its rows and return its session."""
+        with self._lock:
+            if not self._free:
+                raise StreamSlotsExhausted(f"all {self.max_slots} batched stream slots are in use")
+            slot = self._free.pop()
+        try:
+            self._request(("reset", slot))
+        except BaseException:
+            self._release(slot)  # a device fault must not leak the slot
+            raise
+        return BatchedStreamSession(self, slot)
+
+    def close(self) -> None:
+        """Stop the dispatcher thread once the queued requests are served."""
+        self._q.put(None)
+        self._thread.join()
+
+    def _release(self, slot: int) -> None:
+        with self._lock:
+            self._free.append(slot)
+
+    def _request(self, item: tuple):
+        """Queue (kind, slot, ...) for the dispatcher; wait for its result."""
+        fut: Future = Future()
+        self._q.put(item + (fut,))
+        return fut.result()
+
+    def _loop(self) -> None:
+        while True:
+            group, stop = collect_group(self._q, self.window, self.max_slots)
+            # a slot whose earlier shared call failed answers with an error
+            # until its session is reset (or the slot reopened)
+            for g in group:
+                if g[0] != "reset" and g[1] in self._failed:
+                    g[-1].set_exception(RuntimeError(
+                        "the stream session failed in an earlier shared call; reset or close it"))
+            group = [g for g in group if not g[-1].done()]
+            try:
+                if group:
+                    with torch.inference_mode():
+                        self._run_group(group)
+            except Exception as e:
+                # Only the group's sessions fail. The other rows are intact:
+                # the stacked state and beams are replaced only by a call's
+                # finished result, and the in-place writes (a reset, the
+                # ring) touch the group's own rows.
+                logger.exception("shared stream step failed")
+                for g in group:
+                    if not g[-1].done():
+                        self._failed.add(g[1])
+                        g[-1].set_exception(e)
+            if stop:
+                return
+
+    def _gather(self, reqs):
+        """The group's chunks, offsets, active mask, ring slots and valid
+        output frames, stacked over every slot."""
+        s = self.max_slots
+        chunks = np.zeros((s, self.chunk_frames, self.model.config.mel_bins), np.float32)
+        offsets = np.zeros(s, np.int32)
+        active = np.zeros(s, bool)
+        ring = np.zeros(s, np.int64)
+        out_valid = np.zeros(s, np.int32)
+        for _, slot, chunk, offset, r, valid, _ in reqs:
+            chunks[slot], offsets[slot], active[slot] = chunk, offset, True
+            ring[slot], out_valid[slot] = r, (valid + 1) // 2
+        return chunks, offsets, active, ring, out_valid
+
+    def _run_group(self, group) -> None:
+        # A session waits on each request, so a slot appears at most once
+        # in a group (a step and its emit are never queued together).
+        dev = self.device
+        for _, slot, fut in (g for g in group if g[0] == "reset"):
+            _tree_map(lambda x: x[slot].zero_(), self._states)
+            if self.beam_width:
+                for key, v in self._beam.items():
+                    v[slot] = self._beam_init1[key][0]
+            self._failed.discard(slot)
+            fut.set_result(None)
+
+        for kind in ("step", "emit"):
+            reqs = [g for g in group if g[0] == kind]
+            if not reqs:
+                continue
+            chunks, offsets, active, ring, out_valid = self._gather(reqs)
+            mel = torch.from_numpy(chunks).to(dev)
+            offs = torch.from_numpy(offsets).to(dev)
+            act = torch.from_numpy(active).to(dev)
+            ring_dev = torch.from_numpy(ring).to(dev)
+            states = self._states
+            if kind == "step":
+                if self.lookahead > 0:
+                    # each active row's entry local state into its ring slot
+                    rows = act.nonzero().squeeze(1)
+                    _tree_map(lambda p, leaf: p.index_put_((rows, ring_dev[rows]), leaf[rows]),
+                              self._pend, {"mel_carry": states["mel_carry"],
+                                           "blocks": states["blocks"]})
+                logits, new = self.model(mel, stream_state=states, time_offset=offs,
+                                         return_state=True)
+                self._states = _tree_map(lambda n, o: _keep_active(act, n, o), new, states)
+                decode = self.lookahead == 0  # under lookahead the emits decode
+            else:
+                entry = _tree_map(lambda p: p[torch.arange(self.max_slots, device=dev), ring_dev],
+                                  self._pend)
+                st = {"mel_carry": entry["mel_carry"], "blocks": entry["blocks"],
+                      "gc_mem": states["gc_mem"], "gc_blocks": states["gc_blocks"],
+                      "gc_init": states["gc_init"]}
+                logits, _ = self.model(mel, stream_state=st, time_offset=offs,
+                                       return_state=True, frozen_mem=True)
+                decode = True
+            self.stats[f"{kind}_calls"] += 1
+            self.stats[f"{kind}_rows"] += len(reqs)
+            if not decode:
+                results = [None] * len(reqs)
+            elif self.beam_width:
+                self._beam = ctc_beam_resume(self._beam, logits, np.where(active, out_valid, 0),
+                                             self.decoder.blank_token, frame_base=offsets)
+                self._beam, nc, info = beam_commit(self._beam)
+                nc = nc.cpu().numpy()
+                info = {key: v.cpu().numpy() for key, v in info.items()}
+                results = [commit_row(nc, info, g[1]) for g in reqs]
+            else:
+                preds, lps, _ = _frame_preds(logits)
+                results = [(preds[g[1]], lps[g[1]], None) for g in reqs]
+            for g, res in zip(reqs, results):
+                g[-1].set_result(res)
+
+        # after the emits: another session's emit in this group must not
+        # see a row finalised under it
+        for _, slot, fut in (g for g in group if g[0] == "bfinal"):
+            beams, overflow = beam_finalize_full({k: v[slot:slot + 1]
+                                                  for k, v in self._beam.items()})
+            fut.set_result((beams[0], bool(overflow[0])))
+
+
+class _SharedBeamRow:
+    """The StreamingBeam face of a BatchedStreamSession's beam: its device
+    state is row `slot` of the batcher's stacked beams, advanced and
+    committed inside the shared call; the committed tokens, the finish's
+    n-best rescoring (beam.finalize_pick) and the overflow flag live
+    here."""
+
+    def __init__(self, batcher: StreamSessionBatcher, session: "BatchedStreamSession"):
+        self._session = session
+        self.beam_width = batcher.beam_width
+        self.cap = batcher.beam_cap
+        self.scorers = batcher.beam_scorers or []
+        self.reset()
+
+    def reset(self) -> None:
+        # the device row is reset by the session's reset request
+        self.committed: List[List[int]] = [[]]
+        self.overflowed = False
+
+    def finalize_full(self) -> List[dict]:
+        beams_full, overflow = self._session._request("bfinal")
+        self.overflowed |= overflow
+        return [finalize_pick(self.committed[0], beams_full, self.scorers)]
+
+
+class BatchedStreamSession(StreamingTranscriber):
+    """One live session whose chunk steps run in its batcher's shared
+    call; the text and words of a dedicated StreamingTranscriber. close()
+    frees the slot when the stream ends; reset() starts a new stream in
+    it."""
+
+    def __init__(self, batcher: StreamSessionBatcher, slot: int):
+        self._batcher = batcher
+        self._slot = None  # the slot's rows were reset by open()
+        super().__init__(batcher.model, batcher.decoder, chunk_frames=batcher.chunk_frames,
+                         lookahead_chunks=batcher.lookahead)
+        self._slot = slot
+        if batcher.beam_width:
+            self._sbeam = _SharedBeamRow(batcher, self)
+
+    def reset(self) -> None:
+        """Start a new stream in this slot (its rows are reset)."""
+        super().reset()
+        # ring slot of the next pending entry, and of the step being sent
+        self._ring_next = self._step_widx = 0
+        if self._slot is not None:
+            self._request("reset")
+
+    def close(self) -> None:
+        if self._slot is not None:
+            self._batcher._release(self._slot)
+            self._slot = None
+
+    def _request(self, kind: str, *payload):
+        if self._slot is None:
+            raise RuntimeError("the stream session is closed")
+        return self._batcher._request((kind, self._slot) + payload)
+
+    def _init_state(self) -> dict:
+        return {}  # the carried state is a row of the batcher's
+
+    def _pending_entry(self, valid: int) -> dict:
+        # the advancing call records the entry state in ring slot idx
+        idx = self._step_widx = self._ring_next
+        self._ring_next = (idx + 1) % (self._batcher.lookahead + 1)
+        return {"ring": idx, "offset": self._time_offset, "valid": valid,
+                "frame_start": self._frame_cursor}
+
+    def _advance_chunk(self, chunk: np.ndarray, offset: int, valid: Optional[int] = None):
+        valid = self.chunk_frames if valid is None else valid
+        res = self._request("step", chunk, offset, self._step_widx, valid)
+        if res is None:  # lookahead: the emits decode
+            return None, None, None
+        return (None, None, res) if self._batcher.beam_width else res
+
+    def _emit_forward(self, chunk: np.ndarray, p: dict):
+        res = self._request("emit", chunk, p["offset"], p["ring"], p["valid"])
+        return (None, None, res) if self._batcher.beam_width else res
+
+    def _consume_beam(self, payload: dict, out_valid: int, base: int) -> None:
+        # the shared call advanced and committed this row's beam already:
+        # `payload` is its commit (beam.commit_row)
+        self._sbeam.committed[0].extend(payload["tokens"])
+        self._apply_beam_commit(payload)

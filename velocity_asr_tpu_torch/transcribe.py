@@ -1,9 +1,10 @@
 """Transcription (the greedy and beam paths of scripts/transcribe.py).
 
-    python -m velocity_asr_tpu_torch.transcribe utt.wav --checkpoint DIR \
+    python -m velocity_asr_tpu_torch.transcribe utt.wav [more.wav ...] [--input-dir DIR] \
+        --checkpoint DIR [--timestamps] [--json] [--output FILE] \
         [--beam-width K [--lm LM.json.gz] [--lm-weight 0.5] [--hotwords FILE|w1,w2]
          [--hotword-weight 2.0]] \
-        [--streaming [--chunk-seconds 2.0] [--lookahead N]] [--json] [--device cuda]
+        [--streaming [--chunk-seconds 2.0] [--lookahead N]] [--device cuda]
 
 Per utterance: reflect-pad the audio to its frame bucket (multiples of
 ``frame_bucket`` frames), round it to int16 as the JAX pipeline's wire
@@ -20,6 +21,14 @@ padded length, so the bucketing is part of the result.
 with causal statistics; the beam carried across chunks, the LM and hot
 words rescoring its n-best at the end); ``--lookahead N`` emits each
 chunk N chunks late.
+
+``--timestamps`` adds each file's words with their start and end
+seconds and confidences (offline: greedy spans from the per-frame argmax,
+or with the beam a CTC Viterbi alignment of its tokens; streaming: the
+spans the session tracks). ``--input-dir`` takes every WAV file under a
+directory (the port decodes WAV only), and a file that fails is reported
+and skipped. ``Transcriber.transcribe_batch`` is the server's batched
+greedy path: one forward per frame bucket.
 """
 
 from __future__ import annotations
@@ -29,14 +38,16 @@ import json
 import os
 import sys
 import time
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from .audio import HOP_LENGTH, SAMPLE_RATE, load_audio, masked_normalize_mel
-from .decode import (CTCDecoder, create_default_vocabulary, ctc_greedy_decode_torch,
-                     force_blank_beyond)
+from .decode import (CTCDecoder, _log_softmax_np, align_tokens_to_frames,
+                     create_default_vocabulary, ctc_greedy_decode_torch, force_blank_beyond,
+                     timestamps_from_predictions, token_logprobs_from_frames,
+                     words_with_timestamps)
 from .device import resolve_device
 from .hotwords import load_hotwords_arg
 from .lm import CharNGramLM, CombinedScorer
@@ -105,32 +116,103 @@ class Transcriber:
         return np.clip(audio_f32 * 32768.0, -32768, 32767).astype(np.int16)
 
     @torch.inference_mode()
-    def masked_logits(self, audio_i16: torch.Tensor, n_valid_frames: int) -> torch.Tensor:
-        """Logits of (1, samples) int16 audio; blank is forced beyond the
-        valid output frames."""
+    def masked_logits(self, audio_i16: torch.Tensor, n_valid_frames) -> torch.Tensor:
+        """Logits of (batch, samples) int16 audio; each row's mel is
+        normalised over its n_valid_frames (an int, or a (batch,) tensor)
+        and blank is forced beyond its valid output frames."""
         audio = audio_i16.to(torch.float32) * (1.0 / 32768.0)
         mel = compute_mel_spectrogram(audio, normalize=False)
         mel = masked_normalize_mel(mel, n_valid_frames)
         logits = self.model(mel)
         return force_blank_beyond(logits, (n_valid_frames + 1) // 2)
 
-    def transcribe_array(self, audio: np.ndarray) -> dict:
+    def transcribe_array(self, audio: np.ndarray, timestamps: bool = False,
+                         beam_width: Optional[int] = None, lm_scorer=None,
+                         lm_weight: Optional[float] = None) -> dict:
+        """Transcribe one utterance: {"text", "duration"[, "words"]}.
+
+        beam_width, lm_scorer and lm_weight override the transcriber's own
+        for this call only (the server passes each request's values and
+        never writes them into the shared transcriber). timestamps adds
+        "words", each with its start, end and confidence: greedy from the
+        device's per-frame argmax and its log posterior, with the beam
+        from a CTC Viterbi alignment of the chosen tokens to the logits.
+        """
+        beam_width = self.beam_width if beam_width is None else beam_width
+        lm_scorer = self.lm_scorer if lm_scorer is None else lm_scorer
+        lm_weight = self.lm_weight if lm_weight is None else lm_weight
         padded, n_frames = self._pad_audio(audio)
+        out_len = (n_frames + 1) // 2
         audio_dev = torch.from_numpy(self._to_wire(padded)).to(self.device)
         logits = self.masked_logits(audio_dev, n_frames)
-        if self.beam_width > 1:
-            text = self.decoder.decode_beam_search(
-                logits, beam_width=self.beam_width, backend="device",
-                lm_scorer=self.lm_scorer, lm_weight=self.lm_weight)[0]
+        result = {"duration": len(audio) / self.sr}
+        if timestamps and beam_width > 1:
+            self._beam_timestamp_result(result, logits[:, :out_len], beam_width, lm_scorer,
+                                        lm_weight)
+        elif timestamps:
+            lsm = torch.log_softmax(logits[0, :out_len].to(torch.float32), dim=-1)
+            preds, frame_lp = lsm.argmax(dim=-1).cpu().numpy(), lsm.amax(dim=-1).cpu().numpy()
+            tokens, stamps = timestamps_from_predictions(preds[None])[0]
+            result["text"] = self.decoder.tokens_to_text(tokens)
+            result["words"] = words_with_timestamps(
+                tokens, stamps, self.decoder.vocabulary, self.hop, self.sr,
+                token_logprobs=token_logprobs_from_frames(frame_lp, stamps))
+        elif beam_width > 1:
+            result["text"] = self.decoder.decode_beam_search(
+                logits, beam_width=beam_width, backend="device", lm_scorer=lm_scorer,
+                lm_weight=lm_weight)[0]
         else:
             toks, lens = ctc_greedy_decode_torch(logits)
             toks, lens = toks.cpu(), lens.cpu()
-            text = self.decoder.tokens_to_text(toks[0, : lens[0]].tolist())
-        return {"text": text, "duration": len(audio) / self.sr}
+            result["text"] = self.decoder.tokens_to_text(toks[0, : lens[0]].tolist())
+        return result
 
-    def transcribe_file(self, path: str) -> dict:
+    def _beam_timestamp_result(self, result: dict, logits: torch.Tensor, beam_width: int,
+                               lm_scorer, lm_weight: float) -> None:
+        """Timestamps with the beam: the beam (with any rescoring) picks
+        the tokens, then a CTC Viterbi alignment against the same logits
+        gives each token its frame span and mean log posterior
+        (decode.align_tokens_to_frames)."""
+        beams = self.decoder.decode_beam_search(
+            logits, beam_width=beam_width, backend="device", lm_scorer=lm_scorer,
+            lm_weight=lm_weight, return_all_beams=True)[0]
+        tokens = beams[0].tokens if beams else []
+        result["text"] = self.decoder.tokens_to_text(tokens)
+        lsm = _log_softmax_np(logits[0].to(torch.float32).cpu().numpy())
+        stamps, token_lp = align_tokens_to_frames(lsm, tokens, self.decoder.blank_token)
+        result["words"] = words_with_timestamps(tokens, stamps, self.decoder.vocabulary,
+                                                self.hop, self.sr, token_logprobs=token_lp)
+
+    @torch.inference_mode()
+    def transcribe_batch(self, audios: List[np.ndarray]) -> List[dict]:
+        """Greedy transcription of many utterances: {"text", "duration"}
+        each, in input order.
+
+        Utterances are grouped by frame bucket, one forward per bucket: the
+        global context pools over the padded length, so padding a short
+        clip to a longer one's bucket would change its transcript. Each
+        row's valid frames go to the mel normalisation and to the forced
+        blank, so a row transcribes as transcribe_array would. The JAX
+        package also pads the batch to a power of two, only to bound its
+        compiled shapes; an eager forward needs no such padding.
+        """
+        buckets: dict = {}
+        for i, a in enumerate(audios):
+            buckets.setdefault(self.frame_bucket_of(a), []).append(i)
+        texts = [""] * len(audios)
+        for idxs in buckets.values():
+            padded, n_frames = zip(*(self._pad_audio(audios[i]) for i in idxs))
+            wire = torch.from_numpy(self._to_wire(np.concatenate(padded))).to(self.device)
+            n_valid = torch.tensor(n_frames, dtype=torch.int64, device=self.device)
+            toks, lens = ctc_greedy_decode_torch(self.masked_logits(wire, n_valid))
+            toks, lens = toks.cpu(), lens.cpu()
+            for row, i in enumerate(idxs):
+                texts[i] = self.decoder.tokens_to_text(toks[row, : lens[row]].tolist())
+        return [{"text": t, "duration": len(a) / self.sr} for t, a in zip(texts, audios)]
+
+    def transcribe_file(self, path: str, timestamps: bool = False) -> dict:
         t0 = time.perf_counter()
-        result = self.transcribe_array(load_audio(path))
+        result = self.transcribe_array(load_audio(path), timestamps=timestamps)
         result["file"] = path
         result["rtf"] = (time.perf_counter() - t0) / max(result["duration"], 1e-9)
         return result
@@ -160,8 +242,9 @@ def chunk_frames_of(chunk_seconds: float) -> int:
     return frames + frames % 2
 
 
-def transcribe_streaming(st: StreamingTranscriber, path: str) -> dict:
-    """Feed one file through a live session, one chunk of samples at a time."""
+def transcribe_streaming(st: StreamingTranscriber, path: str, timestamps: bool = False) -> dict:
+    """Feed one file through a live session, one chunk of samples at a
+    time; timestamps adds the session's "words"."""
     st.reset()
     t0 = time.perf_counter()
     audio = load_audio(path)
@@ -169,16 +252,34 @@ def transcribe_streaming(st: StreamingTranscriber, path: str) -> dict:
     text = "".join(st.feed(audio[i:i + block]) for i in range(0, len(audio), block))
     text += st.finish()
     duration = len(audio) / SAMPLE_RATE
-    return {"file": path, "text": text, "duration": duration,
-            "rtf": (time.perf_counter() - t0) / max(duration, 1e-9), "streaming": True}
+    result = {"file": path, "text": text, "duration": duration,
+              "rtf": (time.perf_counter() - t0) / max(duration, 1e-9), "streaming": True}
+    if timestamps:
+        result["words"] = st.words()
+    return result
+
+
+def collect_files(input_dir: str) -> List[str]:
+    """Every WAV file under input_dir, walked in sorted order (the port
+    decodes WAV only)."""
+    out = []
+    for root, dirs, files in os.walk(input_dir):
+        dirs.sort()
+        out += [os.path.join(root, f) for f in sorted(files) if f.lower().endswith(".wav")]
+    return out
 
 
 def main(argv: List[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description="Transcribe WAV files with the PyTorch port")
-    parser.add_argument("audio", nargs="+", help="WAV file(s) to transcribe")
+    parser.add_argument("audio", nargs="*", help="WAV file(s) to transcribe")
+    parser.add_argument("--input-dir", help="transcribe every WAV file under a directory")
     parser.add_argument("--checkpoint", required=True, help="pretrained checkpoint dir")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--json", action="store_true", help="one JSON object per file")
+    parser.add_argument("--output", help="write the results to this file (JSON with --json, "
+                                         "else one 'file<TAB>text' line per file)")
+    parser.add_argument("--json", action="store_true", help="JSON output")
+    parser.add_argument("--timestamps", action="store_true",
+                        help="word-level timestamps and confidences")
     parser.add_argument("--streaming", action="store_true",
                         help="chunked streaming decode with carried model state")
     parser.add_argument("--chunk-seconds", type=float, default=2.0,
@@ -198,6 +299,8 @@ def main(argv: List[str] | None = None) -> int:
                              "artifact); requires --beam-width > 1")
     parser.add_argument("--lm-weight", type=float, default=0.5)
     args = parser.parse_args(argv)
+    if not args.audio and not args.input_dir:
+        parser.error("provide WAV file(s) or --input-dir")
     if args.lookahead and not args.streaming:
         parser.error("--lookahead requires --streaming")
     if args.hotwords and args.beam_width <= 1:
@@ -223,13 +326,29 @@ def main(argv: List[str] | None = None) -> int:
             lookahead_chunks=args.lookahead, beam_width=args.beam_width,
             beam_scorers=[(pipeline.lm_scorer, pipeline.lm_weight)] if pipeline.lm_scorer
             else None)
-    for path in args.audio:
-        if streamer is not None:
-            result = transcribe_streaming(streamer, path)
-        else:
-            result = pipeline.transcribe_file(path)
-        print(json.dumps(result) if args.json else f"{path}\t{result['text']}")
-    return 0
+    files = list(args.audio) + (collect_files(args.input_dir) if args.input_dir else [])
+    results = []
+    for path in files:
+        try:
+            if streamer is not None:
+                result = transcribe_streaming(streamer, path, timestamps=args.timestamps)
+            else:
+                result = pipeline.transcribe_file(path, timestamps=args.timestamps)
+        except Exception as e:  # one file's failure does not stop the others
+            result = {"file": path, "error": str(e)}
+            print(f"{path}: {e}", file=sys.stderr)
+        results.append(result)
+        if not args.output:
+            print(json.dumps(result) if args.json
+                  else f"{path}\t{result.get('text', result.get('error', ''))}")
+    if args.output:
+        with open(args.output, "w") as f:
+            if args.json:
+                json.dump(results, f, indent=2)
+            else:
+                f.writelines(f"{r['file']}\t{r.get('text', r.get('error', ''))}\n"
+                             for r in results)
+    return 1 if any("error" in r for r in results) else 0
 
 
 if __name__ == "__main__":
