@@ -71,7 +71,13 @@ its seconds:
      output's max|ref|, dA within 1e-4, two calls bit-identical, and
      with h0 = gh = 0 the bits of the no-state bounds forward and
      backward; then the gradient of a loss on y and h_final through two
-     carried launches of 50 steps against one launch of 100 (1e-5);
+     carried launches of 50 steps against one launch of 100 (1e-5); for
+     phase 12b, the 40 long-form utterances (40-72 s, written here) and
+     their shapes: the scan at their batches (frame buckets of 200), at
+     their longest at batch 1, and at 72 s (L = 3,600, K1 = 450) at batch
+     1 and 16, the log-mel at 1 x 7,200 frames, at the longest's bucket
+     and at the long-form batches, and on an 8 x 600 device-mel batch
+     speed-warped and noised as phase 12c's trainer does it;
   4. offline path: load checkpoints/synth_run/final_pretrained, transcribe
      every WAV through
      the port's Transcriber, and hold the WER against the JAX package's
@@ -190,7 +196,31 @@ its seconds:
      micro-steps 61-65; (c) its final_pretrained/params.msgpack reads
      back bit-equal, and its streaming WER (batched, lookahead 0) over
      the same utterances is within 0.5 point of phase 7's;
-  6. (after 7, 10, 11, 8 and 9, whose launch counts it reports) kernel timings beside
+  12. data sources, formats and the rest of training (after 9): (a) the
+     native decoder library built from native/*.cc (a failed build
+     fails), supported_audio_exts() printed, the first 50 held-out
+     utterances as FLAC (tests/flac_encoder.py: transcripts identical to
+     phase 4's) and, where this host's encoders load, as mp3, Ogg Vorbis
+     and m4a (WER within 1.0 point of phase 4's over the same 50), each
+     set through `transcribe --input-dir` (10 scans and 1 log-mel a
+     file) and as /transcribe bodies; (b) the long-form corpus batched at
+     16 in bf16 at frame buckets of 200 (WER within 1.0 point of
+     eval_longform_offline.json over all 40, 10 scans a forward), its
+     longest at batch 1 through the transcriber (10 scans, 1 log-mel),
+     that one's fp32 logits card vs CPU, and rows 1 and 2 timed at these
+     lengths; (c) 256 train-split utterances (and 16 dev) written as a
+     LibriSpeech-layout FLAC tree, 40 micro-steps of
+     configs/train_synth.yaml + model_synth.yaml through the CLI reading
+     it as raw audio with speed and noise augmentation, gradient
+     checkpointing and a profiler window (loss finite and falling; per
+     micro-step exactly 1 log-mel, 8 no-bounds forwards, 10 bounds
+     forwards and 10 backwards), 5 from a manifest over the same files,
+     one fp32 checkpointed micro-step bit-equal to the plain one (dropout
+     0.1), peak memory with and without checkpointing at 16 x 600 host
+     mel and 8 x 3,600 device mel; (d) the window's Chrome trace: micro-
+     steps 10-14 exactly, naming the log-mel, scan forward and backward
+     kernels;
+  6. (after 7, 10, 11, 8, 9 and 12, whose launch counts it reports) kernel timings beside
      their bounds and a library call: device time from CUDA graphs of many
      calls (what the JSON line reports), and CUDA events around eager
      calls, which include the host's launch; each scan forward's bound
@@ -217,9 +247,11 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -243,6 +275,16 @@ JAX_STREAM_EVALS = {0: os.path.join(RUN_DIR, "eval_streaming.json"),
 LONGFORM_UTTS = 40
 LONGFORM_WORDS = (90, 110)
 JAX_LONGFORM_EVAL = os.path.join(RUN_DIR, "eval_longform_streaming.json")
+# ... and its batched offline evaluation (phase 12b), here at batch 16 and
+# frame buckets of LONGFORM_BUCKET frames. The JAX file does not record its
+# bucket; 200, the JAX CLI's default, reproduces 34 of its 40 transcripts
+# in bf16 (buckets of 400-1,000 reproduce 16-22, of 1,600 and up 8: the
+# global context pools over the padded length). 72 s is LONG_FRAMES frames
+# (L = 3,600 after the stride-2 binding, K1 = max(64, L // 8) = 450 in
+# the global context)
+JAX_LONGFORM_OFFLINE = os.path.join(RUN_DIR, "eval_longform_offline.json")
+LONGFORM_BUCKET = 200
+LONG_FRAMES = 7200
 # The JAX package's batched evaluations of the same checkpoint, by mode.
 JAX_BATCH_EVALS = {
     "bf16": JAX_EVAL,
@@ -294,6 +336,25 @@ SERVE_START_S = 180.0  # the CLI server must answer /health within this
 # its start drawn uniformly over one 2 s chunk (a seeded draw)
 SERVE_PACE_S = 0.1
 SERVE_STAGGER_S = 2.0
+
+# Data sources, formats and the rest of training (phase 12): the held-out
+# utterances re-encoded per format; the LibriSpeech-layout FLAC tree the
+# trainer reads (train and dev splits), its micro-steps from the tree and
+# from a manifest over the same files; the profiler window; the scans a
+# checkpointed micro-step launches (the local blocks' first pass without
+# autograd runs the no-bounds forward; each block's recompute and the
+# global blocks run the bounds forward; every block its backward) and the
+# device-mel log-mel; the peak-memory shapes
+FORMAT_UTTS = 50
+FORMAT_WER_MAX_DIFF = 0.01  # lossy formats: within 1.0 WER point of phase 4's over the same
+DISK_SPLITS = {"train-clean-100": ("train", 256, 2, 2), "dev-clean": ("dev", 16, 1, 1)}
+DISK_STEPS = 40
+DISK_MANIFEST_STEPS = 5
+DISK_PROFILE = (10, 5)  # training.profile_start, profile_steps
+CHECKPOINTED_STEP = {"scan_fwd_f32": 8, "scan_fwd_bounds_f32": 10, "scan_bwd_f32": 10,
+                     "log_mel_f32": 1}
+MEMORY_SHAPES = ((16, 600, "host mel"), (8, 3600, "device mel"))
+AUG_MEL_BATCH, AUG_MEL_FRAMES = 8, 600  # phase 3: the log-mel on an augmented batch
 
 # Tolerances (kernel against its plain version on the same inputs).
 SCAN_MAX_REL = 1e-4  # max|kernel - plain| / max|plain|; fp32, other summation order
@@ -867,6 +928,36 @@ def mel_errors(ker, padded, log_mel_plain):
             "share": rel.flatten()[worst].exp().item(), "plain_used": plain}
 
 
+def compare_augmented_mel(rng):
+    """The log-mel kernel on a batch of AUG_MEL_BATCH x AUG_MEL_FRAMES
+    frames of speech-like rows of several lengths, speed-warped and then
+    noised as the trainer does it (augment.speed_perturb_audio,
+    noise_inject), against its plain version in fp64 (mel_errors)."""
+    import torch
+
+    from velocity_asr_tpu_torch.audio import HOP_LENGTH, N_FFT, reflect_pad
+    from velocity_asr_tpu_torch.augment import (SpecAugmentConfig, noise_inject,
+                                                speed_perturb_audio)
+    from velocity_asr_tpu_torch.ops.mel import log_mel, log_mel_plain
+
+    aug = SpecAugmentConfig(enabled=True, noise_injection=True, speed_perturb=True)
+    width = (AUG_MEL_FRAMES - 1) * HOP_LENGTH
+    audio, _ = mel_inputs(rng, AUG_MEL_FRAMES, AUG_MEL_BATCH)
+    frames = torch.tensor([AUG_MEL_FRAMES - 75 * i for i in range(AUG_MEL_BATCH)],
+                          dtype=torch.int32, device="cuda")
+    valid = torch.arange(width, device="cuda")[None] < ((frames - 1) * HOP_LENGTH)[:, None]
+    audio = torch.where(valid, audio, 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    audio, frames = speed_perturb_audio(audio, gen, aug, frames, HOP_LENGTH)
+    audio = noise_inject(audio, gen, aug, (frames - 1) * HOP_LENGTH)
+    padded = reflect_pad(audio, N_FFT // 2)
+    ker = log_mel(padded)
+    torch.cuda.synchronize()
+    if ker.shape != (AUG_MEL_BATCH, AUG_MEL_FRAMES, 80):
+        raise AssertionError(f"log-mel kernel returned {tuple(ker.shape)}")
+    return mel_errors(ker, padded, log_mel_plain)
+
+
 def mel_report(r) -> str:
     return (f"against the plain version in fp64 max_abs {r['max_abs']:.3e} over every band; "
             f"at most {r['used']:.3f} of a band's tolerance used (at a band of "
@@ -1026,13 +1117,17 @@ def compare_int8(rng, m, k, n, static: bool, dtype="float32", ties=False):
 def scan_cases(plan):
     """(N, batch, length) of every scan that phases 4 and 5 launch (local
     blocks N=64 at L = frames / 2, global blocks N=32 at the level-1 pool
-    size) and phase 11's micro-batches at their largest (the server's
-    --max-batch rows of one offline bucket), then every width at batch 1
-    (the offline path) and 4."""
+    size), phase 11's micro-batches at their largest (the server's
+    --max-batch rows of one offline bucket) and phase 12b's long form (its
+    batches at LONGFORM_BUCKET, its longest utterance at batch 1, and 72 s,
+    LONG_FRAMES, at batch 1 and 16: L = 3,600, K1 = 450), then every width
+    at batch 1 (the offline path) and 4."""
     from velocity_asr_tpu_torch.ops.pooling import pool_size_level1
 
     shapes = ([(b, f) for f in plan["offline"] for b in (1, SERVE_DEFAULT_STREAMS)]
               + list(plan["batched"]))
+    shapes += list(plan["longform"]["batched"]) + [(1, plan["longform"]["longest_bucket"])]
+    shapes += [(b, LONG_FRAMES) for b in (1, BATCH)]
     path = {(n, b, length) for b, f in shapes
             for n, length in ((64, f // 2), (32, pool_size_level1(f // 2)))}
     widths = {(n, b, 100) for n in SCAN_STATE_DIMS for b in (1, 4)}
@@ -1176,7 +1271,11 @@ def phase_compare(plan):
                   + [(SERVE_DEFAULT_STREAMS, f, " (serve micro-batch)")
                      for f in sorted(plan["offline"])]
                   + [(CHECK_BATCH, STREAM_CHECK_FRAMES, " (training path, 9a)")]
-                  + [(STREAM_BATCH, f, " (training path, 9b)") for f in STREAM_BUCKETS])
+                  + [(STREAM_BATCH, f, " (training path, 9b)") for f in STREAM_BUCKETS]
+                  + [(1, LONG_FRAMES, " (72 s)"),
+                     (1, plan["longform"]["longest_bucket"], " (long form, batch 1, 12b)")]
+                  + [(b, f, " (long form, batched)")
+                     for b, f in sorted(plan["longform"]["batched"])])
     # held against the plain version run in fp64, each band within its
     # tolerance (MEL_MAX_ABS, widened by MEL_FP32_NOISE in bands far below
     # their frame's power); the plain version in fp32, held to the same
@@ -1194,6 +1293,16 @@ def phase_compare(plan):
         if not ok:
             raise AssertionError("log-mel kernel disagrees with its plain version")
         errs["log_mel_f32"] = max(errs["log_mel_f32"], r["max_abs"])
+    # a device-mel training batch as phase 12c's augmentation leaves it:
+    # speed-warped, then noised over its valid samples
+    r = compare_augmented_mel(rng)
+    ok = math.isfinite(r["max_abs"]) and r["used"] <= 1.0
+    log(f"log_mel B={AUG_MEL_BATCH} T={AUG_MEL_FRAMES} speed-warped and noised (training "
+        f"path, 12c): " + mel_report(r) + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("log-mel kernel disagrees with its plain version on an augmented "
+                             "batch")
+    errs["log_mel_f32"] = max(errs["log_mel_f32"], r["max_abs"])
     # signals no longer than the 200-sample reflect pad (padded by the
     # repeated reflection). A 1-sample signal pads to a constant frame,
     # whose spectrum is zero in exact arithmetic past the window's lowest
@@ -1326,6 +1435,7 @@ def phase_corpus(tmp: str, n_utts: int):
         (len(chunk), -(-max(chunk) // FRAME_BUCKET) * FRAME_BUCKET)
         for chunk in (mel_lens[s:s + BATCH] for s in range(0, n, BATCH)))
     stream = streaming_plan(n_samples)
+    longform = longform_plan(tmp)
     log(f"offline frame buckets {dict(sorted(offline.items()))}; batched (size, padded "
         f"frames) {dict(sorted(batched.items()))}")
     log(f"streaming: chunks per utterance {dict(sorted(collections.Counter(stream['chunks']).items()))}; "
@@ -1333,7 +1443,39 @@ def phase_corpus(tmp: str, n_utts: int):
         f"chunks at batch 1; carried-state scan shapes (batch, L, N) {stream['shapes']}; "
         f"planned launches {stream['launches']}")
     return manifest, {"offline": offline, "batched": batched, "mel_lens": mel_lens,
-                      "stream": stream}
+                      "stream": stream, "longform": longform}
+
+
+def longform_plan(tmp: str):
+    """Write the 40-utterance long-form corpus (40-72 s each) and work out
+    what phases 7 and 12b run on it: its streaming plan, the batched
+    evaluation's (size, padded frames) at LONGFORM_BUCKET, and its longest
+    utterance's frame bucket at batch 1 (the transcriber's buckets of
+    FRAME_BUCKET frames)."""
+    from velocity_asr_tpu_torch import synth
+    from velocity_asr_tpu_torch.audio import load_audio
+    from velocity_asr_tpu_torch.transcribe import padded_frames
+
+    t0 = time.perf_counter()
+    manifest = synth.write_corpus(os.path.join(tmp, "longform"), LONGFORM_UTTS, split="longform",
+                                  seed=1234, min_words=LONGFORM_WORDS[0],
+                                  max_words=LONGFORM_WORDS[1])
+    with open(manifest) as f:
+        paths = [json.loads(line)["audio_path"] for line in f]
+    n_samples = [len(load_audio(p)) for p in paths]
+    frames = [1 + n // 160 for n in n_samples]  # the host mel's frames
+    batched = collections.Counter(
+        (len(chunk), -(-max(chunk) // LONGFORM_BUCKET) * LONGFORM_BUCKET)
+        for chunk in (frames[s:s + BATCH] for s in range(0, len(frames), BATCH)))
+    longest = int(np.argmax(n_samples))
+    out = {"manifest": manifest, "n_samples": n_samples, "stream": streaming_plan(n_samples),
+           "batched": batched, "longest": longest,
+           "longest_bucket": padded_frames(n_samples[longest], FRAME_BUCKET)}
+    log(f"long form: {len(paths)} utterances of {min(n_samples) / 16000:.1f}-"
+        f"{max(n_samples) / 16000:.1f} s written in {time.perf_counter() - t0:.3f} s; batched "
+        f"at bucket {LONGFORM_BUCKET} (size, padded frames) {dict(sorted(batched.items()))}; the "
+        f"longest ({n_samples[longest]} samples) at batch 1 pads to {out['longest_bucket']} frames")
+    return out
 
 
 def phase_main_path(manifest: str, plan):
@@ -1548,7 +1690,7 @@ def phase_streaming(manifest: str, plan):
         wers[lookahead] = wer
         batched_texts[lookahead] = texts
 
-    out["longform"] = streaming_longform(model, decoder, os.path.dirname(manifest))
+    out["longform"] = streaming_longform(model, decoder, plan["longform"])
 
     # live sessions, fed 0.1 s blocks, each advancing step timed to its sync
     st = StreamingTranscriber(model, decoder, chunk_frames=CHUNK_FRAMES)
@@ -1618,29 +1760,24 @@ def phase_streaming(manifest: str, plan):
     return out, wers, batched_texts
 
 
-def streaming_longform(model, decoder, tmp: str):
+def streaming_longform(model, decoder, longform):
     """7, long form: the 40-utterance long-form corpus (40-72 s each)
     through the batched streaming path at 2 s chunks and lookahead 0,
     held over all 40 to the JAX package's eval_longform_streaming.json,
     with the planned carried-state launches; returns the launch counts."""
     import torch
 
-    from velocity_asr_tpu_torch import synth
     from velocity_asr_tpu_torch.audio import load_audio
     from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
     from velocity_asr_tpu_torch.streaming import BatchedStreamingTranscriber
 
-    t0 = time.perf_counter()
-    manifest = synth.write_corpus(os.path.join(tmp, "longform"), LONGFORM_UTTS, split="longform",
-                                  seed=1234, min_words=LONGFORM_WORDS[0],
-                                  max_words=LONGFORM_WORDS[1])
-    with open(manifest) as f:
+    with open(longform["manifest"]) as f:
         rows = [json.loads(line) for line in f]
     audios = [load_audio(r["audio_path"]) for r in rows]
-    plan = streaming_plan([len(a) for a in audios])
+    plan = longform["stream"]
     seconds = [len(a) / 16000 for a in audios]
-    log(f"[streaming long form] {len(rows)} utterances of {min(seconds):.1f}-{max(seconds):.1f} s "
-        f"written in {time.perf_counter() - t0:.3f} s; chunks per utterance "
+    log(f"[streaming long form] {len(rows)} utterances of {min(seconds):.1f}-{max(seconds):.1f} s; "
+        f"chunks per utterance "
         f"{min(plan['chunks'])}-{max(plan['chunks'])}, {plan['steps']} advancing steps at "
         f"batch {BATCH}")
     bt = BatchedStreamingTranscriber(model, decoder, chunk_frames=CHUNK_FRAMES, batch_size=BATCH)
@@ -2444,12 +2581,13 @@ def batch_frames(batch):
 
 
 def run_train_cli(ckpt_dir, argv, traced=None, config=TRAIN_CONFIG, synthetic=TRAIN_SYNTH,
-                  tag="8b"):
+                  tag="8b", model_config=TRAIN_MODEL_CONFIG):
     """velocity_asr_tpu_torch.train's main with these arguments, each
     micro-step timed to a synchronise (frames, ms, loss, traced), and the
     launch counts of the run. traced = (first, count): a torch.profiler
     window over those micro-steps, whose device time by kernel is logged
-    (those steps carry the profiler's cost and are marked)."""
+    (those steps carry the profiler's cost and are marked). synthetic
+    None leaves the data to the config."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -2481,9 +2619,9 @@ def run_train_cli(ckpt_dir, argv, traced=None, config=TRAIN_CONFIG, synthetic=TR
     try:
         if count:
             prof.start()
-        out = cli.main(["--config", config, "--model-config", TRAIN_MODEL_CONFIG,
-                        "--synthetic", str(synthetic), "--checkpoint-dir", ckpt_dir,
-                        "--device", "cuda", *argv])
+        data = [] if synthetic is None else ["--synthetic", str(synthetic)]
+        out = cli.main(["--config", config, "--model-config", model_config, *data,
+                        "--checkpoint-dir", ckpt_dir, "--device", "cuda", *argv])
     finally:
         training.Trainer._step = step
         if count:
@@ -2734,6 +2872,480 @@ def phase_stream_training(manifest, stream_wers):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"counts": counts, "steps": STREAM_STEPS, "chunks": chunks, "buckets": buckets}
+
+
+# ---------------------------------------------------------------- phase 12
+
+
+def repo_test_module(name: str):
+    """tests/<name>.py of this checkout (the test encoders), imported by
+    its path: on some hosts ``tests`` names another installed package."""
+    import importlib.util
+
+    key = f"_velocity_asr_tests_{name}"
+    if key not in sys.modules:
+        spec = importlib.util.spec_from_file_location(key, os.path.join(ROOT, "tests",
+                                                                        f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[key] = module  # pickled by this name into pool workers
+        spec.loader.exec_module(module)
+    return sys.modules[key]
+
+
+def flac_bytes(pcm):
+    """FLAC bytes of int16 PCM by tests/flac_encoder.py: fixed-2 subframes,
+    or verbatim ones when the last 1,024-sample block holds fewer than 3
+    samples (the encoder writes such a block with a fixed-2 predictor,
+    whose 2 warm-up samples it cannot hold, and decoders reject it)."""
+    mode = "verbatim" if len(pcm) % 1024 in (1, 2) else "fixed2"
+    return repo_test_module("flac_encoder").encode_flac(pcm, mode=mode)
+
+
+def phase_formats(tmp: str, manifest: str, offline_texts):
+    """12a: the first FORMAT_UTTS held-out utterances re-encoded as FLAC
+    (lossless: the transcripts must be phase 4's), and as mp3, Ogg Vorbis
+    and m4a where this host's encoders load (WER within
+    FORMAT_WER_MAX_DIFF of phase 4's over the same), each set through
+    ``transcribe --input-dir`` and as /transcribe bodies to an in-process
+    server. The native library must build here. Returns the launches."""
+    import multiprocessing
+    from http.server import ThreadingHTTPServer
+    import threading
+
+    import torch
+
+    from velocity_asr_tpu_torch import io as tio
+    from velocity_asr_tpu_torch import transcribe as cli
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.serve import ASRService, make_handler
+    from velocity_asr_tpu_torch.training import compute_wer
+
+    mp3_codec, vorbis_codec = repo_test_module("mp3_codec"), repo_test_module("vorbis_codec")
+    t0 = time.perf_counter()
+    if not tio.native_available():
+        raise AssertionError("[formats] the native decoder library did not build")
+    log(f"[formats] native library built and loaded in {time.perf_counter() - t0:.3f} s "
+        f"({os.path.relpath(tio.host_build_dir(), ROOT)}); m4a shim "
+        f"{'built' if tio.m4a_available() else 'not built (no libavformat header or libraries)'}"
+        f"; supported_audio_exts() = {tio.supported_audio_exts()}")
+    with open(manifest) as f:
+        rows = [json.loads(line) for line in f][:FORMAT_UTTS]
+    n = len(rows)
+    refs = [r["text"] for r in rows]
+    pcms = [np.round(tio.decode_audio_file(r["audio_path"])[0][0] * 32768).astype(np.int16)
+            for r in rows]
+    floats = [p.astype(np.float32) / 32768 for p in pcms]
+    available = {"flac": True, "mp3": mp3_codec.lame_available(),
+                 "ogg": vorbis_codec.encoder_available(), "m4a": tio.m4a_available()}
+    encoders = [name for name, ok in available.items() if ok]
+    skipped = [name for name, ok in available.items() if not ok]
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(8) as pool:
+        blobs = {"flac": pool.map(flac_bytes, pcms)}
+    if available["mp3"]:
+        blobs["mp3"] = [mp3_codec.lame_encode(x, 16000) for x in floats]
+    if available["ogg"]:
+        blobs["ogg"] = [vorbis_codec.vorbis_encode(x, 16000) for x in floats]
+    dirs = {}
+    for name in encoders:
+        d = os.path.join(tmp, "formats", name)
+        os.makedirs(d, exist_ok=True)
+        for i in range(n):
+            path = os.path.join(d, f"utt_{i:05d}.{name}")
+            if name == "m4a":
+                tio.encode_m4a(path, floats[i], 16000)
+            else:
+                with open(path, "wb") as f:
+                    f.write(blobs[name][i])
+        dirs[name] = d
+    how = {"flac": "tests/flac_encoder.py", "mp3": "tests/mp3_codec.py over libmp3lame",
+           "ogg": "tests/vorbis_codec.py over libvorbisenc", "m4a": "io.encode_m4a"}
+    log(f"[formats] {n} utterances encoded in {time.perf_counter() - t0:.3f} s: "
+        + ", ".join(f"{name} ({how[name]})" for name in encoders)
+        + f"; encoders not loadable on this host: {', '.join(skipped) or 'none'}")
+
+    base = compute_wer(offline_texts[:n], refs)
+    total = collections.Counter()
+    svc = ASRService.from_checkpoint(CHECKPOINT, device="cuda", max_streams=1)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        for name, d in dirs.items():
+            out = os.path.join(tmp, "formats", f"{name}.json")
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(["--input-dir", d, "--checkpoint", CHECKPOINT, "--json", "--output",
+                           out, "--device", "cuda"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = dict(launch_counts)
+            total.update(counts)
+            with open(out) as f:
+                texts = [r.get("text") for r in json.load(f)]
+            files = sorted(os.listdir(d))
+            bodies = []
+            for fn in files:
+                with open(os.path.join(d, fn), "rb") as f:
+                    bodies.append(f.read())
+            reset_launch_counts()
+            served = []
+            for body in bodies:
+                status, res = http_json(server.server_address[1], "POST", "/transcribe", body)
+                if status != 200:
+                    raise AssertionError(f"[formats {name}] /transcribe answered {status}: {res}")
+                served.append(res["text"])
+            torch.cuda.synchronize()
+            total.update(dict(launch_counts))
+            same = sum(a == b for a, b in zip(texts, offline_texts))
+            same_served = sum(a == b for a, b in zip(served, offline_texts))
+            wer, wer_served = compute_wer(texts, refs), compute_wer(served, refs)
+            log(f"[formats {name}] transcribe --input-dir: rc {rc}, {len(texts)} files in "
+                f"{seconds:.3f} s, WER {wer * 100:.4f}%, {same}/{n} transcripts identical to "
+                f"phase 4's (WER {base * 100:.4f}%); /transcribe bodies: WER "
+                f"{wer_served * 100:.4f}%, {same_served}/{n} identical; launches {counts}")
+            if rc != 0 or len(texts) != n:
+                raise AssertionError(f"[formats {name}] the CLI failed on a file")
+            if counts != {"scan_fwd_f32": 10 * n, "log_mel_f32": n}:
+                raise AssertionError(f"[formats {name}] expected 10 scans and 1 log-mel a file")
+            if name == "flac" and not (same == same_served == n):
+                raise AssertionError("[formats flac] FLAC transcripts differ from the WAV's")
+            if max(abs(wer - base), abs(wer_served - base)) > FORMAT_WER_MAX_DIFF:
+                raise AssertionError(f"[formats {name}] WER off phase 4's by more than "
+                                     f"{FORMAT_WER_MAX_DIFF}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+    return dict(total)
+
+
+def phase_longform_offline(plan):
+    """12b: the 40 long-form utterances through the batched evaluation
+    (batch 16, bf16, frame buckets of LONGFORM_BUCKET) against
+    eval_longform_offline.json, 10 scans a forward; the longest through
+    the transcriber at batch 1 (10 scans, 1 log-mel), its fp32 logits card
+    against CPU; the kernels timed at these lengths. Returns the
+    launches."""
+    import torch
+
+    from velocity_asr_tpu_torch import evaluate as ev
+    from velocity_asr_tpu_torch.audio import load_audio
+    from velocity_asr_tpu_torch.data import ASRCollator
+    from velocity_asr_tpu_torch.models.model import from_pretrained
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.ops.mel import log_mel, log_mel_plain
+    from velocity_asr_tpu_torch.ops.pooling import pool_size_level1
+    from velocity_asr_tpu_torch.ops.scan import scan_fwd
+    from velocity_asr_tpu_torch.transcribe import checkpoint_decoder, load_transcriber
+
+    lf = plan["longform"]
+    total = collections.Counter()
+    model = from_pretrained(CHECKPOINT, device="cuda")
+    decoder = checkpoint_decoder(CHECKPOINT, model.config.vocab_size)
+    ds, n = ev.load_test_set(lf["manifest"])
+    collator = ASRCollator(frame_bucket=LONGFORM_BUCKET, target_bucket=1)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res = ev.evaluate(model, decoder, ds, n, collator, BATCH)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    total.update(counts)
+    n_batches = sum(lf["batched"].values())
+    texts = [r["prediction"] for r in res["results"]]
+    check_wer("long form offline, batched", texts, [r["reference"] for r in res["results"]],
+              JAX_LONGFORM_OFFLINE)
+    log(f"[long form offline] batched at {BATCH}, bucket {LONGFORM_BUCKET}: "
+        f"{dict(sorted(lf['batched'].items()))}, {res['seconds']:.3f} s of model and decode "
+        f"(rtf {res['rtf']:.5f})")
+    expect_launches("long form offline, batched", counts, {"scan_fwd_f32": 10 * n_batches})
+
+    longest = ds.samples[lf["longest"]]["audio_path"]
+    tr = load_transcriber(CHECKPOINT, device="cuda")
+    tr.transcribe_file(longest)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    text = tr.transcribe_file(longest)["text"]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(launch_counts)
+    total.update(counts)
+    log(f"[long form offline] the longest ({lf['n_samples'][lf['longest']] / 16000:.2f} s, "
+        f"bucket {lf['longest_bucket']} frames) at batch 1: {ms:.3f} ms; text "
+        f"{'equals' if text == texts[lf['longest']] else 'differs from'} the batched one's")
+    expect_launches("long form offline, batch 1", counts,
+                    {"scan_fwd_f32": 10, "log_mel_f32": 1})
+    audio = load_audio(longest)
+    padded, n_frames = tr._pad_audio(audio)
+    wire = torch.from_numpy(tr._to_wire(padded))
+    out_len = (n_frames + 1) // 2
+    f32 = [load_transcriber(CHECKPOINT, device=d, dtype="float32") for d in ("cuda", "cpu")]
+    lg = [t.masked_logits(wire.to(t.device), n_frames)[:, :out_len].cpu() for t in f32]
+    finite = all(torch.isfinite(x).all() for x in lg)
+    max_abs = (lg[0] - lg[1]).abs().max().item()
+    agree = (lg[0].argmax(-1) == lg[1].argmax(-1)).float().mean().item()
+    log(f"[long form offline] fp32 logits of the longest, card vs CPU ({out_len} frames): "
+        f"max_abs {max_abs:.3e} (tol {LOGITS_FP32_MAX_ABS:g}), argmax agreement {agree:.4f}")
+    if not (finite and max_abs <= LOGITS_FP32_MAX_ABS):
+        raise AssertionError("[long form offline] card logits disagree with the CPU")
+
+    # rows 1 and 2 at the long-form shapes (device time, CUDA graphs)
+    rng = np.random.default_rng(72)
+    shapes = sorted({(b, f) for b, f in list(lf["batched"]) + [(1, lf["longest_bucket"]),
+                                                                (1, LONG_FRAMES),
+                                                                (BATCH, LONG_FRAMES)]})
+    for batch, frames in shapes:
+        for state_dim, length in ((64, frames // 2), (32, pool_size_level1(frames // 2))):
+            args = scan_inputs(rng, length, state_dim, batch=batch)
+            t_ms = graph_time_ms(lambda: scan_fwd(*args), iters=20)
+            b_ms, b_by = bound_ms(*scan_cost(batch, length, 384, state_dim))
+            log(f"time scan N={state_dim} L={length} B={batch} D=384 (long form, device, CUDA "
+                f"graph): kernel {t_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), exp floor "
+                f"{exp_floor_ms(batch, length, 384, state_dim):.5f} ms")
+        _, padded = mel_inputs(rng, frames, batch)
+        m_ms = graph_time_ms(lambda: log_mel(padded), iters=20)
+        p_ms = graph_time_ms(lambda: log_mel_plain(padded), iters=5)
+        b_ms, b_by = bound_ms(*mel_cost(padded, batch * frames))
+        log(f"time log_mel B={batch} T={frames} (long form, device, CUDA graph): kernel "
+            f"{m_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(total)
+
+
+def disk_yaml(tmp: str, root: str, profile_dir: str, manifest=None) -> tuple:
+    """(train YAML, model YAML) for phase 12c: the recipe
+    (configs/train_synth.yaml) with its data read from the LibriSpeech tree
+    at `root` (or from `manifest`) as raw audio for the device mel, the
+    waveform augmentations on, a profiler window; the model
+    (configs/model_synth.yaml) with gradient checkpointing."""
+    with open(TRAIN_CONFIG) as f:
+        text = f.read()
+    if manifest:
+        data = f"data:\n  manifest: {manifest}\n  device_mel: true\n"
+    else:
+        splits = list(DISK_SPLITS)
+        data = (f"data:\n  librispeech_root: {root}\n  train_splits: [{splits[0]}]\n"
+                f"  val_splits: [{splits[1]}]\n  device_mel: true\n")
+    text, n_data = re.subn(r"^data:\n(  .*\n)+", data, text, flags=re.M)
+    text, n_aug = re.subn(r"^(augmentation:\n  enabled: true\n)",
+                          r"\1  noise_injection: true\n  speed_perturb: true\n", text, flags=re.M)
+    text, n_log = re.subn(r"^(logging:\n)",
+                          rf"\1  profile_dir: {profile_dir}\n  log_interval: 10\n", text,
+                          flags=re.M)
+    text = re.sub(r"^  log_interval: 50\n", "", text, flags=re.M)
+    if (n_data, n_aug, n_log) != (1, 1, 1):
+        raise AssertionError(f"{TRAIN_CONFIG}: its data, augmentation or logging section moved")
+    with open(TRAIN_MODEL_CONFIG) as f:
+        model = f.read()
+    model, n_perf = re.subn(r"^(performance:\n)", r"\1  gradient_checkpointing: true\n", model,
+                            flags=re.M)
+    if n_perf != 1:
+        raise AssertionError(f"{TRAIN_MODEL_CONFIG}: no performance section")
+    paths = []
+    for name, body in (("train.yaml" if not manifest else "train_manifest.yaml", text),
+                       ("model.yaml", model)):
+        paths.append(os.path.join(tmp, name))
+        with open(paths[-1], "w") as f:
+            f.write(body)
+    return tuple(paths)
+
+
+def checkpointed_step_bit_equal(batch):
+    """One fp32 micro-step of the recipe's model (dropout 0.1, the waveform
+    augmentations and the masks on) with gradient checkpointing against
+    the same step without it, from one generator seed: the loss and every
+    gradient compared bit for bit, and the plain step against itself (the
+    CTC loss on the CPU, whose CUDA backward adds with atomics; cuDNN in
+    its deterministic mode). Returns (bit-equal, plain repeatable)."""
+    import torch
+
+    from velocity_asr_tpu_torch.augment import SpecAugmentConfig, spec_augment
+    from velocity_asr_tpu_torch.config import load_yaml, model_config_from_yaml
+    from velocity_asr_tpu_torch.models.model import create_model
+    from velocity_asr_tpu_torch.training import Trainer, TrainingConfig, ctc_loss, step_seed
+
+    cfg = model_config_from_yaml(load_yaml(TRAIN_MODEL_CONFIG))
+    cfg = dataclasses.replace(cfg, dtype="float32", dropout=0.1, vocab_size=31)
+    aug = SpecAugmentConfig(enabled=True, noise_injection=True, speed_perturb=True)
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True, False):
+            model = create_model(dataclasses.replace(cfg, gradient_checkpointing=remat),
+                                 device="cuda", generator=torch.Generator().manual_seed(3))
+            trainer = Trainer(model, TrainingConfig(augment=aug), iter(()))
+            model.train()
+            rng = torch.Generator(device="cuda")
+            rng.manual_seed(step_seed(0, 7))
+            b = trainer._augment_waveform(trainer._to_device(batch), rng)
+            mel, _ = Trainer._batch_mel(b)
+            mel = spec_augment(mel, rng, aug, b["input_lengths"])
+            logits = model(mel, rng=rng)
+            loss = ctc_loss(logits.cpu(), torch.as_tensor(batch["targets"]),
+                            ((b["input_lengths"] + 1) // 2).cpu(),
+                            torch.as_tensor(batch["target_lengths"]))
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            runs.append((loss.detach(), [g.cpu() for g in grads]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+    return same(runs[0], runs[1]), same(runs[0], runs[2]), float(runs[0][0])
+
+
+def peak_memory(batch, frames, kind):
+    """torch.cuda.max_memory_allocated over one bf16 micro-step's forward
+    and backward of the recipe's model at (batch, frames), host mel or
+    device mel (int16 PCM), without and with gradient checkpointing (MB
+    above what was allocated before the step)."""
+    import torch
+
+    from velocity_asr_tpu_torch.config import load_yaml, model_config_from_yaml
+    from velocity_asr_tpu_torch.models.model import create_model
+    from velocity_asr_tpu_torch.training import Trainer, TrainingConfig
+
+    rng = np.random.default_rng(frames)
+    targets = np.full((batch, 64), 2, np.int32)
+    targets[:, :40] = rng.integers(3, 30, (batch, 40))
+    data = {"targets": targets, "input_lengths": np.full(batch, frames, np.int32),
+            "target_lengths": np.full(batch, 40, np.int32)}
+    if kind == "device mel":
+        data["audio"] = (rng.standard_normal((batch, (frames - 1) * 160)) * 3000).astype(np.int16)
+    else:
+        data["mel_spectrogram"] = rng.standard_normal((batch, frames, 80)).astype(np.float32)
+    cfg = model_config_from_yaml(load_yaml(TRAIN_MODEL_CONFIG))
+    out = {}
+    for remat in (False, True):
+        model = create_model(dataclasses.replace(cfg, gradient_checkpointing=remat),
+                             device="cuda")
+        trainer = Trainer(model, TrainingConfig(), iter(()))
+        model.train()
+        dev = trainer._to_device(data)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rng_t = torch.Generator(device="cuda")
+        rng_t.manual_seed(1)
+        loss = trainer._loss(dev, rng_t)
+        torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        out[remat] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        del model, trainer, dev, loss
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_disk_training(tmp: str):
+    """12c: the recipe trained through the CLI from a LibriSpeech-layout
+    FLAC tree (device mel, speed and noise augmentation, gradient
+    checkpointing, a profiler window), then 5 micro-steps from a manifest
+    over the same files: loss finite and falling, exactly
+    CHECKPOINTED_STEP launches a micro-step; the checkpointed step bit
+    for bit against the plain one on the card; peak memory with and
+    without checkpointing. Returns (launches, the profile directory)."""
+    import multiprocessing
+
+    import torch
+
+    from velocity_asr_tpu_torch import synth
+    from velocity_asr_tpu_torch.data import ASRCollator, LibriSpeechDataset
+
+
+    root = os.path.join(tmp, "librispeech")
+    t0 = time.perf_counter()
+    manifests = {}
+    with multiprocessing.get_context("spawn").Pool(8) as pool:
+        for split, (synth_split, n, speakers, chapters) in DISK_SPLITS.items():
+            manifests[split] = synth.write_librispeech_tree(
+                root, split, n, flac_bytes, speakers=speakers, chapters=chapters,
+                synth_split=synth_split, map_fn=pool.map)
+    log(f"[disk training] LibriSpeech tree (FLAC) written in {time.perf_counter() - t0:.3f} s: "
+        + ", ".join(f"{split} {n} utterances ({s} speakers x {c} chapters)"
+                    for split, (_, n, s, c) in DISK_SPLITS.items()))
+    profile_dir = os.path.join(tmp, "profile")
+    config, model_config = disk_yaml(tmp, root, profile_dir)
+    total = collections.Counter()
+    trainer, steps, counts, wall = run_train_cli(
+        os.path.join(tmp, "disk_run"), ["--max-steps", str(DISK_STEPS), "--num-workers", "8"],
+        config=config, synthetic=None, tag="12c", model_config=model_config)
+    total.update(counts)
+    losses = [loss for _, _, loss, _ in steps]
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    log(f"[disk training] vocabulary {trainer.model.config.vocab_size} tokens; gradient "
+        f"checkpointing {trainer.model.config.gradient_checkpointing}; loss first 10 mean "
+        f"{first:.4f}, last 10 mean {last:.4f}")
+    report_steps("12c", steps, trainer, wall)
+    want = {k: v * DISK_STEPS for k, v in CHECKPOINTED_STEP.items()}
+    expect_launches("disk training 12c", counts, want)
+    if not (all(math.isfinite(v) for v in losses) and len(losses) == DISK_STEPS
+            and last < first):
+        raise AssertionError("[disk training] a loss is not finite, or the loss did not fall")
+
+    m_config, _ = disk_yaml(tmp, root, os.path.join(tmp, "profile_manifest"),
+                            manifest=manifests["train-clean-100"])
+    m_trainer, m_steps, m_counts, m_wall = run_train_cli(
+        os.path.join(tmp, "manifest_run"),
+        ["--max-steps", str(DISK_MANIFEST_STEPS), "--num-workers", "8"], config=m_config,
+        synthetic=None, tag="12c manifest", model_config=model_config)
+    total.update(m_counts)
+    m_losses = [loss for _, _, loss, _ in m_steps]
+    log(f"[disk training, manifest] {len(m_losses)} micro-steps, losses "
+        + ", ".join(f"{v:.4f}" for v in m_losses))
+    expect_launches("disk training 12c, manifest", m_counts,
+                    {k: v * DISK_MANIFEST_STEPS for k, v in CHECKPOINTED_STEP.items()})
+    if not all(math.isfinite(v) for v in m_losses):
+        raise AssertionError("[disk training, manifest] a loss is not finite")
+
+    ds = LibriSpeechDataset(root, "train-clean-100", device_mel=True)
+    batch = ASRCollator(frame_bucket=200)([ds[i] for i in range(4)])
+    same, repeatable, loss = checkpointed_step_bit_equal(batch)
+    log(f"[disk training] one fp32 micro-step, 4 x {batch['audio'].shape[1] // 160 + 1} frames "
+        f"device mel, dropout 0.1, speed, noise and masks on, one generator seed (loss "
+        f"{loss:.6f}): with checkpointing loss and every gradient "
+        f"{'bit-equal to' if same else 'DIFFER from'} the plain step's; the plain step "
+        f"{'bit-equal to' if repeatable else 'DIFFERS from'} itself run again")
+    if not (same and repeatable):
+        raise AssertionError("[disk training] the checkpointed step differs from the plain one")
+    for batch_size, frames, kind in MEMORY_SHAPES:
+        mem = peak_memory(batch_size, frames, kind)
+        log(f"[disk training] peak memory of one bf16 micro-step at {batch_size} x {frames} "
+            f"{kind}: {mem[False]:.1f} MB without checkpointing, {mem[True]:.1f} MB with "
+            f"({mem[True] / mem[False]:.3f})")
+    torch.cuda.synchronize()
+    return dict(total), profile_dir
+
+
+def phase_profile(profile_dir: str):
+    """12d: the trace 12c's profiler window wrote parses as JSON, covers
+    exactly profile_steps micro-steps and names the log-mel, scan forward
+    and scan backward kernels."""
+    import glob
+
+    start, count = DISK_PROFILE
+    traces = glob.glob(os.path.join(profile_dir, "*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"[profile] expected one trace in {profile_dir}, found {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sorted({e["name"] for e in events if str(e.get("name", "")).startswith("micro_step_")})
+    kernels = collections.Counter(
+        k for e in events if e.get("cat") == "kernel"
+        for k in ("log_mel_kernel", "scan_fwd_kernel", "scan_bwd_kernel") if k in e["name"])
+    log(f"[profile] {os.path.basename(traces[0])}: {os.path.getsize(traces[0])} bytes, "
+        f"{len(events)} events; micro-steps {steps}; kernel events {dict(kernels)}")
+    want = [f"micro_step_{i}" for i in range(start, start + count)]
+    if sorted(steps) != sorted(want):
+        raise AssertionError(f"[profile] the window covers {steps}, not {want}")
+    if len(kernels) != 3:
+        raise AssertionError("[profile] the trace does not name the log-mel, scan forward and "
+                             "scan backward kernels")
+    per = {k: v / count for k, v in kernels.items()}
+    log(f"[profile] kernel events per micro-step: {per}")
+    return per
 
 
 def exp_floor_ms(batch, length, d_inner, state_dim):
@@ -3112,10 +3724,20 @@ def main(argv=None) -> int:
         stream_training = run_phase(
             "9 streaming-aware training",
             lambda: phase_stream_training(manifest, stream_wers), t_start)
+        data_counts = collections.Counter(run_phase(
+            "12a formats", lambda: phase_formats(tmp, manifest, offline_texts), t_start))
+        data_counts.update(run_phase(
+            "12b long-form offline", lambda: phase_longform_offline(plan), t_start))
+        disk_counts, profile_dir = run_phase(
+            "12c training from disk", lambda: phase_disk_training(tmp), t_start)
+        data_counts.update(disk_counts)
+        run_phase("12d profile_dir", lambda: phase_profile(profile_dir), t_start)
         kernels = run_phase(
             "6 timing",
             lambda: phase_timing(counts, bucket, errs, batched, streaming, training,
                                  stream_training, serve["transcribe"]), t_start)
+        for kernel in kernels["kernels"]:  # phase 12's launches join each kernel's count
+            kernel["launches"] += data_counts.get(kernel["name"], 0)
     except PhaseFailed as e:
         print(f"chip_smoke: phase {e} failed", file=sys.stderr)
         return 1

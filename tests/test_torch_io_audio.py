@@ -57,10 +57,15 @@ def test_wav_decode_bit_exact(tmp_path, kind, channels, extensible):
 
 
 def test_decode_rejects_non_wav(tmp_path):
+    """A corrupt FLAC goes to the native decoder, which rejects it as the
+    JAX package's does."""
     path = tmp_path / "x.flac"
     path.write_bytes(b"fLaC" + b"\x00" * 64)
-    with pytest.raises(RuntimeError, match="WAV only"):
+    with pytest.raises(ValueError, match="native decoder failed") as ours:
         tio.decode_audio_file(str(path))
+    with pytest.raises(ValueError) as ref:
+        jio.decode_audio_file(str(path))
+    assert str(ours.value) == str(ref.value)
 
 
 @pytest.mark.parametrize("rate", [16000, 8000, 22050])

@@ -96,6 +96,31 @@ def test_serving_modules_are_checked(module):
     assert module in _modules()
 
 
+@pytest.mark.parametrize("module", [
+    "velocity_asr_tpu_torch.io", "velocity_asr_tpu_torch.data",
+    "velocity_asr_tpu_torch.train", "velocity_asr_tpu_torch.training",
+    "velocity_asr_tpu_torch.augment", "velocity_asr_tpu_torch.models.ssm",
+    "velocity_asr_tpu_torch.evaluate", "velocity_asr_tpu_torch.synth",
+    "velocity_asr_tpu_torch.parity_run",
+])
+def test_data_source_modules_are_checked(module):
+    """The native decoding, the data sources (LibriSpeech, manifests,
+    dummy data), the waveform augmentation, gradient checkpointing, the
+    profiler window and the parity run are among the modules both checks
+    walk."""
+    assert module in _modules()
+
+
+def test_native_decoding_reads_only_the_repo_sources():
+    """The port builds its decoders from native/*.cc into its own _build/,
+    and names neither the JAX package's library directory nor the
+    Makefile's build directory."""
+    with open(os.path.join(PKG, "io.py")) as f:
+        text = f.read()
+    assert '"_native"' not in text and "_native/" not in text
+    assert '"build"' not in text and "native/build" not in text and "make -C" not in text
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"

@@ -378,7 +378,7 @@ def test_request_errors_are_classified(server, monkeypatch):
     wav = _wav(_audio(8000, 41))
     cases = [
         ("POST", "/transcribe", b"", 400, "empty body"),
-        ("POST", "/transcribe", b"fLaC" + bytes(64), 400, "item 2"),
+        ("POST", "/transcribe", b"fLaC" + bytes(64), 400, "native decoder failed on request body"),
         ("POST", "/transcribe?beam=x", wav, 400, "invalid query value"),
         ("POST", "/transcribe?hotwords=cat", wav, 400, "add ?beam=N"),
         ("POST", "/transcribe?identify_language=1", wav, 400,

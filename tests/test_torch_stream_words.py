@@ -378,7 +378,7 @@ def test_transcribe_cli_timestamps_input_dir_output(tmp_path, capsys):
     assert ttranscribe.main([wav, str(corpus / "notes.txt"), "--checkpoint", CKPT, "--device",
                              "cpu", "--streaming", "--output", str(text_out)]) == 1
     lines = text_out.read_text().splitlines()
-    assert lines[0].split("\t")[0] == wav and "reads WAV only" in lines[1]
+    assert lines[0].split("\t")[0] == wav and "unsupported format" in lines[1]
     assert ttranscribe.main([wav, "--checkpoint", CKPT, "--device", "cpu", "--streaming",
                              "--timestamps", "--json"]) == 0
     result = json.loads(capsys.readouterr().out.splitlines()[-1])
@@ -386,4 +386,4 @@ def test_transcribe_cli_timestamps_input_dir_output(tmp_path, capsys):
         " ".join(result["text"].split())
     with pytest.raises(SystemExit):
         ttranscribe.main(["--checkpoint", CKPT])
-    assert "provide WAV file(s) or --input-dir" in capsys.readouterr().err
+    assert "provide audio file(s) or --input-dir" in capsys.readouterr().err

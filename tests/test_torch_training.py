@@ -50,6 +50,7 @@ from velocity_asr_tpu_torch import training as ttraining
 from velocity_asr_tpu_torch.checkpoint import (_flatten, params_from_numpy, params_to_numpy,
                                                read_params)
 from velocity_asr_tpu_torch.models import model as tmodel
+from velocity_asr_tpu_torch.models import ssm as tssm
 from velocity_asr_tpu_torch.models.config import VelocityASRConfig
 from velocity_asr_tpu_torch.models.layers import Dropout
 from velocity_asr_tpu_torch.ops import cuda_lib
@@ -366,36 +367,51 @@ def test_training_step_after_inference_forward():
     assert trainer.optimizer.count == 1
 
 
-WAVEFORM_AUGMENTATION = "waveform augmentation.*ROADMAP module item 2"
+HOST_MEL_WAVEFORM = "noise_injection / speed_perturb require data.device_mel"
 
 
 @pytest.mark.parametrize("change,error,match", [
-    pytest.param({"model": {"gradient_checkpointing": True}}, NotImplementedError,
-                 "ROADMAP module item 5", id="gradient_checkpointing"),
+    # gradient checkpointing and profile_dir are ported: they train
+    pytest.param({"model": {"gradient_checkpointing": True}}, None, None,
+                 id="gradient_checkpointing"),
     # streaming needs device-mel batches: a host-mel batch is a
     # misconfiguration, not a fallback to the offline objective
     pytest.param({"train": {"streaming_chunks": 200}}, ValueError, "device_mel",
                  id="streaming_chunks"),
     pytest.param({"train": {"num_model_shards": 2}}, NotImplementedError,
                  "ROADMAP module item 9", id="num_model_shards"),
-    pytest.param({"train": {"profile_dir": "trace"}}, NotImplementedError,
-                 "ROADMAP module item 5", id="profile_dir"),
+    pytest.param({"train": {"profile_dir": "trace", "profile_start": 5}}, None, None,
+                 id="profile_dir"),
+    # the waveform augmentations act on device-mel batches' audio: on a
+    # host-mel batch they raise the JAX package's ValueError
     pytest.param({"train": {"augment": taugment.SpecAugmentConfig(enabled=True,
                                                                   noise_injection=True)}},
-                 NotImplementedError, WAVEFORM_AUGMENTATION, id="augment"),
+                 ValueError, HOST_MEL_WAVEFORM, id="augment"),
     pytest.param({"train": {"augment": taugment.SpecAugmentConfig(enabled=True,
                                                                   speed_perturb=True)}},
-                 NotImplementedError, WAVEFORM_AUGMENTATION, id="speed_perturb"),
+                 ValueError, HOST_MEL_WAVEFORM, id="speed_perturb"),
     pytest.param({"train": {"lid_loss_weight": 0.3}}, NotImplementedError,
                  "ROADMAP module item 8", id="lid_loss_weight"),
 ])
-def test_unported_options_raise(change, error, match):
+def test_unported_options_raise(change, error, match, monkeypatch):
     """Options the port does not train raise, naming their ROADMAP item,
-    when the Trainer is built; streaming_chunks raises ValueError at the
-    first micro-step on a host-mel batch."""
-    model = _small_model(seed=0)
-    model.config = dataclasses.replace(model.config, **change.get("model", {}))
+    when the Trainer is built; streaming_chunks and the waveform
+    augmentations raise ValueError at the first micro-step on a host-mel
+    batch; the ported options (error None) take a finite step. Model
+    options are set when the model is built, as the blocks read them."""
+    model = _small_model(seed=0, **change.get("model", {}))
     cfg = ttraining.TrainingConfig(**change.get("train", {}))
+    if error is None:
+        remat = []
+        apply = tssm.CheckpointedBlock.apply
+        monkeypatch.setattr(tssm.CheckpointedBlock, "apply",
+                            staticmethod(lambda *a: remat.append(1) or apply(*a)))
+        out = ttraining.Trainer(model, cfg, iter(())).train_step(_batch(2))
+        assert np.isfinite(out["loss"])
+        # checkpointing runs every local block as CheckpointedBlock
+        want = SMALL["ssm_layers"] if change.get("model") else 0
+        assert len(remat) == want
+        return
     with pytest.raises(error, match=match):
         ttraining.Trainer(model, cfg, iter(())).train_step(_batch(2))
 

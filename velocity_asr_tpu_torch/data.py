@@ -12,14 +12,19 @@ is part of every result. ``DataLoader`` batches a dataset for training on
 ``torch.utils.data.DataLoader`` worker processes (shuffled from an
 explicit generator, a new order each epoch; the collated numpy arrays,
 the int16 PCM too, cross from the workers as they are) and ``cycle``
-repeats it. Language labels are not ported yet.
+repeats it. ``LibriSpeechDataset`` reads LibriSpeech's on-disk layout
+(FLAC through ``io.decode_audio_file``); ``create_dataloader`` and
+``create_librispeech_dataloaders`` build the training and validation
+loaders of a manifest or of LibriSpeech splits. A manifest row's optional
+integer ``language`` rides along to the batch (the language-ID head that
+reads it is not ported).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,15 +41,19 @@ class ASRDataset:
     Manifest format (JSON lines): {"audio_path": ..., "text": ...,
     "duration": ...}. Filters by duration (an absent duration is kept),
     skips missing files, and builds a character vocabulary from the
-    corpus (<blank>=0, <unk>=1, <pad>=2, then the sorted characters).
-    With `device_mel` an item carries its raw audio and its frame count
-    1 + samples // hop instead of a mel.
+    corpus (<blank>=0, <unk>=1, <pad>=2, then the sorted characters), or
+    encodes with `tokenizer` (an object with ``encode(text)``) and builds
+    none. With `device_mel` an item carries its raw audio and its frame
+    count 1 + samples // hop instead of a mel. A row's integer
+    ``language`` becomes the item's.
     """
 
-    def __init__(self, manifest_path: str, max_duration: Optional[float] = 30.0,
-                 min_duration: float = 0.5, sample_rate: int = SAMPLE_RATE,
-                 normalize_audio: bool = True, device_mel: bool = False):
+    def __init__(self, manifest_path: str, tokenizer: Optional[Any] = None,
+                 max_duration: Optional[float] = 30.0, min_duration: float = 0.5,
+                 sample_rate: int = SAMPLE_RATE, normalize_audio: bool = True,
+                 device_mel: bool = False):
         self.manifest_path = manifest_path
+        self.tokenizer = tokenizer
         self.max_duration = max_duration
         self.min_duration = min_duration
         self.sample_rate = sample_rate
@@ -57,7 +66,7 @@ class ASRDataset:
                 "(the train step normalizes on device); use host mel"
             )
         self.samples = self._load_manifest()
-        self.vocab = self._build_vocab()
+        self.vocab = self._build_vocab() if tokenizer is None else None
 
     def _load_manifest(self) -> List[Dict[str, Any]]:
         samples = []
@@ -87,6 +96,8 @@ class ASRDataset:
         return vocab
 
     def text_to_tokens(self, text: str) -> List[int]:
+        if self.tokenizer is not None:
+            return self.tokenizer.encode(text)
         unk = self.vocab["<unk>"]
         return [self.vocab.get(c, unk) for c in text]
 
@@ -97,8 +108,11 @@ class ASRDataset:
         sample = self.samples[idx]
         audio = load_audio(sample["audio_path"], sample_rate=self.sample_rate)
         text = sample.get("text", "")
-        return speech_item(audio, text, self.text_to_tokens(text), self.device_mel,
+        item = speech_item(audio, text, self.text_to_tokens(text), self.device_mel,
                            self.normalize_audio)
+        if "language" in sample:
+            item["language"] = np.int32(sample["language"])
+        return item
 
 
 def speech_item(audio: np.ndarray, text: str, tokens: List[int], device_mel: bool,
@@ -158,12 +172,29 @@ class ASRCollator:
         targets = np.full((len(batch), max_tgt), self.pad_token_id, np.int32)
         for i, item in enumerate(batch):
             targets[i, : item["targets"].shape[0]] = item["targets"]
-        return {
+        out = {
             "targets": targets,
             "input_lengths": np.asarray([item["input_lengths"] for item in batch], np.int32),
             "target_lengths": np.asarray([item["target_lengths"] for item in batch], np.int32),
             "texts": [item.get("text", "") for item in batch],
         }
+        self._collate_language(batch, out)
+        return out
+
+    @staticmethod
+    def _collate_language(batch: List[Dict[str, Any]], out: Dict[str, Any]) -> None:
+        """The items' language labels as out["language"] (int32), when every
+        item has one; none, no key; a mix raises."""
+        n_labeled = sum(1 for item in batch if "language" in item)
+        if n_labeled == 0:
+            return
+        if n_labeled != len(batch):
+            raise ValueError(
+                f"batch mixes labeled and unlabeled utterances: {n_labeled}"
+                f"/{len(batch)} rows carry a 'language' field; label every "
+                "manifest row (or none)"
+            )
+        out["language"] = np.asarray([item["language"] for item in batch], np.int32)
 
     def _pad_audio(self, batch: List[Dict[str, Any]]) -> np.ndarray:
         """Device-mel collation: the frame count 1 + ceil(samples / hop) of
@@ -254,3 +285,110 @@ def calibration_batches(ds: Any, collator: ASRCollator, batch_size: int, num_bat
     for start in range(0, n, batch_size):
         items = [ds[i] for i in range(start, min(start + batch_size, n))]
         yield collator(items)["mel_spectrogram"]
+
+
+def create_dataloader(manifest_path: str, batch_size: int = 8, shuffle: bool = True,
+                      num_workers: int = 4, max_duration: Optional[float] = 30.0,
+                      min_duration: float = 0.5,
+                      device_mel: bool = False) -> Tuple[DataLoader, ASRDataset]:
+    """(loader, dataset) of a manifest, collated by ``ASRCollator()``; a
+    shuffled loader drops its last short batch."""
+    dataset = ASRDataset(manifest_path, max_duration=max_duration,
+                         min_duration=min_duration, device_mel=device_mel)
+    loader = DataLoader(dataset, batch_size=batch_size, shuffle=shuffle,
+                        num_workers=num_workers, collate_fn=ASRCollator(), drop_last=shuffle)
+    return loader, dataset
+
+
+LIBRISPEECH_CHARS = " abcdefghijklmnopqrstuvwxyz'"
+
+
+class LibriSpeechDataset:
+    """LibriSpeech read from its on-disk layout:
+    root/LibriSpeech/<split>/<speaker>/<chapter>/{<id>.flac,
+    <speaker>-<chapter>.trans.txt}, speakers and chapters in sorted order,
+    utterances in transcript order (a listed utterance without its FLAC is
+    skipped). Fixed vocabulary: <blank>, <unk>, <pad>, then
+    ``LIBRISPEECH_CHARS`` (31 tokens); transcripts are lowercased; audio past max_duration seconds is cut.
+    Items as ``ASRDataset``'s (host mel, or with `device_mel` the raw
+    audio)."""
+
+    def __init__(self, root: str = "./data", split: str = "train-clean-100",
+                 max_duration: Optional[float] = 30.0, device_mel: bool = False):
+        self.root = root
+        self.split = split
+        self.max_duration = max_duration
+        self.device_mel = device_mel
+        split_dir = os.path.join(root, "LibriSpeech", split)
+        if not os.path.isdir(split_dir):
+            raise FileNotFoundError(f"LibriSpeech split not found: {split_dir}")
+        self.entries: List[Tuple[str, str]] = []  # (flac path, transcript)
+        for speaker in sorted(os.listdir(split_dir)):
+            spk_dir = os.path.join(split_dir, speaker)
+            if not os.path.isdir(spk_dir):
+                continue
+            for chapter in sorted(os.listdir(spk_dir)):
+                chap_dir = os.path.join(spk_dir, chapter)
+                trans = os.path.join(chap_dir, f"{speaker}-{chapter}.trans.txt")
+                if not os.path.exists(trans):
+                    continue
+                with open(trans, "r", encoding="utf-8") as f:
+                    for line in f:
+                        utt_id, _, text = line.strip().partition(" ")
+                        flac = os.path.join(chap_dir, f"{utt_id}.flac")
+                        if os.path.exists(flac):
+                            self.entries.append((flac, text))
+        self.vocab = self._build_vocab()
+
+    @staticmethod
+    def _build_vocab() -> Dict[str, int]:
+        vocab = {"<blank>": 0, "<unk>": 1, "<pad>": 2}
+        for i, char in enumerate(LIBRISPEECH_CHARS):
+            vocab[char] = i + 3
+        return vocab
+
+    def text_to_tokens(self, text: str) -> List[int]:
+        unk = self.vocab["<unk>"]
+        return [self.vocab.get(c, unk) for c in text.lower()]
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        path, transcript = self.entries[idx]
+        waveform = load_audio(path, sample_rate=SAMPLE_RATE)
+        if self.max_duration:
+            waveform = waveform[: int(self.max_duration * SAMPLE_RATE)]
+        return speech_item(waveform, transcript.lower(), self.text_to_tokens(transcript),
+                           self.device_mel)
+
+
+def create_librispeech_dataloaders(root: str = "./data",
+                                   train_splits: Tuple[str, ...] = ("train-clean-100",),
+                                   val_splits: Tuple[str, ...] = ("dev-clean",),
+                                   batch_size: int = 8, num_workers: int = 4,
+                                   max_duration: float = 30.0, device_mel: bool = False
+                                   ) -> Tuple[DataLoader, DataLoader, Dict[str, int]]:
+    """(train loader, validation loader, vocabulary) of LibriSpeech splits:
+    several splits concatenate in order, the validation sets encode with
+    the first train split's vocabulary, the train loader shuffles and
+    drops its last short batch."""
+    def split_sets(splits):
+        return [LibriSpeechDataset(root=root, split=s, max_duration=max_duration,
+                                   device_mel=device_mel) for s in splits]
+
+    train_sets = split_sets(train_splits)
+    vocab = train_sets[0].vocab
+    val_sets = split_sets(val_splits)
+    for ds in val_sets:
+        ds.vocab = vocab
+    def joined(sets):
+        return torch.utils.data.ConcatDataset(sets) if len(sets) > 1 else sets[0]
+
+    train_ds, val_ds = joined(train_sets), joined(val_sets)
+    collator = ASRCollator()
+    train_loader = DataLoader(train_ds, batch_size=batch_size, shuffle=True,
+                              num_workers=num_workers, collate_fn=collator, drop_last=True)
+    val_loader = DataLoader(val_ds, batch_size=batch_size, shuffle=False,
+                            num_workers=num_workers, collate_fn=collator, drop_last=False)
+    return train_loader, val_loader, vocab

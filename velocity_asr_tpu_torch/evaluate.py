@@ -1,6 +1,8 @@
-"""Batched WER/CER evaluation (the --test-set branches of scripts/evaluate.py).
+"""Evaluation (scripts/evaluate.py): WER/CER over a labelled test set, or
+transcripts of a directory.
 
-    python -m velocity_asr_tpu_torch.evaluate --checkpoint DIR --test-set MANIFEST \
+    python -m velocity_asr_tpu_torch.evaluate --checkpoint DIR \
+        (--test-set MANIFEST | --test-set SPLIT [--librispeech-root ./data] | --audio-dir DIR) \
         [--int8 | --int8-static] [--batch-size 16] [--frame-bucket 200] \
         [--beam-width K [--lm LM.json.gz] [--lm-weight 0.5]
          [--hotwords FILE|w1,w2 | --hotwords-oracle] [--hotword-weight 2.0]] \
@@ -8,7 +10,15 @@
         [--streaming [--chunk-seconds 2.0] [--lookahead N] [--stream-tokens K]
          [--stream-memory M]]
 
-Utterances are read from a JSONL manifest, their log-mels computed on the
+``--test-set`` is a JSONL manifest, or else a LibriSpeech split under
+``--librispeech-root`` (``data.LibriSpeechDataset``, its FLAC read
+through ``io.decode_audio_file``). ``--audio-dir`` transcribes every
+audio file under a directory (every format ``io.supported_audio_exts``
+names) through ``transcribe.Transcriber`` at batch 1, with the beam and
+fusion as configured, and writes the results' list with ``--output``
+(a file that fails is listed with its error, as the transcribe CLI
+lists it).
+Utterances of a test set are read, their log-mels computed on the
 host and padded batch by batch to a multiple of ``--frame-bucket`` frames
 (``data.ASRCollator``); the model runs on the device, blank is forced on
 each utterance's padded frames and the batch is decoded on the device:
@@ -32,6 +42,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import time
 from typing import List
 
@@ -40,7 +51,7 @@ import torch
 
 from .audio import SAMPLE_RATE, load_audio
 from .beam import ctc_beam_search_torch
-from .data import ASRCollator, ASRDataset, calibration_batches
+from .data import ASRCollator, ASRDataset, LibriSpeechDataset, calibration_batches
 from .decode import CTCDecoder, ctc_greedy_decode_torch, force_blank_beyond
 from .hotwords import HotwordBooster, load_hotwords_arg
 from .lm import CharNGramLM
@@ -48,18 +59,33 @@ from .models.model import VelocityASR, from_pretrained
 from .quantize import calibrate_int8_model
 from .streaming import BatchedStreamingTranscriber
 from .training import compute_cer, compute_wer
-from .transcribe import checkpoint_decoder, chunk_frames_of, combine_scorers
+from .transcribe import (Transcriber, checkpoint_decoder, chunk_frames_of, collect_files,
+                         combine_scorers, transcribe_files)
 
 logger = logging.getLogger("velocity_asr_tpu_torch.evaluate")
 
 HOP_SECONDS = 0.01  # one mel frame
 
 
-def load_test_set(test_set: str, max_utts: int = 0):
-    """(dataset, utterance count) of a manifest; max_utts <= 0 means all."""
-    ds = ASRDataset(test_set, max_duration=None, min_duration=0.0)
+def load_test_set(test_set: str, max_utts: int = 0, librispeech_root: str = "./data"):
+    """(dataset, utterance count) of a manifest file, or else of the
+    LibriSpeech split of that name under librispeech_root, nothing
+    filtered or cut; max_utts <= 0 means all."""
+    if os.path.isfile(test_set):
+        ds = ASRDataset(test_set, max_duration=None, min_duration=0.0)
+    else:
+        ds = LibriSpeechDataset(root=librispeech_root, split=test_set, max_duration=None)
     n = len(ds) if max_utts <= 0 else min(len(ds), max_utts)
     return ds, n
+
+
+def utterance(ds, i: int):
+    """(audio path, reference text) of a test set's utterance i."""
+    if isinstance(ds, LibriSpeechDataset):
+        path, text = ds.entries[i]
+        return path, text.lower()
+    item = ds.samples[i]
+    return item["audio_path"], item.get("text", "")
 
 
 @torch.inference_mode()
@@ -194,12 +220,12 @@ def evaluate_streaming(model: VelocityASR, decoder: CTCDecoder, ds, n: int,
     references: List[str] = []
     total_audio_s = total_wall = 0.0
     for start in range(0, n, batch_size):
-        items = [ds.samples[i] for i in range(start, min(start + batch_size, n))]
-        audios = [load_audio(item["audio_path"]) for item in items]
+        items = [utterance(ds, i) for i in range(start, min(start + batch_size, n))]
+        audios = [load_audio(path) for path, _ in items]
         t0 = time.perf_counter()
         predictions.extend(st.transcribe_batch(audios))
         total_wall += time.perf_counter() - t0
-        references.extend(item.get("text", "") for item in items)
+        references.extend(text for _, text in items)
         total_audio_s += sum(len(a) for a in audios) / SAMPLE_RATE
         if (start // batch_size) % 10 == 0:
             logger.info("  %d/%d", start + len(audios), n)
@@ -217,7 +243,10 @@ def evaluate_streaming(model: VelocityASR, decoder: CTCDecoder, ds, n: int,
 def main(argv: List[str] | None = None) -> dict:
     parser = argparse.ArgumentParser(description="Evaluate the PyTorch port on a test set")
     parser.add_argument("--checkpoint", required=True, help="pretrained checkpoint dir")
-    parser.add_argument("--test-set", required=True, help="JSONL manifest")
+    parser.add_argument("--test-set", help="JSONL manifest, or a LibriSpeech split name")
+    parser.add_argument("--librispeech-root", default="./data",
+                        help="the directory holding LibriSpeech/ (for a split name)")
+    parser.add_argument("--audio-dir", help="transcribe every audio file under a directory")
     parser.add_argument("--batch-size", type=int, default=16)
     parser.add_argument("--frame-bucket", type=int, default=200,
                         help="pad each batch's mel frames to a multiple of this")
@@ -254,6 +283,14 @@ def main(argv: List[str] | None = None) -> dict:
     parser.add_argument("--stream-memory", type=int, default=None,
                         help="override config.stream_memory_chunks")
     args = parser.parse_args(argv)
+    if not args.audio_dir and not args.test_set:
+        parser.error("provide --audio-dir or --test-set")
+    if args.audio_dir and args.int8_static:
+        parser.error("--int8-static requires --test-set (the calibration pass runs over "
+                     "the test corpus)")
+    if args.audio_dir and (args.streaming or args.hotwords_oracle):
+        parser.error("--audio-dir transcribes offline with a fixed scorer: --streaming "
+                     "and --hotwords-oracle need --test-set")
     if args.streaming and args.int8_static:
         parser.error("--int8-static is not supported with --streaming "
                      "(static quant_stats are not threaded through the "
@@ -291,7 +328,18 @@ def main(argv: List[str] | None = None) -> dict:
                  if args.hotwords else None),
         hotword_weight=args.hotword_weight, oracle=args.hotwords_oracle)
 
-    ds, n = load_test_set(args.test_set, args.max_utts)
+    if args.audio_dir:
+        scorer, weight = scorer_for([]) if scorer_for else (None, 0.0)
+        transcriber = Transcriber(model, decoder, beam_width=args.beam_width,
+                                  lm_scorer=scorer, lm_weight=weight)
+        results = transcribe_files(collect_files(args.audio_dir), transcriber.transcribe_file)
+        for r in results:
+            logger.info("%s -> %s", r["file"], r.get("text", r.get("error")))
+        if args.output:
+            with open(args.output, "w") as f:
+                json.dump(results, f, indent=2)
+        return {"results": results}
+    ds, n = load_test_set(args.test_set, args.max_utts, args.librispeech_root)
     logger.info("Evaluating %d utterances from %s", n, args.test_set)
     if args.streaming:
         # no oracle here: a fixed scorer, whatever the texts

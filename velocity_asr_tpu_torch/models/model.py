@@ -50,6 +50,7 @@ class VelocityASR(nn.Module):
         self.local_ssm = LocalSSMProcessor(
             cfg.d_model, cfg.ssm_layers, cfg.ssm_state_dim, cfg.ssm_expand_ratio,
             cfg.ssm_kernel_size, cfg.scan_mode, dtype, cfg.dropout,
+            checkpoint=cfg.gradient_checkpointing,
         )
         int8 = {"int8": cfg.int8_inference, "int8_static": cfg.int8_static}
         self.global_context = HierarchicalGlobalContext(

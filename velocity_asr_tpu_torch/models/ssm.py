@@ -9,6 +9,13 @@ graph when it records (the streaming-aware objective). In training mode
 each block applies dropout after the SSM, after the FFN's GELU and after
 the FFN (the JAX sites), offline and streaming, its masks drawn from the
 ``rng`` passed in.
+
+With ``checkpoint`` (the model's ``gradient_checkpointing``) the local
+stack runs each block of a stateless pass under autograd as
+``CheckpointedBlock``: the forward keeps only the block's input and
+runs without recording (the no-bounds scan), and the backward runs the
+block again, recording (the bounds scan), with its dropout masks
+replayed from the generator state saved at the block's entry.
 """
 
 from __future__ import annotations
@@ -117,14 +124,53 @@ class SSMBlock(nn.Module):
         }
 
 
+class CheckpointedBlock(torch.autograd.Function):
+    """out = block(x, rng=rng), recomputed in the backward instead of kept
+    (``nn.remat`` of a block, as the JAX package wraps each local block).
+
+    The forward runs the block without recording and saves x and, if
+    `rng` is given, its state before the block's draws; the backward
+    runs the block again from x with a generator at that state, so its
+    dropout masks are the first pass's, and returns the gradients of x
+    and of the block's parameters (passed as `params`, in
+    ``block.parameters()`` order)."""
+
+    @staticmethod
+    def forward(ctx, block, rng, x, *params):
+        ctx.block = block
+        ctx.rng_state = None if rng is None else rng.get_state()
+        ctx.rng_device = None if rng is None else rng.device
+        ctx.save_for_backward(x)
+        return block(x, rng=rng)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        rng = None
+        if ctx.rng_state is not None:
+            rng = torch.Generator(device=ctx.rng_device)
+            rng.set_state(ctx.rng_state)
+        params = list(ctx.block.parameters())
+        with torch.enable_grad():
+            x_in = x.detach().requires_grad_(ctx.needs_input_grad[2])
+            out = ctx.block(x_in, rng=rng)
+        wanted = [t for t, need in zip([x_in] + params, ctx.needs_input_grad[2:]) if need]
+        grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
+        return (None, None) + tuple(next(grads) if need else None
+                                    for need in ctx.needs_input_grad[2:])
+
+
 class LocalSSMProcessor(nn.Module):
-    """A stack of SSM blocks and a final LayerNorm."""
+    """A stack of SSM blocks and a final LayerNorm; with `checkpoint`, a
+    stateless pass that records gradients runs each block as
+    ``CheckpointedBlock``."""
 
     def __init__(self, d_model: int = 192, num_layers: int = 8, state_dim: int = 64,
                  expand_ratio: int = 2, kernel_size: int = 4,
                  scan_mode: str = "parallel", dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, checkpoint: bool = False):
         super().__init__()
+        self.checkpoint = checkpoint
         self.layers = nn.ModuleList(
             SSMBlock(d_model, state_dim, expand_ratio, kernel_size, scan_mode, dtype, dropout)
             for _ in range(num_layers)
@@ -137,9 +183,13 @@ class LocalSSMProcessor(nn.Module):
         states are spliced in even when no state is asked back (running
         stateless would decode the chunk as a fresh stream)."""
         new_states = []
+        remat = (self.checkpoint and states is None and not return_state
+                 and torch.is_grad_enabled())
         for i, block in enumerate(self.layers):
             state = None if states is None else states[i]
-            if return_state:
+            if remat:
+                x = CheckpointedBlock.apply(block, rng, x, *block.parameters())
+            elif return_state:
                 x, st = block(x, state, return_state=True, rng=rng)
                 new_states.append(st)
             else:

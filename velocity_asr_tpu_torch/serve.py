@@ -7,7 +7,8 @@
 Endpoints:
   GET  /health       -> {"status": "ok", "model": {...}}
   POST /transcribe   -> {"text", "duration", "rtf"[, "words"]}
-      body: a WAV file. ?timestamps=1 adds word timings and confidences,
+      body: an audio file (WAV, FLAC, mp3, Ogg Vorbis, m4a). ?timestamps=1
+      adds word timings and confidences,
       ?beam=N decodes with the beam, ?hotwords=a,b&hotword_weight=W biases
       it toward the request's words (needs a beam). Greedy requests
       without timestamps from concurrent clients are micro-batched
@@ -30,8 +31,9 @@ A client's fault (an undecodable body, a bad query value) is a 400, the
 stream budget a 503, anything else a 500. The JAX server's /diarize and
 ?identify_language need a speaker model and a language-ID head, which the
 port has not taken yet: both answer 400, as the JAX server answers for a
-checkpoint without them. Bodies are decoded by io.decode_audio_file, which
-reads WAV only.
+checkpoint without them. /transcribe bodies are decoded by
+io.decode_audio_file (WAV, FLAC, mp3, Ogg Vorbis, and m4a where the
+system codecs are), sniffed from their first bytes.
 
     curl -s --data-binary @utt.wav 'localhost:8570/transcribe?timestamps=1'
     arecord -f S16_LE -r 16000 -c 1 -t raw | \\
@@ -304,8 +306,6 @@ class ASRService:
         except (ValueError, RuntimeError) as e:
             # the server's temp path stays out of the client's message
             msg = str(e).replace(repr(path), "request body")
-            if "reads WAV only" in msg:
-                msg += " (decoding other formats is ROADMAP module item 2)"
             raise BadRequest(msg) from e
         finally:
             os.unlink(path)

@@ -8,6 +8,9 @@ regenerates the JAX package's held-out set bit for bit, and its WER
 results (checkpoints/synth_run/eval_fp32_final.json) apply to it;
 ``SyntheticSpeechDataset`` serves the train and dev splits as the JAX
 package's does (one language; host mel, or raw audio for the device mel).
+``write_librispeech_tree`` writes utterances of a split in LibriSpeech's
+on-disk layout (FLAC, transcripts in upper case) with a manifest over
+the same files.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import hashlib
 import json
 import os
 import wave
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -209,4 +212,47 @@ def write_corpus(out_dir: str, n_utts: int, split: str = "test", seed: int = 123
                 w.writeframes(pcm.tobytes())
             row = {"audio_path": path, "text": text, "duration": len(audio) / SAMPLE_RATE}
             mf.write(json.dumps(row) + "\n")
+    return manifest
+
+
+def write_librispeech_tree(root: str, split: str, n_utts: int,
+                           encode_flac: Callable[[np.ndarray], bytes], speakers: int = 2,
+                           chapters: int = 2, synth_split: str = "train", seed: int = 1234,
+                           min_words: int = 2, max_words: int = 8, map_fn=map) -> str:
+    """Write utterances 0..n_utts-1 of `synth_split` as the LibriSpeech split
+    `split` under root/LibriSpeech/: `speakers` x `chapters` directories
+    (speaker 100 + s, chapter 1000 + c, utterances dealt to them in turn,
+    ids <speaker>-<chapter>-<nnnn>), each utterance int16 PCM encoded to
+    FLAC by `encode_flac` (int16 samples -> FLAC bytes), each chapter's
+    ``<speaker>-<chapter>.trans.txt`` in upper case as LibriSpeech's are.
+    Also writes root/<split>_manifest.jsonl (audio_path, lower-case text,
+    duration) over the same files; returns its path. `map_fn` runs
+    encode_flac over the utterances (``map``, or a process pool's)."""
+    lexicon = make_lexicon(1500, seed=seed)
+    voice = SynthVoice(seed=seed)
+    groups = [(100 + s, 1000 + c) for s in range(speakers) for c in range(chapters)]
+    lines: Dict[tuple, List[str]] = {g: [] for g in groups}
+    manifest = os.path.join(root, f"{split}_manifest.jsonl")
+    os.makedirs(root, exist_ok=True)
+    utts = [utterance(i, synth_split, seed, lexicon, voice, min_words, max_words)
+            for i in range(n_utts)]
+    pcms = [np.clip(audio * 32767, -32768, 32767).astype(np.int16) for _, audio in utts]
+    with open(manifest, "w") as mf:
+        for i, ((text, _), pcm, blob) in enumerate(zip(utts, pcms, map_fn(encode_flac, pcms))):
+            spk, chap = groups[i % len(groups)]
+            chap_dir = os.path.join(root, "LibriSpeech", split, str(spk), str(chap))
+            os.makedirs(chap_dir, exist_ok=True)
+            utt_id = f"{spk}-{chap}-{i // len(groups):04d}"
+            path = os.path.join(chap_dir, f"{utt_id}.flac")
+            with open(path, "wb") as f:
+                f.write(blob)
+            lines[(spk, chap)].append(f"{utt_id} {text.upper()}")
+            mf.write(json.dumps({"audio_path": path, "text": text,
+                                 "duration": len(pcm) / SAMPLE_RATE}) + "\n")
+    for (spk, chap), rows in lines.items():
+        if rows:
+            trans = os.path.join(root, "LibriSpeech", split, str(spk), str(chap),
+                                 f"{spk}-{chap}.trans.txt")
+            with open(trans, "w") as f:
+                f.write("\n".join(rows) + "\n")
     return manifest

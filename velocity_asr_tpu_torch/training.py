@@ -24,7 +24,19 @@ uses.
 - Batches carry a host mel (``mel_spectrogram``) or, from a
   ``device_mel`` dataset, int16 PCM (``audio``) that the step turns into
   a log-mel on the device (``ops.mel``, the log-mel kernel on the card)
-  and normalises over each utterance's valid frames.
+  and normalises over each utterance's valid frames. In training the
+  waveform augmentations act first, in the JAX order: ``speed_perturb``
+  (which rescales the valid lengths), then ``noise_injection``, each
+  from its own fork of the micro-step's generator; on a host-mel batch
+  either raises.
+- A model with ``gradient_checkpointing`` recomputes its local SSM
+  blocks in the backward (``models.ssm.CheckpointedBlock``), their
+  dropout masks replayed: a micro-step runs 8 no-bounds scan forwards,
+  10 bounds forwards and 10 backwards on the card.
+- ``profile_dir``: ``train`` records micro-steps [profile_start,
+  profile_start + profile_steps) in a ``torch.profiler`` window (CPU,
+  and CUDA on the card), each step in a ``micro_step_<n>`` range, and
+  writes its Chrome trace there; the window is closed in a ``finally``.
 - ``streaming_chunks`` > 0 (device-mel batches only) adds the
   streaming-aware term: CTC on ``streaming.streaming_forward`` logits of
   the same utterances, normalised with causal per-chunk statistics and
@@ -53,8 +65,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .audio import causal_normalize_mel, masked_normalize_mel
-from .augment import SpecAugmentConfig, spec_augment
+from .audio import HOP_LENGTH, causal_normalize_mel, masked_normalize_mel
+from .augment import SpecAugmentConfig, noise_inject, spec_augment, speed_perturb_audio
 from .ops.mel import compute_mel_spectrogram
 from .streaming import streaming_forward
 
@@ -65,8 +77,8 @@ logger = logging.getLogger(__name__)
 class TrainingConfig:
     """Training configuration: the JAX package's fields and defaults. The
     port trains the offline objective and, with ``streaming_chunks``, the
-    streaming-aware one; a config that turns on anything else makes
-    ``Trainer`` raise (see ``Trainer.__init__``)."""
+    streaming-aware one; a config that turns on QAT, MoE, the language-ID
+    loss or parallel training makes ``Trainer`` raise (``_unsupported``)."""
 
     learning_rate: float = 1e-4
     weight_decay: float = 0.01
@@ -253,20 +265,13 @@ class Optimizer:
 
 def _unsupported(model_config, config: TrainingConfig) -> Optional[str]:
     """What the port cannot train yet, with the ROADMAP item it waits on."""
-    aug = config.augment
     checks = [
         (getattr(model_config, "qat", False), "QAT (ROADMAP module item 6)"),
         (getattr(model_config, "moe_experts", 0) > 0, "MoE (ROADMAP module item 8)"),
         (getattr(model_config, "num_languages", 0) > 0 or config.lid_loss_weight > 0,
          "the language-ID head and loss (ROADMAP module item 8)"),
-        (getattr(model_config, "gradient_checkpointing", False),
-         "gradient checkpointing (ROADMAP module item 5)"),
-        (aug is not None and aug.enabled and (aug.noise_injection or aug.speed_perturb),
-         "noise_injection / speed_perturb, the waveform augmentation of device_mel "
-         "batches (ROADMAP module item 2)"),
         (config.num_model_shards > 1 or config.num_pipeline_stages > 1
          or config.num_data_shards not in (None, 1), "parallel training (ROADMAP module item 9)"),
-        (config.profile_dir is not None, "profile_dir tracing (ROADMAP module item 5)"),
     ]
     return next((what for bad, what in checks if bad), None)
 
@@ -274,6 +279,16 @@ def _unsupported(model_config, config: TrainingConfig) -> Optional[str]:
 def step_seed(seed: int, step: int) -> int:
     """The generator seed of micro-step `step` of a run seeded `seed`."""
     return (seed * 1_000_003 + step) % (1 << 63)
+
+
+def _fork(rng: torch.Generator, stream: int) -> torch.Generator:
+    """A generator of its own for one draw of a micro-step (stream 1:
+    speed, 2: noise), seeded from `rng`'s seed, so turning an
+    augmentation on leaves `rng`'s own draws (masks, dropout) as they
+    were."""
+    fork = torch.Generator(device=rng.device)
+    fork.manual_seed((rng.initial_seed() * 1_000_003 + stream * 7_919) % (1 << 63))
+    return fork
 
 
 class Trainer:
@@ -317,26 +332,56 @@ class Trainer:
     @staticmethod
     def _batch_mel(batch: Dict[str, torch.Tensor]):
         """(normalised mel, un-normalised mel or None): a host-mel batch as
-        it came; a device-mel batch's PCM scaled by 1/32768, its log-mel
+        it came; a device-mel batch's waveform (``waveform`` if the
+        augmentation made one, else the PCM scaled by 1/32768), its log-mel
         computed here and normalised over each utterance's valid frames."""
         if "audio" not in batch:
             return batch["mel_spectrogram"].to(torch.float32), None
-        audio = batch["audio"].to(torch.float32) * (1.0 / 32768.0)
+        audio = batch.get("waveform")
+        if audio is None:
+            audio = batch["audio"].to(torch.float32) * (1.0 / 32768.0)
         raw = compute_mel_spectrogram(audio, normalize=False)
         return masked_normalize_mel(raw, batch["input_lengths"]), raw
 
+    def _augment_waveform(self, batch: Dict[str, torch.Tensor],
+                          rng: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        """In training (`rng` given) with ``speed_perturb`` or
+        ``noise_injection`` on: the batch with its waveform (the PCM scaled
+        by 1/32768) speed-warped, which rescales ``input_lengths``, then
+        noised over its (lengths - 1) * hop valid samples, each from its own
+        fork of `rng`, as ``waveform``. Otherwise the batch as it is. On a
+        host-mel batch either switch raises."""
+        aug = self.config.augment
+        if rng is None or aug is None or not aug.enabled or not (aug.speed_perturb
+                                                                  or aug.noise_injection):
+            return batch
+        if "audio" not in batch:
+            # a misconfiguration, not a fallback
+            raise ValueError(
+                "augmentation.noise_injection / speed_perturb require "
+                "data.device_mel: true (both act on the waveform "
+                "before the on-device mel front-end)")
+        audio = batch["audio"].to(torch.float32) * (1.0 / 32768.0)
+        lengths = batch["input_lengths"]
+        if aug.speed_perturb:
+            audio, lengths = speed_perturb_audio(audio, _fork(rng, 1), aug, lengths, HOP_LENGTH)
+        if aug.noise_injection:
+            audio = noise_inject(audio, _fork(rng, 2), aug, (lengths - 1) * HOP_LENGTH)
+        return {**batch, "waveform": audio, "input_lengths": lengths}
+
     def _loss(self, batch: Dict[str, torch.Tensor], rng: Optional[torch.Generator]):
-        """The micro-batch's loss; `rng` draws SpecAugment and dropout (None:
-        neither). With ``streaming_chunks`` and a device-mel batch, the
-        streaming term is added in training and evaluation alike."""
+        """The micro-batch's loss; `rng` draws the augmentations and dropout
+        (None: neither). With ``streaming_chunks`` and a device-mel batch,
+        the streaming term is added in training and evaluation alike."""
         cfg = self.config
+        batch = self._augment_waveform(batch, rng)
         mel, raw = self._batch_mel(batch)
+        lengths = batch["input_lengths"]
         if cfg.streaming_chunks and raw is None and self.model.training:
             # a misconfiguration, not a fallback to the offline objective
             raise ValueError(
                 "training.streaming_chunks requires data.device_mel: true "
                 "(the streaming-aware objective needs raw mel on device)")
-        lengths = batch["input_lengths"]
         aug = cfg.augment
         aug_state = None
         if rng is not None and aug is not None and aug.enabled:
@@ -399,43 +444,91 @@ class Trainer:
         os.makedirs(cfg.checkpoint_dir, exist_ok=True)
         history: Dict[str, List[float]] = {"train_loss": [], "eval_loss": [], "lr": []}
         losses: List[torch.Tensor] = []
-        t0 = time.perf_counter()
-        for step in range(self.global_step, cfg.max_steps):
-            t_wait = time.perf_counter()
-            batch = next(self.train_iter)
-            self.data_wait_seconds += time.perf_counter() - t_wait
-            losses.append(self._step(batch))
+        t0 = t_loop = time.perf_counter()
+        wait0, first = self.data_wait_seconds, self.global_step
+        window = None
+        try:
+            for step in range(self.global_step, cfg.max_steps):
+                if cfg.profile_dir is not None:
+                    if step == cfg.profile_start:
+                        window = self._start_profile()
+                    elif window is not None and step == cfg.profile_start + cfg.profile_steps:
+                        self._stop_profile(window)
+                        window = None
+                t_wait = time.perf_counter()
+                batch = next(self.train_iter)
+                self.data_wait_seconds += time.perf_counter() - t_wait
+                if window is not None:
+                    with torch.profiler.record_function(f"micro_step_{step}"):
+                        losses.append(self._step(batch))
+                else:
+                    losses.append(self._step(batch))
 
-            if (step + 1) % cfg.log_interval == 0:
-                avg = float(torch.stack(losses).mean())  # the interval's one sync
-                losses = []
-                lr = self.optimizer.last_lr()
-                dt = (time.perf_counter() - t0) / cfg.log_interval
-                logger.info("Step %d/%d | Loss: %.4f | LR: %.6f | %.3fs/step",
-                            step + 1, cfg.max_steps, avg, lr, dt)
-                history["train_loss"].append(avg)
-                history["lr"].append(lr)
-                if cfg.metrics_path:
-                    os.makedirs(os.path.dirname(os.path.abspath(cfg.metrics_path)),
-                                exist_ok=True)
-                    with open(cfg.metrics_path, "a") as f:
-                        f.write(json.dumps({"step": step + 1, "loss": avg, "lr": lr,
-                                            "sec_per_step": dt}) + "\n")
-                t0 = time.perf_counter()
+                if (step + 1) % cfg.log_interval == 0:
+                    avg = float(torch.stack(losses).mean())  # the interval's one sync
+                    losses = []
+                    lr = self.optimizer.last_lr()
+                    dt = (time.perf_counter() - t0) / cfg.log_interval
+                    logger.info("Step %d/%d | Loss: %.4f | LR: %.6f | %.3fs/step",
+                                step + 1, cfg.max_steps, avg, lr, dt)
+                    history["train_loss"].append(avg)
+                    history["lr"].append(lr)
+                    if cfg.metrics_path:
+                        os.makedirs(os.path.dirname(os.path.abspath(cfg.metrics_path)),
+                                    exist_ok=True)
+                        with open(cfg.metrics_path, "a") as f:
+                            f.write(json.dumps({"step": step + 1, "loss": avg, "lr": lr,
+                                                "sec_per_step": dt}) + "\n")
+                    t0 = time.perf_counter()
 
-            if self.eval_batches and (step + 1) % cfg.eval_interval == 0:
-                eval_loss = self.evaluate()["eval_loss"]
-                history["eval_loss"].append(eval_loss)
-                logger.info("Eval Loss: %.4f", eval_loss)
-                if eval_loss < self.best_eval_loss:
-                    self.best_eval_loss = eval_loss
-                    self.save_checkpoint(os.path.join(cfg.checkpoint_dir, "best_model"))
+                if self.eval_batches and (step + 1) % cfg.eval_interval == 0:
+                    eval_loss = self.evaluate()["eval_loss"]
+                    history["eval_loss"].append(eval_loss)
+                    logger.info("Eval Loss: %.4f", eval_loss)
+                    if eval_loss < self.best_eval_loss:
+                        self.best_eval_loss = eval_loss
+                        self.save_checkpoint(os.path.join(cfg.checkpoint_dir, "best_model"))
 
-            if (step + 1) % cfg.save_interval == 0:
-                self.save_checkpoint(os.path.join(cfg.checkpoint_dir,
-                                                  f"checkpoint_step_{step + 1}"))
-                self._rotate_checkpoints()
+                if (step + 1) % cfg.save_interval == 0:
+                    self.save_checkpoint(os.path.join(cfg.checkpoint_dir,
+                                                      f"checkpoint_step_{step + 1}"))
+                    self._rotate_checkpoints()
+        finally:
+            if window is not None:  # a run that ends or fails inside the window
+                self._stop_profile(window)
+        logger.info("Trained %d micro-steps: data wait %.3f s of %.3f s",
+                    cfg.max_steps - first, self.data_wait_seconds - wait0,
+                    time.perf_counter() - t_loop)
         return history
+
+    # ----- profiling -----------------------------------------------------------
+
+    def _start_profile(self):
+        """Open a ``torch.profiler`` window (CPU, and CUDA on the card) for
+        micro-steps [profile_start, profile_start + profile_steps); each
+        step in it runs inside a ``micro_step_<n>`` range."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+            torch.cuda.synchronize(self.device)  # earlier steps' kernels stay out
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        logger.info("profiler trace started -> %s", self.config.profile_dir)
+        return prof
+
+    def _stop_profile(self, prof) -> str:
+        """Close the window and write its Chrome trace into profile_dir;
+        returns the trace's path."""
+        cfg = self.config
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(cfg.profile_dir, exist_ok=True)
+        path = os.path.join(cfg.profile_dir, f"trace_steps_{cfg.profile_start}_"
+                                             f"{cfg.profile_start + cfg.profile_steps}.json")
+        prof.export_chrome_trace(path)
+        logger.info("profiler trace stopped -> %s", path)
+        return path
 
     # ----- checkpoints ---------------------------------------------------------
 

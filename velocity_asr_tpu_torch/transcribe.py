@@ -1,6 +1,6 @@
 """Transcription (the greedy and beam paths of scripts/transcribe.py).
 
-    python -m velocity_asr_tpu_torch.transcribe utt.wav [more.wav ...] [--input-dir DIR] \
+    python -m velocity_asr_tpu_torch.transcribe utt.flac [more.wav ...] [--input-dir DIR] \
         --checkpoint DIR [--timestamps] [--json] [--output FILE] \
         [--beam-width K [--lm LM.json.gz] [--lm-weight 0.5] [--hotwords FILE|w1,w2]
          [--hotword-weight 2.0]] \
@@ -25,9 +25,10 @@ chunk N chunks late.
 ``--timestamps`` adds each file's words with their start and end
 seconds and confidences (offline: greedy spans from the per-frame argmax,
 or with the beam a CTC Viterbi alignment of its tokens; streaming: the
-spans the session tracks). ``--input-dir`` takes every WAV file under a
-directory (the port decodes WAV only), and a file that fails is reported
-and skipped. ``Transcriber.transcribe_batch`` is the server's batched
+spans the session tracks). Files are decoded by ``io.decode_audio_file``
+(WAV, FLAC, mp3, Ogg Vorbis, and m4a where the system codecs are);
+``--input-dir`` takes every such file under a directory, and a file that
+fails is reported and skipped. ``Transcriber.transcribe_batch`` is the server's batched
 greedy path: one forward per frame bucket.
 """
 
@@ -38,7 +39,7 @@ import json
 import os
 import sys
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -50,6 +51,7 @@ from .decode import (CTCDecoder, _log_softmax_np, align_tokens_to_frames,
                      words_with_timestamps)
 from .device import resolve_device
 from .hotwords import load_hotwords_arg
+from .io import supported_audio_exts
 from .lm import CharNGramLM, CombinedScorer
 from .models.model import VelocityASR, from_pretrained
 from .ops.mel import compute_mel_spectrogram
@@ -260,19 +262,38 @@ def transcribe_streaming(st: StreamingTranscriber, path: str, timestamps: bool =
 
 
 def collect_files(input_dir: str) -> List[str]:
-    """Every WAV file under input_dir, walked in sorted order (the port
-    decodes WAV only)."""
+    """Every file under input_dir with an extension this build decodes
+    (``io.supported_audio_exts``), walked in sorted order."""
+    exts = supported_audio_exts()
     out = []
     for root, dirs, files in os.walk(input_dir):
         dirs.sort()
-        out += [os.path.join(root, f) for f in sorted(files) if f.lower().endswith(".wav")]
+        out += [os.path.join(root, f) for f in sorted(files) if f.lower().endswith(exts)]
     return out
 
 
+def transcribe_files(files: List[str], transcribe_one: Callable[[str], dict],
+                     on_result: Optional[Callable[[dict], None]] = None) -> List[dict]:
+    """transcribe_one(path) for each file in order; a file that fails gives
+    ``{"file": path, "error": message}`` (also on stderr) and the others go
+    on. on_result sees each result as it comes."""
+    results = []
+    for path in files:
+        try:
+            result = transcribe_one(path)
+        except Exception as e:  # one file's failure does not stop the others
+            result = {"file": path, "error": str(e)}
+            print(f"{path}: {e}", file=sys.stderr)
+        results.append(result)
+        if on_result is not None:
+            on_result(result)
+    return results
+
+
 def main(argv: List[str] | None = None) -> int:
-    parser = argparse.ArgumentParser(description="Transcribe WAV files with the PyTorch port")
-    parser.add_argument("audio", nargs="*", help="WAV file(s) to transcribe")
-    parser.add_argument("--input-dir", help="transcribe every WAV file under a directory")
+    parser = argparse.ArgumentParser(description="Transcribe audio files with the PyTorch port")
+    parser.add_argument("audio", nargs="*", help="audio file(s) to transcribe")
+    parser.add_argument("--input-dir", help="transcribe every audio file under a directory")
     parser.add_argument("--checkpoint", required=True, help="pretrained checkpoint dir")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--output", help="write the results to this file (JSON with --json, "
@@ -300,7 +321,7 @@ def main(argv: List[str] | None = None) -> int:
     parser.add_argument("--lm-weight", type=float, default=0.5)
     args = parser.parse_args(argv)
     if not args.audio and not args.input_dir:
-        parser.error("provide WAV file(s) or --input-dir")
+        parser.error("provide audio file(s) or --input-dir")
     if args.lookahead and not args.streaming:
         parser.error("--lookahead requires --streaming")
     if args.hotwords and args.beam_width <= 1:
@@ -327,20 +348,18 @@ def main(argv: List[str] | None = None) -> int:
             beam_scorers=[(pipeline.lm_scorer, pipeline.lm_weight)] if pipeline.lm_scorer
             else None)
     files = list(args.audio) + (collect_files(args.input_dir) if args.input_dir else [])
-    results = []
-    for path in files:
-        try:
-            if streamer is not None:
-                result = transcribe_streaming(streamer, path, timestamps=args.timestamps)
-            else:
-                result = pipeline.transcribe_file(path, timestamps=args.timestamps)
-        except Exception as e:  # one file's failure does not stop the others
-            result = {"file": path, "error": str(e)}
-            print(f"{path}: {e}", file=sys.stderr)
-        results.append(result)
+
+    def transcribe_one(path):
+        if streamer is not None:
+            return transcribe_streaming(streamer, path, timestamps=args.timestamps)
+        return pipeline.transcribe_file(path, timestamps=args.timestamps)
+
+    def show(result):
         if not args.output:
             print(json.dumps(result) if args.json
-                  else f"{path}\t{result.get('text', result.get('error', ''))}")
+                  else f"{result['file']}\t{result.get('text', result.get('error', ''))}")
+
+    results = transcribe_files(files, transcribe_one, show)
     if args.output:
         with open(args.output, "w") as f:
             if args.json:
