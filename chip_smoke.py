@@ -220,7 +220,32 @@ its seconds:
      mel and 8 x 3,600 device mel; (d) the window's Chrome trace: micro-
      steps 10-14 exactly, naming the log-mel, scan forward and backward
      kernels;
-  6. (after 7, 10, 11, 8, 9 and 12, whose launch counts it reports) kernel timings beside
+  13. (after 12) quantization-aware training, the int8 package and export:
+     (a) one fp32 QAT micro-step of the checkpoint renested into its QAT
+     model (prepare_model_for_qat) on 8a's 4 x 400 batch, card against
+     CPU (weight observers bit-equal; the loss within 0.15 relative, every
+     gradient within 0.3 of its max|grad|, activation observers' scale and
+     zero point within 5e-3 relative: about twice the CPU's own gaps when
+     the mel moves by 1e-7 relative, which are logged beside them, as the
+     fake quantizers' codes flip at an ulp; 8a's limits are logged too);
+     then both models calibrated on that batch (observers as
+     above; logits within the CPU's calibrated-vs-float gap, argmax
+     agreement at least 0.99); (b) configs/train_synth.yaml with
+     quantization.enabled through the CLI, --init-from the checkpoint,
+     20 micro-steps in bf16: every loss finite, exactly 10 bounds-forward
+     and 10 backward launches per micro-step (host mel: no log-mel),
+     final_pretrained/config.json qat false, quant_stats.msgpack equal to
+     the trainer's observers and params.msgpack to the trained weights,
+     bf16 WER within 0.5 point of phase 5's, micro-steps per second beside
+     8c's; (c) export_model --quantize --verify (the .pt2 verified on the
+     card) and --calibrate synthetic on the checkpoint, its wall time; the
+     calibrated package through load_int8_model(device="cuda") batched at
+     16 over the held-out utterances: exactly 10 scan and 11
+     int8_dense_static_f32 launches per forward, WER within 1.0 point of
+     eval_int8_static.json, its evaluation time beside phase 5's
+     --int8-static; the uncalibrated package (dequantized weights, float
+     Dense): 10 scans per forward, bf16 WER within 0.5 point of phase 5's;
+  6. (after 7, 10, 11, 8, 9, 12 and 13, whose launch counts it reports) kernel timings beside
      their bounds and a library call: device time from CUDA graphs of many
      calls (what the JSON line reports), and CUDA events around eager
      calls, which include the host's launch; each scan forward's bound
@@ -394,6 +419,22 @@ TRAIN_GRAD_MAX_REL = 1e-3
 # this fraction of the model's largest gradient instead.
 ZERO_GRAD_PARAMS = ("global_context.cross_attention.k_proj.bias",)
 ZERO_GRAD_MAX_REL = 1e-5
+# Phase 13a, a QAT micro-step card against CPU: the fake quantizers'
+# rounding turns an ulp of difference in an activation into a whole code
+# (1/255 of the layer's range) whenever the value sits near a rounding
+# boundary, and the checkpoint's loss on 8a's batch is small (0.0084), so
+# 8a's limits cannot hold. The CPU against itself, the mel multiplied by
+# 1 + 1e-7 (or 1 - 1e-7, 1 + 3e-7, 1 + 1e-6), moved the loss by up to
+# 6.4e-2 relative, a gradient by up to 0.127 of its max|grad| and an
+# activation observer's scale or zero point by up to 1.9e-3 relative; the
+# card against the CPU moved them by 9.2e-3, 0.112 and 2.3e-3 (NVIDIA H100
+# 80GB HBM3, 700 W, this script's first run of phase 13). The bounds are
+# about twice the CPU's own sensitivity; weight observers see the same
+# fp32 weights and stay bit-equal, and each run logs the CPU's gaps under
+# a 1e-7 nudge beside the card's.
+QAT_LOSS_MAX_REL = 0.15
+QAT_GRAD_MAX_REL = 0.3
+QAT_OBSERVER_MAX_REL = 5e-3
 TRAIN_LOSS_BOUND = 4.5  # phase 8b: mean loss of micro-steps 151-200 at most this
 FINETUNE_WER_MAX_DIFF = 0.005  # phase 8c: within 0.5 point of phase 5's bf16 WER
 # Card against CPU, int8-dynamic model at fp32: an fp32 difference of a
@@ -1609,7 +1650,7 @@ def phase_batched(manifest: str, plan):
             raise AssertionError(f"[{mode}] WER {res['wer']:.4f} is more than {WER_MAX_DIFF} "
                                  f"from JAX {jax_wer:.4f}")
         out[mode] = {"counts": counts, "batches": n_batches,
-                     "bucket": buckets.most_common(1)[0][0], "wer": res["wer"]}
+                     "bucket": buckets.most_common(1)[0][0], "wer": res["wer"], "wall": wall}
 
     # int8-dynamic logits at fp32, one 400-frame batch of 4: card vs CPU
     items = [ds[i] for i in range(n) if mel_lens[i] <= 400][:4]
@@ -2749,7 +2790,8 @@ def phase_training(manifest, batched):
             raise AssertionError(f"[train 8c] WER {res['wer']:.4f} vs phase 5's {base:.4f}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"counts": counts, "steps": TRAIN_STEPS}
+    return {"counts": counts, "steps": TRAIN_STEPS,
+            "finetune_p50_ms": np.percentile([ms for _, ms, _, _ in ft_steps], 50)}
 
 
 def stream_check_batch():
@@ -3348,6 +3390,293 @@ def phase_profile(profile_dir: str):
     return per
 
 
+# ---------------------------------------------------------------- phase 13
+
+
+def qat_model(device):
+    """The checkpoint's full-width model as its QAT model
+    (prepare_model_for_qat) at fp32, dropout off, its float weights
+    renested into the QAT tree (the binding's conv/{kernel,bias})."""
+    from velocity_asr_tpu_torch.checkpoint import params_from_numpy, qat_params_tree, read_params
+    from velocity_asr_tpu_torch.models.model import create_model
+    from velocity_asr_tpu_torch.quantize import prepare_model_for_qat
+
+    cfg = prepare_model_for_qat(dataclasses.replace(checkpoint_config(), dtype="float32",
+                                                    dropout=0.0))
+    model = create_model(cfg, device=device)
+    tree = qat_params_tree(read_params(os.path.join(CHECKPOINT, "params.msgpack")))
+    model.load_state_dict(params_from_numpy(tree), strict=True)
+    return model
+
+
+def qat_micro_step(device, batch):
+    """One fp32 QAT micro-step of 8a's kind on `device` (SpecAugment and
+    dropout off): (loss, gradients by name, observers by name, on the
+    CPU), and the model."""
+    import torch
+
+    from velocity_asr_tpu_torch.quantize import quant_stats_buffers
+    from velocity_asr_tpu_torch.training import Trainer, TrainingConfig
+
+    model = qat_model(device)
+    trainer = Trainer(model, TrainingConfig(learning_rate=3e-4, warmup_steps=1), iter(()))
+    model.train()
+    loss = trainer._loss(trainer._to_device(batch), None)
+    grads = torch.autograd.grad(loss, trainer.params)
+    names = [n for n, _ in model.named_parameters()]
+    stats = {k: v.detach().cpu().clone() for k, v in quant_stats_buffers(model).items()}
+    return loss.item(), {n: g.cpu() for n, g in zip(names, grads)}, stats, model
+
+
+def observer_gaps(a, b):
+    """(weight observers bit-equal, worst activation scale / zero point
+    max_abs / max|b|, its name) of two observer sets."""
+    import torch
+
+    weights_equal, worst, name = True, 0.0, None
+    for key, want in b.items():
+        leaf = key.rsplit(".", 1)[1]
+        if leaf not in ("scale", "zero_point"):
+            continue
+        if ".weight_quantizer." in key:
+            weights_equal &= torch.equal(a[key], want)
+            continue
+        rel = ((a[key] - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, name = rel, key
+    return weights_equal, worst, name
+
+
+def qat_gaps(a, b):
+    """The card-vs-CPU (or CPU-vs-CPU) gaps of two QAT micro-steps: loss
+    relative, worst gradient relative to its max|grad| (the exact-zero
+    ones apart, relative to the largest gradient), observers."""
+    (loss_a, g_a, s_a, _), (loss_b, g_b, s_b, _) = a, b
+    top = max(g.abs().max().item() for g in g_b.values())
+    grad_rel = {n: ((g_a[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+                for n, g in g_b.items() if n not in ZERO_GRAD_PARAMS}
+    zero_rel = max(max(g_a[n].abs().max().item(), g_b[n].abs().max().item()) / top
+                   for n in ZERO_GRAD_PARAMS)
+    worst = max(grad_rel, key=grad_rel.get)
+    weights_equal, obs_rel, obs_name = observer_gaps(s_a, s_b)
+    return {"loss_rel": abs(loss_a - loss_b) / abs(loss_b), "grad_rel": grad_rel[worst],
+            "grad_name": worst, "zero_rel": zero_rel, "weights_equal": weights_equal,
+            "obs_rel": obs_rel, "obs_name": obs_name}
+
+
+def gaps_report(g) -> str:
+    return (f"loss rel {g['loss_rel']:.3e}; worst gradient {g['grad_rel']:.3e} "
+            f"({g['grad_name']}); exact-zero gradient {g['zero_rel']:.3e} of the largest; "
+            f"weight observers {'bit-equal' if g['weights_equal'] else 'DIFFER'}; worst "
+            f"activation observer {g['obs_rel']:.3e} ({g['obs_name']})")
+
+
+def qat_card_vs_cpu(card: str):
+    """13a: one fp32 QAT micro-step on 8a's 4 x 400-frame batch, card
+    against CPU, within the QAT bounds (8a's limits logged beside them),
+    with the CPU's own gaps when the mel moves by 1e-7 relative; then both
+    models calibrated on that batch and evaluated on it: observers as
+    above, logits as the int8 model's are held."""
+    import torch
+
+    from velocity_asr_tpu_torch.quantize import calibrate_model, quant_stats_buffers
+
+    batch = check_batch()
+    card_step = qat_micro_step("cuda", batch)
+    cpu_step = qat_micro_step("cpu", batch)
+    nudged = dict(batch, mel_spectrogram=(batch["mel_spectrogram"]
+                                          * np.float32(1 + 1e-7)).astype(np.float32))
+    gaps, own = qat_gaps(card_step, cpu_step), qat_gaps(qat_micro_step("cpu", nudged), cpu_step)
+    log(f"[qat 13a] fp32 QAT micro-step, 4x400, card vs CPU: {gaps_report(gaps)} (tol: loss "
+        f"{QAT_LOSS_MAX_REL:g}, gradients {QAT_GRAD_MAX_REL:g}, exact-zero "
+        f"{ZERO_GRAD_MAX_REL:g}, weight observers bit-equal, activation observers "
+        f"{QAT_OBSERVER_MAX_REL:g}; 8a's: loss {TRAIN_LOSS_MAX_REL:g}, gradients "
+        f"{TRAIN_GRAD_MAX_REL:g}) | {card}")
+    log(f"[qat 13a] the CPU against itself with the mel x (1 + 1e-7): {gaps_report(own)}")
+    step_ok = (math.isfinite(card_step[0]) and gaps["loss_rel"] <= QAT_LOSS_MAX_REL
+               and gaps["grad_rel"] <= QAT_GRAD_MAX_REL and gaps["zero_rel"] <= ZERO_GRAD_MAX_REL
+               and gaps["weights_equal"] and gaps["obs_rel"] <= QAT_OBSERVER_MAX_REL)
+
+    mel = torch.from_numpy(batch["mel_spectrogram"])
+    logits, stats = [], []
+    for _, _, _, model in (card_step, cpu_step):
+        device = next(model.parameters()).device
+        with torch.no_grad():
+            model.eval()
+            plain = model(mel.to(device)).cpu()  # uncalibrated: the float model
+            calibrate_model(model, [mel], num_batches=1)
+            logits.append((model(mel.to(device)).cpu(), plain))
+        stats.append({k: v.cpu() for k, v in quant_stats_buffers(model).items()})
+    (card_lg, _), (cpu_lg, cpu_plain) = logits
+    weights_equal, obs_rel, obs_name = observer_gaps(*stats)
+    max_abs = (card_lg - cpu_lg).abs().max().item()
+    noise = (cpu_lg - cpu_plain).abs().max().item()
+    agree = (card_lg.argmax(-1) == cpu_lg.argmax(-1)).float().mean().item()
+    log(f"[qat 13a] calibrated QAT eval on that batch, card vs CPU: weight observers "
+        f"{'bit-equal' if weights_equal else 'DIFFER'}, worst activation observer {obs_rel:.3e} "
+        f"({obs_name}; tol {QAT_OBSERVER_MAX_REL:g}); logits max_abs {max_abs:.3e} (tol: the "
+        f"CPU's calibrated-vs-float gap {noise:.3e}), argmax agreement {agree:.4f} (tol "
+        f"{LOGITS_INT8_MIN_AGREE:g})")
+    if not step_ok:
+        raise AssertionError("[qat 13a] the QAT micro-step on the card disagrees with the CPU")
+    if not (torch.isfinite(card_lg).all() and weights_equal and obs_rel <= QAT_OBSERVER_MAX_REL
+            and max_abs < noise and agree >= LOGITS_INT8_MIN_AGREE):
+        raise AssertionError("[qat 13a] the calibrated QAT model on the card disagrees with "
+                             "the CPU")
+
+
+def qat_finetune(tmp: str, manifest: str, batched, training, card: str):
+    """13b: configs/train_synth.yaml with quantization.enabled through the
+    CLI, --init-from the checkpoint, FINETUNE_STEPS micro-steps (8c's
+    budget, bf16); returns its launch counts."""
+    import torch
+
+    from velocity_asr_tpu_torch import evaluate as ev
+    from velocity_asr_tpu_torch.checkpoint import (params_from_numpy, quant_stats_from_numpy,
+                                                   read_params)
+    from velocity_asr_tpu_torch.data import ASRCollator
+    from velocity_asr_tpu_torch.models.model import from_pretrained
+    from velocity_asr_tpu_torch.quantize import quant_stats_buffers
+    from velocity_asr_tpu_torch.transcribe import checkpoint_decoder
+
+    with open(TRAIN_CONFIG) as f:
+        text = f.read()
+    off = "quantization:\n  enabled: false\n"
+    if off not in text:
+        raise AssertionError(f"{TRAIN_CONFIG} has no '{off.strip()}' section to turn on")
+    config = os.path.join(tmp, "train_synth_qat.yaml")
+    with open(config, "w") as f:
+        f.write(text.replace(off, "quantization:\n  enabled: true\n"))
+    out_dir = os.path.join(tmp, "qat")
+    trainer, steps, counts, wall = run_train_cli(
+        out_dir, ["--init-from", CHECKPOINT, "--max-steps", str(FINETUNE_STEPS)],
+        config=config, tag="13b")
+    report_steps("13b", steps, trainer, wall)
+    losses = [loss for _, _, loss, _ in steps]
+    log(f"[qat 13b] QAT fine-tune losses: {', '.join(f'{v:.4f}' for v in losses)}")
+    if not (trainer.model.config.qat and len(losses) == FINETUNE_STEPS
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError("[qat 13b] not a QAT run, a step is missing or a loss is not finite")
+    check_train_launches("13b", counts, FINETUNE_STEPS)  # host mel: no log-mel
+    pretrained = os.path.join(out_dir, "final_pretrained")
+    with open(os.path.join(pretrained, "config.json")) as f:
+        qat_flag = json.load(f)["config"]["qat"]
+    stats = quant_stats_from_numpy(read_params(os.path.join(pretrained, "quant_stats.msgpack")))
+    observed = quant_stats_buffers(trainer.model)
+    same_stats = set(stats) == set(observed) and all(
+        torch.equal(stats[k], observed[k].cpu()) for k in observed)
+    back = params_from_numpy(read_params(os.path.join(pretrained, "params.msgpack")))
+    trained = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+    same_params = set(back) == set(trained) and all(torch.equal(back[k], trained[k])
+                                                    for k in trained)
+    model = from_pretrained(pretrained, device="cuda")
+    ds, n = ev.load_test_set(manifest)
+    res = ev.evaluate(model, checkpoint_decoder(CHECKPOINT, model.config.vocab_size), ds, n,
+                      ASRCollator(frame_bucket=FRAME_BUCKET, target_bucket=1), BATCH)
+    base = batched["bf16"]["wer"]
+    p50 = np.percentile([ms for _, ms, _, _ in steps], 50)
+    log(f"[qat 13b] final_pretrained config qat {qat_flag}; quant_stats.msgpack "
+        f"{'equals' if same_stats else 'DIFFERS from'} the trainer's {len(observed)} observer "
+        f"stats; params.msgpack {'equals' if same_params else 'DIFFERS from'} the trained "
+        f"weights; bf16 WER {res['wer'] * 100:.4f}% CER {res['cer'] * 100:.4f}% over {n} "
+        f"against phase 5's {base * 100:.4f}% (tol {FINETUNE_WER_MAX_DIFF * 100:g} point)")
+    log(f"[qat 13b] time: {1e3 / p50:.3f} micro-steps/s (p50 {p50:.3f} ms) against 8c's "
+        f"{1e3 / training['finetune_p50_ms']:.3f} (p50 {training['finetune_p50_ms']:.3f} ms) | "
+        f"{card}")
+    if qat_flag is not False or not same_stats or not same_params:
+        raise AssertionError("[qat 13b] final_pretrained is not the QAT run's float model")
+    if abs(res["wer"] - base) > FINETUNE_WER_MAX_DIFF:
+        raise AssertionError(f"[qat 13b] WER {res['wer']:.4f} vs phase 5's {base:.4f}")
+    return counts
+
+
+def evaluate_package(tag, package, manifest, want_int8):
+    """Batched evaluation (batch 16, bucket 200) of an int8 package on the
+    card, warmed up, counted and timed: (result, launch counts, seconds)."""
+    import torch
+
+    from velocity_asr_tpu_torch import evaluate as ev
+    from velocity_asr_tpu_torch.data import ASRCollator
+    from velocity_asr_tpu_torch.export import load_int8_model
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.transcribe import checkpoint_decoder
+
+    model = load_int8_model(package, device="cuda")
+    decoder = checkpoint_decoder(CHECKPOINT, model.config.vocab_size)
+    ds, n = ev.load_test_set(manifest)
+    collator = ASRCollator(frame_bucket=FRAME_BUCKET, target_bucket=1)
+    ev.evaluate(model, decoder, ds, min(n, BATCH), collator, BATCH)  # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = ev.evaluate(model, decoder, ds, n, collator, BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    n_batches = -(-n // BATCH)
+    want = {"scan_fwd_f32": 10 * n_batches}
+    if want_int8:
+        want["int8_dense_static_f32"] = 11 * n_batches
+    expect_launches(tag, counts, want)
+    return res, counts, wall
+
+
+def qat_export(tmp: str, manifest: str, batched, card: str):
+    """13c: export_model on the checkpoint, --quantize --verify (the .pt2
+    verified on the card, the uncalibrated package) and --calibrate
+    synthetic (the calibrated package); both packages evaluated over the
+    held-out utterances. Returns their launch counts."""
+    from velocity_asr_tpu_torch import export_model
+    from velocity_asr_tpu_torch.training import compute_wer
+
+    plain_dir, calib_dir = os.path.join(tmp, "export"), os.path.join(tmp, "export_calibrated")
+    t0 = time.perf_counter()
+    out = export_model.main(["--checkpoint", CHECKPOINT, "--output-dir", plain_dir,
+                             "--quantize", "--verify", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    calib = export_model.main(["--checkpoint", CHECKPOINT, "--output-dir", calib_dir,
+                               "--calibrate", "synthetic", "--device", "cuda"])
+    calib_wall = time.perf_counter() - t1
+    verify = out["verify"]
+    log(f"[qat 13c] export_model --quantize --verify: {wall:.3f} s, of which torch.export "
+        f"{out['export_seconds']:.3f} s; .pt2 verified on the card: max |live - exported| "
+        f"{verify['max_abs']:.3e}, argmax agreement {verify['argmax_agreement']:.4f}; package "
+        f"{out['int8']['quantized_tensors']} tensors, {out['int8']['fp32_mb']:.3f} MB -> "
+        f"{out['int8']['int8_mb']:.3f} MB | --calibrate synthetic: {calib_wall:.3f} s "
+        f"(torch.export {calib['export_seconds']:.3f} s) | {card}")
+    res, counts, eval_wall = evaluate_package(
+        "qat 13c calibrated package", os.path.join(calib_dir, "int8"), manifest, True)
+    preds = [r["prediction"] for r in res["results"]]
+    refs = [r["reference"] for r in res["results"]]
+    check_wer("qat 13c calibrated package", preds, refs, JAX_BATCH_EVALS["int8_static"])
+    static = batched["int8_static"]
+    log(f"[qat 13c] calibrated package batched evaluation: {eval_wall:.3f} s for {len(refs)} "
+        f"utterances against phase 5's --int8-static {static['wall']:.3f} s | {card}")
+    res_plain, counts_plain, _ = evaluate_package(
+        "qat 13c uncalibrated package", os.path.join(plain_dir, "int8"), manifest, False)
+    base = batched["bf16"]["wer"]
+    log(f"[qat 13c] uncalibrated package (dequantized weights, float Dense): bf16 WER "
+        f"{res_plain['wer'] * 100:.4f}% against phase 5's {base * 100:.4f}% (tol "
+        f"{FINETUNE_WER_MAX_DIFF * 100:g} point); the calibrated one's "
+        f"{compute_wer(preds, refs) * 100:.4f}%")
+    if abs(res_plain["wer"] - base) > FINETUNE_WER_MAX_DIFF:
+        raise AssertionError(f"[qat 13c] uncalibrated package WER {res_plain['wer']:.4f} vs "
+                             f"phase 5's {base:.4f}")
+    return collections.Counter(counts) + collections.Counter(counts_plain)
+
+
+def phase_qat(tmp: str, manifest: str, batched, training, card: str):
+    """Phase 13: 13a card against CPU, 13b the QAT fine-tune through the
+    CLI, 13c export and the int8 packages; returns the launch counts of
+    13b's and 13c's runs."""
+    qat_card_vs_cpu(card)
+    work = tempfile.mkdtemp(prefix="velocity_asr_qat_", dir=tmp)
+    counts = collections.Counter(qat_finetune(work, manifest, batched, training, card))
+    counts.update(qat_export(work, manifest, batched, card))
+    return counts
+
+
 def exp_floor_ms(batch, length, d_inner, state_dim):
     """The least time the SFU takes for the forward's one IEEE expf per
     (b, t, d, n): exp2 at SFU_PER_CLOCK_PER_SM a clock on every SM at the
@@ -3732,11 +4061,14 @@ def main(argv=None) -> int:
             "12c training from disk", lambda: phase_disk_training(tmp), t_start)
         data_counts.update(disk_counts)
         run_phase("12d profile_dir", lambda: phase_profile(profile_dir), t_start)
+        data_counts.update(run_phase(
+            "13 QAT, int8 package, export",
+            lambda: phase_qat(tmp, manifest, batched, training, card), t_start))
         kernels = run_phase(
             "6 timing",
             lambda: phase_timing(counts, bucket, errs, batched, streaming, training,
                                  stream_training, serve["transcribe"]), t_start)
-        for kernel in kernels["kernels"]:  # phase 12's launches join each kernel's count
+        for kernel in kernels["kernels"]:  # phases 12's and 13's launches join each count
             kernel["launches"] += data_counts.get(kernel["name"], 0)
     except PhaseFailed as e:
         print(f"chip_smoke: phase {e} failed", file=sys.stderr)

@@ -128,13 +128,21 @@ def test_from_pretrained_loads_committed_checkpoint_and_overrides():
     assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
-# int8_inference is ported; with QAT on, the JAX package's quant_mode
-# picks QAT, which still raises.
+# QAT and int8_inference are ported: with both on, the JAX package's
+# quant_mode picks QAT, and the model builds with QAT projections. MoE
+# and the language-ID head still raise.
 @pytest.mark.parametrize("option", [
     {"qat": True}, {"int8_inference": True, "qat": True}, {"moe_experts": 8},
     {"num_languages": 4},
 ])
 def test_unported_options_raise(option):
+    if option.get("qat"):
+        from velocity_asr_tpu_torch.quantize import DynamicInt8Dense, QuantDense
+
+        model = tmodel.create_model(VelocityASRConfig(d_model=32, **option), device="cpu")
+        assert isinstance(model.ctc_head.proj, QuantDense)
+        assert not any(isinstance(m, DynamicInt8Dense) for m in model.modules())
+        return
     with pytest.raises(NotImplementedError):
         tmodel.create_model(VelocityASRConfig(**option), device="cpu")
 

@@ -111,6 +111,28 @@ def test_data_source_modules_are_checked(module):
     assert module in _modules()
 
 
+@pytest.mark.parametrize("module", [
+    "velocity_asr_tpu_torch.quantize", "velocity_asr_tpu_torch.export",
+    "velocity_asr_tpu_torch.export_model", "velocity_asr_tpu_torch.train",
+    "velocity_asr_tpu_torch.checkpoint", "velocity_asr_tpu_torch",
+])
+def test_qat_and_export_modules_are_checked(module):
+    """Quantization-aware training (FakeQuantize, QuantDense, QuantConv1d,
+    the observers' tree), the int8 package, the torch.export program and
+    its CLI, and the package's public names are among the modules both
+    checks walk."""
+    assert module in _modules()
+
+
+def test_qat_names_need_no_jax():
+    """The QAT names are the port's own classes, not re-exports."""
+    import velocity_asr_tpu_torch as port
+
+    for name in ("FakeQuantize", "QuantDense", "QuantConv1d", "QuantizationConfig",
+                 "calibrate_model", "prepare_model_for_qat", "selective_scan_parallel"):
+        assert getattr(port, name).__module__.startswith("velocity_asr_tpu_torch."), name
+
+
 def test_native_decoding_reads_only_the_repo_sources():
     """The port builds its decoders from native/*.cc into its own _build/,
     and names neither the JAX package's library directory nor the

@@ -215,3 +215,47 @@ def load_audio(path: str, sample_rate: int = SAMPLE_RATE, mono: bool = True) -> 
     if mono:
         waveform = waveform[0]
     return np.ascontiguousarray(waveform, dtype=np.float32)
+
+
+class MelSpectrogramTransform:
+    """Callable carrying the mel parameters: ``ops.mel.compute_mel_spectrogram``
+    of a tensor (the log-mel kernel on the card)."""
+
+    def __init__(self, sample_rate: int = SAMPLE_RATE, n_fft: int = N_FFT,
+                 hop_length: int = HOP_LENGTH, n_mels: int = N_MELS, normalize: bool = True):
+        self.sample_rate = sample_rate
+        self.n_fft = n_fft
+        self.hop_length = hop_length
+        self.n_mels = n_mels
+        self.normalize = normalize
+
+    def __call__(self, audio: torch.Tensor) -> torch.Tensor:
+        from .ops.mel import compute_mel_spectrogram
+
+        return compute_mel_spectrogram(audio, sample_rate=self.sample_rate, n_fft=self.n_fft,
+                                       hop_length=self.hop_length, n_mels=self.n_mels,
+                                       normalize=self.normalize)
+
+
+def audio_to_frames(audio_length: int, hop_length: int = HOP_LENGTH, n_fft: int = N_FFT) -> int:
+    """The reference's frame estimate, (length + n_fft) // hop: one more than
+    the transform gives at hop-aligned lengths (``frame_count`` is exact)."""
+    return (audio_length + n_fft) // hop_length
+
+
+def frames_to_audio(num_frames: int, hop_length: int = HOP_LENGTH) -> int:
+    """Approximate sample count of `num_frames` frames."""
+    return num_frames * hop_length
+
+
+def pad_or_trim(audio, target_length: int):
+    """Zero-pad or cut the last axis to `target_length` samples (a numpy
+    array or a tensor, returned as the same kind)."""
+    current = audio.shape[-1]
+    if current > target_length:
+        return audio[..., :target_length]
+    if current == target_length:
+        return audio
+    if isinstance(audio, torch.Tensor):
+        return F.pad(audio, (0, target_length - current))
+    return np.pad(audio, [(0, 0)] * (audio.ndim - 1) + [(0, target_length - current)])

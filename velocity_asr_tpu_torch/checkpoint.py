@@ -16,9 +16,14 @@ It is the inverse of ``velocity_asr_tpu/compat/torch_convert.py``.
 and ``write_msgpack`` encodes such a tree byte for byte as
 ``flax.serialization.to_bytes`` does, so the JAX package's
 ``from_pretrained`` loads what the port trains.
+A QAT model's temporal-binding conv is flax's ``conv/{kernel,bias}``
+(``QuantConv1d``), the float model's ``conv_kernel`` / ``conv_bias``;
+both are ``temporal_binding.conv.*`` here, and ``qat_params_tree`` /
+``float_params_tree`` renest a flax tree from one layout to the other.
 ``quant_stats_from_numpy`` names a flax ``quant_stats`` tree (``x_amax``
-and ``calibrated`` per static int8 layer) the same way, for
-``quantize.load_quant_stats``.
+and ``calibrated`` per static int8 layer, ``scale``, ``zero_point``,
+``calibrated``, ``range_min``, ``range_max`` per QAT observer) by buffer
+name, for ``quantize.load_quant_stats``.
 
 ``stream_state_from_numpy`` and ``stream_state_to_numpy`` carry a
 streaming state across: the JAX package's ``init_stream_state`` tree
@@ -247,10 +252,15 @@ def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (key,), value
 
 
+def _module_names(path: Tuple[str, ...]) -> list:
+    """A flax module path's torch module names (``layers_i`` -> ``layers.i``)."""
+    return [p.replace("layers_", "layers.", 1) if p.startswith("layers_") else p
+            for p in path]
+
+
 def _torch_key(path: Tuple[str, ...]) -> Tuple[str, str]:
     """(state_dict key, kind) for one flax leaf path."""
-    mods = [p.replace("layers_", "layers.", 1) if p.startswith("layers_") else p
-            for p in path[:-1]]
+    mods = _module_names(path[:-1])
     leaf = path[-1]
     if leaf == "kernel":
         return ".".join(mods + ["weight"]), "dense"
@@ -269,6 +279,8 @@ def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     for path, value in _flatten(tree):
         key, kind = _torch_key(path)
         arr = np.asarray(value)
+        if kind == "dense" and arr.ndim == 3:
+            kind = "conv"  # a QAT conv's conv/kernel
         if kind == "dense":
             arr = arr.T  # (in, out) -> (out, in)
         elif kind == "conv":
@@ -291,6 +303,9 @@ def _flax_path(key: str, module: torch.nn.Module) -> Tuple[Tuple[str, ...], str]
             mods.append(parts[i])
             i += 1
     leaf = parts[-1]
+    if getattr(module, "flax_nested", False):  # a QAT conv: conv/{kernel,bias}
+        return tuple(mods) + ("kernel" if leaf == "weight" else "bias",), (
+            "conv" if leaf == "weight" else "copy")
     if isinstance(module, torch.nn.Conv1d):  # the block's or binding's `conv`
         return tuple(mods[:-1]) + ("conv_kernel" if leaf == "weight" else "conv_bias",), (
             "conv" if leaf == "weight" else "copy")
@@ -321,10 +336,34 @@ def params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
 
 
 def quant_stats_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Map a flax ``quant_stats`` tree (numpy leaves) onto the port's int8
-    buffer names, e.g. ``global_context.pool1.pool_proj.x_amax``."""
-    return {_torch_key(path)[0]: torch.tensor(np.asarray(value))
+    """Map a flax ``quant_stats`` tree (numpy leaves) onto the port's
+    buffer names, e.g. ``global_context.pool1.pool_proj.x_amax`` or
+    ``ctc_head.proj.weight_quantizer.scale`` (leaf names kept as they are)."""
+    return {".".join(_module_names(path)): torch.tensor(np.asarray(value))
             for path, value in _flatten(tree)}
+
+
+def qat_params_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A float model's flax parameter tree in a QAT model's layout: the
+    temporal-binding ``conv_kernel`` / ``conv_bias`` renested as
+    ``conv/{kernel,bias}`` (the JAX train CLI's ``--init-from`` into QAT).
+    A tree already in that layout comes back as it is."""
+    binding = dict(tree["temporal_binding"])
+    if "conv_kernel" not in binding:
+        return tree
+    binding["conv"] = {"kernel": binding.pop("conv_kernel"), "bias": binding.pop("conv_bias")}
+    return {**tree, "temporal_binding": binding}
+
+
+def float_params_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``qat_params_tree``: a QAT model's tree in the float
+    model's layout (what a QAT run's ``final_pretrained`` holds)."""
+    binding = dict(tree["temporal_binding"])
+    if "conv" not in binding:
+        return tree
+    conv = binding.pop("conv")
+    binding["conv_kernel"], binding["conv_bias"] = conv["kernel"], conv["bias"]
+    return {**tree, "temporal_binding": binding}
 
 
 def _map_tree(fn, tree):

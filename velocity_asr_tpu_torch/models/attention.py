@@ -3,8 +3,9 @@ offline and streaming.
 
 Pool sizes follow the (bucketed) sequence length; pooling is an
 averaging matmul (ops/pooling.py). The cross-attention is small (<= 64
-keys) and runs as plain matmuls with the softmax in fp32. With int8 set,
-the ten projections here are int8 Dense layers (``layers.quant_dense``).
+keys) and runs as plain matmuls with the softmax in fp32. With qat or
+int8 set, the ten projections here are QAT or int8 Dense layers
+(``layers.quant_dense``); the global SSM's stay float.
 In training mode the attention weights and the global SSM's blocks apply
 dropout, offline and streaming, their masks drawn from the ``rng`` passed
 in.
@@ -29,11 +30,11 @@ class AdaptivePool(nn.Module):
 
     def __init__(self, level: int = 1, d_model: int = 192,
                  dtype: torch.dtype = torch.float32, int8: bool = False,
-                 int8_static: bool = False):
+                 int8_static: bool = False, qat: bool = False, qat_bits=(8, 8)):
         super().__init__()
         self.level = level
-        self.pool_proj = quant_dense(quant_mode(int8), d_model, d_model, dtype,
-                                     static=int8_static)
+        self.pool_proj = quant_dense(quant_mode(qat, int8), d_model, d_model, dtype,
+                                     static=int8_static, qat_bits=qat_bits)
 
     def forward(self, x: torch.Tensor, prev_pool_size: int | None = None,
                 pre_pooled: bool = False):
@@ -56,7 +57,8 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, d_model: int = 192, num_heads: int = 4, attention_dim: int = 48,
                  dtype: torch.dtype = torch.float32, int8: bool = False,
-                 int8_static: bool = False, dropout: float = 0.0):
+                 int8_static: bool = False, dropout: float = 0.0, qat: bool = False,
+                 qat_bits=(8, 8)):
         super().__init__()
         if attention_dim % num_heads:
             raise ValueError(
@@ -65,11 +67,12 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.attention_dim = attention_dim
         self.dtype = dtype
-        mode = quant_mode(int8)
-        self.q_proj = quant_dense(mode, d_model, attention_dim, dtype, static=int8_static)
-        self.k_proj = quant_dense(mode, d_model, attention_dim, dtype, static=int8_static)
-        self.v_proj = quant_dense(mode, d_model, attention_dim, dtype, static=int8_static)
-        self.out_proj = quant_dense(mode, attention_dim, d_model, dtype, static=int8_static)
+        mode = quant_mode(qat, int8)
+        q = {"static": int8_static, "qat_bits": qat_bits}
+        self.q_proj = quant_dense(mode, d_model, attention_dim, dtype, **q)
+        self.k_proj = quant_dense(mode, d_model, attention_dim, dtype, **q)
+        self.v_proj = quant_dense(mode, d_model, attention_dim, dtype, **q)
+        self.out_proj = quant_dense(mode, attention_dim, d_model, dtype, **q)
         self.dropout = Dropout(dropout)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
@@ -95,13 +98,15 @@ class GatedFusion(nn.Module):
     """gate = sigmoid(W [local, global]); out = W_o (gate*W_l local + (1-gate)*W_g global)."""
 
     def __init__(self, d_model: int = 192, dtype: torch.dtype = torch.float32,
-                 int8: bool = False, int8_static: bool = False):
+                 int8: bool = False, int8_static: bool = False, qat: bool = False,
+                 qat_bits=(8, 8)):
         super().__init__()
-        mode = quant_mode(int8)
-        self.gate_proj = quant_dense(mode, 2 * d_model, d_model, dtype, static=int8_static)
-        self.local_proj = quant_dense(mode, d_model, d_model, dtype, static=int8_static)
-        self.global_proj = quant_dense(mode, d_model, d_model, dtype, static=int8_static)
-        self.out_proj = quant_dense(mode, d_model, d_model, dtype, static=int8_static)
+        mode = quant_mode(qat, int8)
+        q = {"static": int8_static, "qat_bits": qat_bits}
+        self.gate_proj = quant_dense(mode, 2 * d_model, d_model, dtype, **q)
+        self.local_proj = quant_dense(mode, d_model, d_model, dtype, **q)
+        self.global_proj = quant_dense(mode, d_model, d_model, dtype, **q)
+        self.out_proj = quant_dense(mode, d_model, d_model, dtype, **q)
 
     def forward(self, local_features: torch.Tensor, global_features: torch.Tensor):
         gate = torch.sigmoid(self.gate_proj(torch.cat([local_features, global_features], -1)))
@@ -128,9 +133,10 @@ class HierarchicalGlobalContext(nn.Module):
     def __init__(self, d_model: int = 192, num_heads: int = 4, attention_dim: int = 48,
                  global_ssm_layers: int = 2, global_ssm_state_dim: int = 32,
                  scan_mode: str = "parallel", dtype: torch.dtype = torch.float32,
-                 int8: bool = False, int8_static: bool = False, dropout: float = 0.0):
+                 int8: bool = False, int8_static: bool = False, dropout: float = 0.0,
+                 qat: bool = False, qat_bits=(8, 8)):
         super().__init__()
-        q = {"int8": int8, "int8_static": int8_static}
+        q = {"int8": int8, "int8_static": int8_static, "qat": qat, "qat_bits": qat_bits}
         self.dtype = dtype
         self.pool1 = AdaptivePool(1, d_model, dtype, **q)
         self.global_ssm = GlobalSSM(d_model, global_ssm_layers, global_ssm_state_dim,

@@ -32,7 +32,9 @@ class VelocityASRConfig:
     gradient_checkpointing: bool = False
     # "sequential" runs the plain time loop; "pallas" (and "parallel",
     # the JAX package's default) run the CUDA selective-scan kernel on a
-    # CUDA tensor and its plain version on a CPU tensor (ops/scan.py).
+    # CUDA tensor and its plain version on a CPU tensor (ops/scan.py);
+    # "associative", the log-depth scan in stock operations, is for
+    # exported graphs only (export.export_graph_config).
     scan_mode: str = "parallel"
     use_compile: bool = False
     dtype: str = "float32"

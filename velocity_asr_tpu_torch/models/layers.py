@@ -4,8 +4,8 @@ offline and streaming.
 Parameters are fp32. ``Dense`` casts its input, weight and bias to the
 compute dtype, as flax's ``nn.Dense(dtype=...)`` does; LayerNorms run in
 fp32 with eps 1e-5 and cast back. ``quant_dense`` builds each
-quantizable projection (attention, fusion, pooling, CTC head) as a Dense
-or an int8 Dense; QAT is not ported yet. ``Dropout`` is flax's
+quantizable projection (attention, fusion, pooling, CTC head) as a Dense,
+a QAT fake-quantized Dense or an int8 Dense. ``Dropout`` is flax's
 (``nn.Dropout``: keep with probability 1 - rate, scale by 1 / (1 - rate))
 in training mode, drawing its mask from a ``torch.Generator`` that the
 caller passes to each forward; in eval mode it is the identity.
@@ -38,18 +38,23 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
-def quant_mode(int8: bool) -> str:
-    """The projection mode: "int8" or "none" (the JAX package's third,
-    "qat", is not ported yet)."""
-    return "int8" if int8 else "none"
+def quant_mode(qat: bool, int8: bool) -> str:
+    """The projection mode: "qat", "int8" or "none" (QAT wins)."""
+    return "qat" if qat else ("int8" if int8 else "none")
 
 
 def quant_dense(mode: str, in_features: int, out_features: int,
                 dtype: torch.dtype = torch.float32, bias: bool = True,
-                static: bool = False) -> nn.Linear:
-    """A Dense (mode "none") or an int8 Dense (mode "int8"; static selects
+                static: bool = False, qat_bits=(8, 8)) -> nn.Linear:
+    """A Dense (mode "none"), a QAT Dense with (weight, activation) bits
+    `qat_bits` (mode "qat") or an int8 Dense (mode "int8"; static selects
     calibrated activation scales): the one place that picks, so no call
     site drifts."""
+    if mode == "qat":
+        from ..quantize import QuantDense
+
+        return QuantDense(in_features, out_features, bias=bias, dtype=dtype,
+                          weight_bits=qat_bits[0], activation_bits=qat_bits[1])
     if mode == "int8":
         from ..quantize import DynamicInt8Dense
 
@@ -57,7 +62,7 @@ def quant_dense(mode: str, in_features: int, out_features: int,
                                 static=static)
     if mode == "none":
         return Dense(in_features, out_features, bias=bias, dtype=dtype)
-    raise NotImplementedError(f"projection mode {mode!r} is not ported yet")
+    raise ValueError(f"unknown projection mode {mode!r}")
 
 
 class Dropout(nn.Module):
@@ -173,7 +178,8 @@ class PositionalEncoding2D(nn.Module):
 
 class TemporalBindingLayer(nn.Module):
     """Conv1d(mel_bins -> d_model, k=3, stride=2, pad=1) -> exact GELU ->
-    2D positional encoding -> LayerNorm. Output length (L + 1) // 2.
+    2D positional encoding -> LayerNorm. Output length (L + 1) // 2. With
+    `qat` the conv is a ``QuantConv1d`` (offline only).
 
     Streaming (``return_carry``): chunks have an even number of frames;
     the last ``kernel_size // 2`` mel frames of a chunk are carried (zeros
@@ -182,11 +188,20 @@ class TemporalBindingLayer(nn.Module):
     outputs. time_offset is the chunk's first absolute output frame."""
 
     def __init__(self, mel_bins: int = 80, d_model: int = 192, kernel_size: int = 3,
-                 stride: int = 2, dtype: torch.dtype = torch.float32):
+                 stride: int = 2, dtype: torch.dtype = torch.float32, qat: bool = False,
+                 qat_bits=(8, 8)):
         super().__init__()
         self.stride = stride
         self.dtype = dtype
-        self.conv = nn.Conv1d(mel_bins, d_model, kernel_size)
+        self.qat = qat
+        if qat:
+            from ..quantize import QuantConv1d
+
+            self.conv = QuantConv1d(mel_bins, d_model, kernel_size, stride=stride,
+                                    padding=kernel_size // 2, dtype=dtype,
+                                    weight_bits=qat_bits[0], activation_bits=qat_bits[1])
+        else:
+            self.conv = nn.Conv1d(mel_bins, d_model, kernel_size)
         self.pos_encoding = PositionalEncoding2D(d_model)
         self.norm = LayerNorm(d_model, dtype)
 
@@ -194,10 +209,15 @@ class TemporalBindingLayer(nn.Module):
                 time_offset=0, return_carry: bool = False):
         k = self.conv.kernel_size[0]
         if not return_carry:
-            x = strided_conv1d(mel.to(self.dtype), self.conv.weight, self.conv.bias,
-                               stride=self.stride, padding=k // 2)
+            if self.qat:
+                x = self.conv(mel.to(self.dtype))
+            else:
+                x = strided_conv1d(mel.to(self.dtype), self.conv.weight, self.conv.bias,
+                                   stride=self.stride, padding=k // 2)
             x = F.gelu(x)  # exact erf, as torch's and flax's approximate=False
             return self.norm(self.pos_encoding(x))
+        if self.qat:
+            raise NotImplementedError("streaming QAT front-end not supported")
         if mel.shape[1] % self.stride:
             raise ValueError(f"stream chunks must be a multiple of {self.stride} frames, "
                              f"got {mel.shape[1]}")
@@ -226,12 +246,13 @@ class CTCOutputHead(nn.Module):
 
     def __init__(self, d_model: int = 192, vocab_size: int = 1000,
                  dtype: torch.dtype = torch.float32, int8: bool = False,
-                 int8_static: bool = False, dropout: float = 0.0):
+                 int8_static: bool = False, dropout: float = 0.0, qat: bool = False,
+                 qat_bits=(8, 8)):
         super().__init__()
         self.norm = LayerNorm(d_model, dtype)
         self.dropout = Dropout(dropout)
-        self.proj = quant_dense(quant_mode(int8), d_model, vocab_size, dtype,
-                                static=int8_static)
+        self.proj = quant_dense(quant_mode(qat, int8), d_model, vocab_size, dtype,
+                                static=int8_static, qat_bits=qat_bits)
 
     def forward(self, x: torch.Tensor, rng: torch.Generator | None = None) -> torch.Tensor:
         return self.proj(self.dropout(self.norm(x), rng))

@@ -18,7 +18,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ..checkpoint import params_from_numpy, params_to_numpy, read_params, write_params
+from ..checkpoint import (float_params_tree, params_from_numpy, params_to_numpy,
+                          qat_params_tree, read_params, write_params)
 from ..device import resolve_device
 from ..ops.pooling import adaptive_avg_pool1d
 from .attention import HierarchicalGlobalContext
@@ -31,7 +32,7 @@ CONFIG_FILE = "config.json"
 
 # Options of the JAX package that this port does not implement yet: a
 # config that sets one must not load as a model that silently ignores it.
-_UNSUPPORTED = {"qat": False, "moe_experts": 0, "num_languages": 0}
+_UNSUPPORTED = {"moe_experts": 0, "num_languages": 0}
 
 
 class VelocityASR(nn.Module):
@@ -46,19 +47,21 @@ class VelocityASR(nn.Module):
                 )
         self.config = cfg = config
         dtype = cfg.compute_dtype
-        self.temporal_binding = TemporalBindingLayer(cfg.mel_bins, cfg.d_model, dtype=dtype)
+        qat = {"qat": cfg.qat, "qat_bits": (cfg.qat_weight_bits, cfg.qat_activation_bits)}
+        self.temporal_binding = TemporalBindingLayer(cfg.mel_bins, cfg.d_model, dtype=dtype,
+                                                     **qat)
         self.local_ssm = LocalSSMProcessor(
             cfg.d_model, cfg.ssm_layers, cfg.ssm_state_dim, cfg.ssm_expand_ratio,
             cfg.ssm_kernel_size, cfg.scan_mode, dtype, cfg.dropout,
             checkpoint=cfg.gradient_checkpointing,
         )
-        int8 = {"int8": cfg.int8_inference, "int8_static": cfg.int8_static}
+        quant = {"int8": cfg.int8_inference, "int8_static": cfg.int8_static, **qat}
         self.global_context = HierarchicalGlobalContext(
             cfg.d_model, cfg.attention_heads, cfg.attention_dim, cfg.global_ssm_layers,
-            cfg.global_ssm_state_dim, cfg.scan_mode, dtype, dropout=cfg.dropout, **int8,
+            cfg.global_ssm_state_dim, cfg.scan_mode, dtype, dropout=cfg.dropout, **quant,
         )
         self.ctc_head = CTCOutputHead(cfg.d_model, cfg.vocab_size, dtype, dropout=cfg.dropout,
-                                      **int8)
+                                      **quant)
 
     def forward(self, mel_spectrogram: torch.Tensor, stream_state: Optional[dict] = None,
                 time_offset=0, return_state: bool = False, frozen_mem: bool = False,
@@ -211,6 +214,19 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+init_params = init_parameters  # the JAX package's name
+
+
+def count_parameters(model: nn.Module) -> int:
+    """Total parameter count."""
+    return sum(p.numel() for p in model.parameters())
+
+
+def get_output_length(input_length: int) -> int:
+    """Stride-2 temporal binding halves the frames."""
+    return (input_length + 1) // 2
+
+
 def create_model(config: Optional[VelocityASRConfig] = None, device="cuda",
                  generator: Optional[torch.Generator] = None) -> VelocityASR:
     """A freshly initialised model on `device` (``init_parameters``).
@@ -236,14 +252,17 @@ def save_pretrained(path: str, config: VelocityASRConfig, model: nn.Module,
     """Write ``config.json`` ({"config": ..., **extra}) and a flax-format
     ``params.msgpack`` of `model`'s parameters into the directory `path`:
     what the JAX package's ``save_pretrained`` writes, so both packages'
-    ``from_pretrained`` read it."""
+    ``from_pretrained`` read it. The tree is laid out for `config` (a QAT
+    model saved under a float config gets the float conv names)."""
     os.makedirs(path, exist_ok=True)
     payload = {"config": config.to_dict()}
     if extra:
         payload.update(extra)
     with open(os.path.join(path, CONFIG_FILE), "w") as f:
         json.dump(payload, f, indent=2)
-    write_params(os.path.join(path, PARAMS_FILE), params_to_numpy(model))
+    tree = params_to_numpy(model)
+    tree = qat_params_tree(tree) if config.qat else float_params_tree(tree)
+    write_params(os.path.join(path, PARAMS_FILE), tree)
 
 
 def from_pretrained(path: str, device="cuda", **overrides) -> VelocityASR:

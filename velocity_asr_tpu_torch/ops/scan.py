@@ -9,7 +9,12 @@ h[-1] from a carried state h0 and returns h[L-1]; both are (batch,
 d_inner, state_dim) fp32, the JAX oracle's layout, whatever the compute
 dtype (a bf16 carry would degrade every later chunk).
 
-``selective_scan_sequential`` is the oracle. ``scan_fwd`` (h0 = 0) and
+``selective_scan_sequential`` is the oracle. ``selective_scan_parallel``
+is a log-depth associative scan in stock torch operations (the JAX
+package's ``lax.associative_scan`` tier): the scan mode "associative"
+that ``export.export_graph_config`` gives an exported graph, which then
+holds O(log L) steps and no kernel. No other path takes it.
+``scan_fwd`` (h0 = 0) and
 ``scan_fwd_state`` (carried state) are the CUDA kernel
 ``csrc/scan_fwd.cu`` on a CUDA tensor and ``scan_fwd_plain``, a loop over
 t, on a CPU tensor. ``scan_fwd_timeline`` runs the same kernel with a
@@ -44,6 +49,7 @@ import torch
 from .cuda_lib import check_tensor, library
 
 TRAIN_CHUNK = 16  # steps between saved states (JAX ops/scan_pallas.py TRAIN_CHUNK)
+ScanMode = str  # "sequential" | "parallel" | "pallas" | "associative"
 
 
 def scan_fwd_plain(x, dt, A, B, C, h0=None, return_state: bool = False):
@@ -476,11 +482,32 @@ def selective_scan_sequential(x, dt, A, B, C, D, h0=None, return_state: bool = F
     return out + x * D
 
 
+def selective_scan_parallel(x, dt, A, B, C, D, h0=None, return_state: bool = False):
+    """The scan as an inclusive associative scan over time of (a, b) with
+    (a2, b2) o (a1, b1) = (a2 a1, a2 b1 + b2), a = exp(dt A), b = dt x B,
+    in ceil(log2 L) doubling steps (Hillis-Steele), each a few stock
+    operations on (batch, L, d_inner, state_dim) fp32 tensors; a carried
+    state h0 folds into the first step. Plus the D*x skip."""
+    dA = torch.exp(dt[..., None] * A)
+    h = (dt * x)[..., None] * B[:, :, None, :]
+    if h0 is not None:
+        h = torch.cat([h[:, :1] + dA[:, :1] * h0[:, None], h[:, 1:]], dim=1)
+    length = x.shape[1]
+    shift = 1
+    while shift < length:
+        h = torch.cat([h[:, :shift], dA[:, shift:] * h[:, :-shift] + h[:, shift:]], dim=1)
+        dA = torch.cat([dA[:, :shift], dA[:, shift:] * dA[:, :-shift]], dim=1)
+        shift *= 2
+    y = torch.einsum("bldn,bln->bld", h, C) + x * D
+    return (y, h[:, -1]) if return_state else y
+
+
 def selective_scan(x, dt, A, B, C, D, mode: str = "parallel", h0=None,
                    return_state: bool = False):
     """Dispatch on the scan mode.
 
-    "sequential" is the oracle. "pallas" (the committed checkpoints' mode)
+    "sequential" is the oracle and "associative" the exported graph's
+    scan (``selective_scan_parallel``). "pallas" (the committed checkpoints' mode)
     and "parallel" (the JAX default) both take the kernel path: the CUDA
     kernel for CUDA tensors, its plain version for CPU tensors. The D*x
     skip is added outside the kernel, as on the TPU. With h0 or
@@ -496,6 +523,8 @@ def selective_scan(x, dt, A, B, C, D, mode: str = "parallel", h0=None,
     """
     if mode == "sequential":
         return selective_scan_sequential(x, dt, A, B, C, D, h0, return_state)
+    if mode == "associative":
+        return selective_scan_parallel(x, dt, A, B, C, D, h0, return_state)
     if mode not in ("pallas", "parallel"):
         raise ValueError(f"Unknown scan mode: {mode!r}")
     args = [t.contiguous() for t in (x, dt, A, B, C)]

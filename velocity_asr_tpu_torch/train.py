@@ -25,7 +25,15 @@ profile_start + profile_steps)``. ``--init-from`` starts from a
 ``--resume`` restores a trainer checkpoint. At the end the run writes
 ``final_model/`` (trainer checkpoint) and ``final_pretrained/``
 (``config.json``, flax ``params.msgpack``, ``vocabulary.json``) under the
-checkpoint directory. It runs on the card unless ``--device cpu``.
+checkpoint directory. A ``quantization:`` section with ``enabled: true``
+trains with QAT (``quantize.prepare_model_for_qat``; its other keys are
+``QuantizationConfig`` fields, ``start_step`` is ignored as in the JAX
+CLI, any other key raises); ``--init-from`` a float checkpoint loads its
+temporal-binding conv into the QAT model's ``QuantConv1d``, and
+``final_pretrained/`` is saved as the float model (``qat: false``, the
+conv's float names) with the observers beside it in
+``quant_stats.msgpack``, for ``export_model``. It runs on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -39,13 +47,17 @@ from typing import List, Optional
 
 import numpy as np
 
+from .checkpoint import params_from_numpy, read_params, write_params
 from .config import load_yaml, model_config_from_yaml, training_config_from_yaml
 from .data import (ASRCollator, DataLoader, create_dataloader,
                    create_librispeech_dataloaders, cycle)
 from .device import resolve_device
-from .models.model import create_model, from_pretrained, save_pretrained
+from .models.model import CONFIG_FILE, PARAMS_FILE, create_model, save_pretrained
+from .quantize import QuantizationConfig, prepare_model_for_qat, quant_stats_to_numpy
 from .synth import SyntheticSpeechDataset
 from .training import Trainer
+
+QUANT_STATS_FILE = "quant_stats.msgpack"
 
 logger = logging.getLogger("velocity_asr_tpu_torch.train")
 
@@ -161,6 +173,22 @@ def _is_pretrain_artifact(path: str) -> bool:
         return json.load(f).get("objective") == "masked_prediction"
 
 
+def qat_config(model_cfg, quant_dict: dict):
+    """`model_cfg` as the ``quantization:`` section asks: unchanged unless
+    ``enabled``, else its QAT config from the section's
+    ``QuantizationConfig`` fields (``start_step`` dropped, as in the JAX
+    CLI; an unknown key raises)."""
+    quant = dict(quant_dict or {})
+    if not quant.pop("enabled", False):
+        return model_cfg
+    logger.info("Enabling quantization-aware training")
+    quant.pop("start_step", None)
+    unknown = set(quant) - {f.name for f in dataclasses.fields(QuantizationConfig)}
+    if unknown:
+        raise ValueError(f"unknown quantization config keys: {sorted(unknown)}")
+    return prepare_model_for_qat(model_cfg, QuantizationConfig(**quant))
+
+
 def vocab_to_list(vocab: dict) -> list:
     """id -> token list from a {token: id} vocabulary."""
     out = [None] * (max(vocab.values()) + 1)
@@ -217,9 +245,7 @@ def main(argv: Optional[List[str]] = None):
         train_cfg = dataclasses.replace(train_cfg, **moved)
     if args.profile_dir is not None:
         train_cfg = dataclasses.replace(train_cfg, profile_dir=args.profile_dir)
-    if (train_dict.get("quantization") or {}).get("enabled"):
-        raise NotImplementedError("quantization-aware training is not ported yet "
-                                  "(ROADMAP module item 6)")
+    model_cfg = qat_config(model_cfg, train_dict.get("quantization"))
     if not train_cfg.use_amp and model_cfg.dtype != "float32":
         logger.info("use_amp disabled: forcing float32 compute")
         model_cfg = dataclasses.replace(model_cfg, dtype="float32")
@@ -239,12 +265,16 @@ def main(argv: Optional[List[str]] = None):
         if _is_pretrain_artifact(args.init_from):
             raise NotImplementedError("initialising from a pretraining artifact is not "
                                       "ported yet (ROADMAP module item 8)")
-        loaded = from_pretrained(args.init_from, device=device)
-        if loaded.config.vocab_size != model_cfg.vocab_size:
-            raise SystemExit(f"--init-from vocab_size {loaded.config.vocab_size} != "
+        with open(os.path.join(args.init_from, CONFIG_FILE)) as f:
+            init_vocab = json.load(f)["config"].get("vocab_size", 1000)
+        if init_vocab != model_cfg.vocab_size:
+            raise SystemExit(f"--init-from vocab_size {init_vocab} != "
                              f"configured/dataset vocab_size {model_cfg.vocab_size}; fine-tune "
                              "with the vocabulary the weights were trained on")
-        model.load_state_dict(loaded.state_dict(), strict=True)
+        # a float tree's conv_kernel and a QAT tree's conv/kernel both map
+        # onto temporal_binding.conv.weight: either loads into either model
+        tree = read_params(os.path.join(args.init_from, PARAMS_FILE))
+        model.load_state_dict(params_from_numpy(tree), strict=True)
         logger.info("Initialized weights from %s (fresh optimizer/step)", args.init_from)
     logger.info("Model config: %s", model_cfg)
     logger.info("Parameters: %s", f"{sum(p.numel() for p in model.parameters()):,}")
@@ -262,7 +292,14 @@ def main(argv: Optional[List[str]] = None):
     final = os.path.join(train_cfg.checkpoint_dir, "final_model")
     trainer.save_checkpoint(final)
     pretrained = os.path.join(train_cfg.checkpoint_dir, "final_pretrained")
-    save_pretrained(pretrained, model_cfg, model)
+    # fake quantization is a training-time construct: ship the float
+    # inference config, the learned observers beside it for export_model
+    save_pretrained(pretrained, dataclasses.replace(model_cfg, qat=False), model)
+    if model_cfg.qat:
+        write_params(os.path.join(pretrained, QUANT_STATS_FILE),
+                     quant_stats_to_numpy(model))
+        logger.info("QAT run: final_pretrained saved with qat=False (fp32 inference); "
+                    "observer stats in %s", QUANT_STATS_FILE)
     if vocab is not None:
         # transcribe and evaluate read the id -> token layout from here
         with open(os.path.join(pretrained, "vocabulary.json"), "w") as f:

@@ -37,6 +37,11 @@ uses.
   profile_start + profile_steps) in a ``torch.profiler`` window (CPU,
   and CUDA on the card), each step in a ``micro_step_<n>`` range, and
   writes its Chrome trace there; the window is closed in a ``finally``.
+- A QAT model (``quantize.prepare_model_for_qat``) refreshes its
+  observers on every training micro-step and reads them unchanged in
+  evaluation (an uncalibrated one evaluates as the float model); the
+  trainer checkpoint carries them (``quant_stats``). QAT with the
+  streaming-aware objective or MoE raises the JAX package's ValueError.
 - ``streaming_chunks`` > 0 (device-mel batches only) adds the
   streaming-aware term: CTC on ``streaming.streaming_forward`` logits of
   the same utterances, normalised with causal per-chunk statistics and
@@ -68,6 +73,7 @@ import torch.nn.functional as F
 from .audio import HOP_LENGTH, causal_normalize_mel, masked_normalize_mel
 from .augment import SpecAugmentConfig, noise_inject, spec_augment, speed_perturb_audio
 from .ops.mel import compute_mel_spectrogram
+from .quantize import load_quant_stats, quant_stats_buffers
 from .streaming import streaming_forward
 
 logger = logging.getLogger(__name__)
@@ -77,8 +83,8 @@ logger = logging.getLogger(__name__)
 class TrainingConfig:
     """Training configuration: the JAX package's fields and defaults. The
     port trains the offline objective and, with ``streaming_chunks``, the
-    streaming-aware one; a config that turns on QAT, MoE, the language-ID
-    loss or parallel training makes ``Trainer`` raise (``_unsupported``)."""
+    streaming-aware one; a config that turns on MoE, the language-ID loss
+    or parallel training makes ``Trainer`` raise (``_unsupported``)."""
 
     learning_rate: float = 1e-4
     weight_decay: float = 0.01
@@ -142,6 +148,23 @@ def ctc_loss(logits, targets, input_lengths, target_lengths, blank_token: int = 
                                 blank_token).mean()
 
 
+class CTCLoss:
+    """Callable ``ctc_loss`` (the JAX package's API-parity wrapper): blank
+    `blank_token`, batch-mean reduction, infeasible examples zeroed."""
+
+    def __init__(self, blank_token: int = 0, reduction: str = "mean", zero_infinity: bool = True):
+        if reduction != "mean":
+            raise ValueError("only 'mean' reduction is implemented")
+        if not zero_infinity:
+            raise ValueError("zero_infinity=False is not implemented")
+        self.blank_token = blank_token
+
+    def __call__(self, logits, targets, input_lengths, target_lengths) -> torch.Tensor:
+        return ctc_loss(*(torch.as_tensor(t) for t in (logits, targets, input_lengths,
+                                                       target_lengths)),
+                        blank_token=self.blank_token)
+
+
 # ----- schedule and optimizer --------------------------------------------------
 
 
@@ -163,6 +186,23 @@ def warmup_cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
         return float(f32(base_lr) * (warm if step < warmup_steps else decay))
 
     return schedule
+
+
+class WarmupCosineScheduler:
+    """Stateful ``warmup_cosine_schedule`` (the JAX package's API-parity
+    wrapper): ``step()`` advances, ``get_lr()`` is the rate of the update
+    just taken (of the first before any)."""
+
+    def __init__(self, base_lr: float, warmup_steps: int, total_steps: int,
+                 min_lr_ratio: float = 0.1):
+        self._fn = warmup_cosine_schedule(base_lr, warmup_steps, total_steps, min_lr_ratio)
+        self.current_step = 0
+
+    def step(self) -> None:
+        self.current_step += 1
+
+    def get_lr(self) -> List[float]:
+        return [self._fn(max(self.current_step - 1, 0))]
 
 
 def lr_horizon(config: TrainingConfig) -> int:
@@ -263,10 +303,21 @@ class Optimizer:
 # ----- trainer -----------------------------------------------------------------
 
 
+def _refuse_qat_combinations(model_config, config: TrainingConfig) -> None:
+    """The JAX Trainer's refusals of QAT with the streaming-aware
+    objective or with MoE."""
+    if not getattr(model_config, "qat", False):
+        return
+    if config.streaming_chunks:
+        raise ValueError("QAT + the streaming-aware objective is not supported "
+                         "(streaming_forward does not thread quant_stats)")
+    if getattr(model_config, "moe_experts", 0) > 0:
+        raise ValueError("QAT + MoE is not supported")
+
+
 def _unsupported(model_config, config: TrainingConfig) -> Optional[str]:
     """What the port cannot train yet, with the ROADMAP item it waits on."""
     checks = [
-        (getattr(model_config, "qat", False), "QAT (ROADMAP module item 6)"),
         (getattr(model_config, "moe_experts", 0) > 0, "MoE (ROADMAP module item 8)"),
         (getattr(model_config, "num_languages", 0) > 0 or config.lid_loss_weight > 0,
          "the language-ID head and loss (ROADMAP module item 8)"),
@@ -307,6 +358,7 @@ class Trainer:
                  train_iter: Iterator[Dict[str, Any]],
                  eval_batches: Optional[Callable[[], Iterator[Dict[str, Any]]]] = None,
                  seed: int = 0):
+        _refuse_qat_combinations(model.config, config)
         why = _unsupported(model.config, config)
         if why:
             raise NotImplementedError(f"{why} is not ported yet")
@@ -533,13 +585,15 @@ class Trainer:
     # ----- checkpoints ---------------------------------------------------------
 
     def save_checkpoint(self, path: str) -> None:
-        """params and optimizer state (``state.pt``) and the JAX Trainer's
-        ``trainer_meta.json`` keys."""
+        """params, optimizer state and a QAT model's observers
+        (``state.pt``) and the JAX Trainer's ``trainer_meta.json`` keys."""
         path = os.path.abspath(path)
         os.makedirs(path, exist_ok=True)
-        torch.save({"params": self.model.state_dict(),
-                    "opt_state": self.optimizer.state_dict()},
-                   os.path.join(path, "state.pt"))
+        payload = {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict()}
+        stats = quant_stats_buffers(self.model)
+        if stats:
+            payload["quant_stats"] = stats
+        torch.save(payload, os.path.join(path, "state.pt"))
         meta = {
             "global_step": self.global_step,
             "best_eval_loss": self.best_eval_loss,
@@ -556,6 +610,8 @@ class Trainer:
                              weights_only=True)
         self.model.load_state_dict(payload["params"], strict=True)
         self.optimizer.load_state_dict(payload["opt_state"])
+        if quant_stats_buffers(self.model):
+            load_quant_stats(self.model, payload["quant_stats"])
         with open(os.path.join(path, "trainer_meta.json")) as f:
             meta = json.load(f)
         self.global_step = int(meta["global_step"])
