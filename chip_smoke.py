@@ -184,16 +184,17 @@ its seconds:
      the gradient gap with the CPU's mel fed to both sides, for the mixed
      objective, the offline term alone and the streaming term alone; (b)
      the CLI on configs/train_synth_stream.yaml + model_synth.yaml with
-     --init-from the checkpoint, --synthetic 1600 --max-steps 100 (25
+     --init-from the checkpoint, --synthetic 1600 --max-steps 50 (12
      updates inside the recipe's warmup; bf16, device mel, SpecAugment,
-     dropout): every loss finite, the mean of the 100 micro-steps in
+     dropout; a depth cut for the script's budget): every loss finite,
+     the mean of the 50 micro-steps in
      [0.2, 0.5] (the JAX run's interval means: 0.279-0.369), per
      micro-step exactly 1 log-mel, 10 bounds-forward and 10 backward
      launches, and 10 C carried-state bounds forwards and 10 C
      carried-state backward launches for a batch of C 200-frame chunks,
      no other kernel; ms per micro-step per frame bucket, the data-wait
      share and the card's busy share from a torch.profiler window over
-     micro-steps 61-65; (c) its final_pretrained/params.msgpack reads
+     micro-steps 31-35; (c) its final_pretrained/params.msgpack reads
      back bit-equal, and its streaming WER (batched, lookahead 0) over
      the same utterances is within 0.5 point of phase 7's;
   12. data sources, formats and the rest of training (after 9): (a) the
@@ -245,7 +246,41 @@ its seconds:
      eval_int8_static.json, its evaluation time beside phase 5's
      --int8-static; the uncalibrated package (dequantized weights, float
      Dense): 10 scans per forward, bf16 WER within 0.5 point of phase 5's;
-  6. (after 7, 10, 11, 8, 9, 12 and 13, whose launch counts it reports) kernel timings beside
+  14. (after 13) mixture-of-experts and the language-ID head, on the
+     committed checkpoints moe_run, multilang_run and multilang_moe_run
+     (14.29M parameters: each local block's FFN 8 experts at top-2):
+     (a) moe_run batched at 16 (bucket 200) in bf16 and --int8, each WER
+     within 1.0 point of its eval_fp32_final.json / eval_int8_dynamic.json
+     over the same utterances, exactly 10 scans (and 11 dynamic int8
+     launches: the experts stay float) a forward, ms an utterance beside
+     phase 5's; fp32 logits on a 4 x 400 batch card against CPU (max_abs
+     1e-2, argmax 0.999; the CPU's own gap under a 1e-7 nudge of the mel
+     beside them); (b) moe_run streaming at 16 (2 s chunks), greedy and
+     beam 8 + the LM at 0.5 against eval_streaming.json and
+     eval_streaming_beam8_lm.json, 10 carried-state scans an advancing
+     step, 16 live sessions against the batched greedy run (at least 15
+     identical), ms an utterance beside the dense checkpoint's; (c) the
+     multilingual held-out set (write_corpus(languages=4), the same N)
+     through multilang_run and multilang_moe_run batched with
+     --identify-language: WER within 1.0 point of eval_multilang.json,
+     LID accuracy no more than 0.01 below the file's and at least 99% of
+     language predictions equal to it, 20 scans a batch (the head's own
+     forward); multilang_moe_run on the monolingual set against
+     eval_mono_regression.json; transcribe --identify-language on 8 files
+     and /transcribe?identify_language=1 from 8 clients: the batched
+     run's languages, the same texts, their launches exact; (d) one fp32
+     micro-step of multilang_moe_run (LID 0.3, aux 0.01, dropout off) on 4
+     x 400 labelled host mel card against CPU (8a's limits, routers
+     included and reported apart, the CPU's own nudge gaps beside them);
+     the dense checkpoint upcycled with a fresh LID head: greedy frames
+     equal to the dense model's on at least 99%; 20 micro-steps of
+     configs/train_synth_multilang_moe.yaml through the CLI --init-from
+     the dense checkpoint (losses finite; 1 log-mel, 10 bounds forwards
+     and 10 backwards a micro-step); 10 micro-steps of
+     configs/train_synth_moe_stream.yaml from moe_run (mean loss in [0.2,
+     0.6], 9b's launches); a checkpointed MoE micro-step (dropout 0.1, aux
+     on) bit-equal to the plain one;
+  6. (after 7, 10, 11, 8, 9, 12, 13 and 14, whose launch counts it reports) kernel timings beside
      their bounds and a library call: device time from CUDA graphs of many
      calls (what the JSON line reports), and CUDA events around eager
      calls, which include the host's launch; each scan forward's bound
@@ -512,7 +547,9 @@ TRAIN_TRACED = (100, 5)  # phase 8b: micro-steps 101-105 under torch.profiler
 # it launches.
 STREAM_CONFIG = os.path.join(ROOT, "configs", "train_synth_stream.yaml")
 STREAM_SYNTH = 1600  # train utterances
-STREAM_STEPS = 100  # micro-steps: 25 updates at accumulation 4, inside the 100-update warmup
+# micro-steps: 12 updates at accumulation 4, inside the 100-update warmup; a
+# depth cut to keep the script inside BUDGET_S (PERF.md section 4)
+STREAM_STEPS = 50
 STREAM_BATCH = 8
 STREAM_CHUNK = 200  # training.streaming_chunks: 2 s chunks
 STREAM_BUCKET = 600  # data.frame_bucket
@@ -520,10 +557,29 @@ STREAM_BUCKET = 600  # data.frame_bucket
 # phase 9b fails on a batch padded past it (up to 28 s utterances at the
 # recipe's 40 words: buckets of 1,800-3,000 frames)
 STREAM_MAX_FRAMES = 3600
-STREAM_LOSS_RANGE = (0.2, 0.5)  # 9b: mean loss of the 100 micro-steps
-STREAM_TRACED = (60, 5)  # 9b: micro-steps 61-65 under torch.profiler
+STREAM_LOSS_RANGE = (0.2, 0.5)  # 9b: mean loss of the micro-steps
+STREAM_TRACED = (30, 5)  # 9b: micro-steps 31-35 under torch.profiler
 STREAM_CHECK_FRAMES = 600  # 9a: 4 x 600 frames
 STREAM_WER_MAX_DIFF = 0.005  # 9c: within 0.5 point of phase 7's lookahead-0 WER
+# phase 14: MoE and the language-ID head (checkpoints/moe_run, multilang_run,
+# multilang_moe_run), each path held to its committed JAX eval file
+MULTILANG_LANGUAGES = 4  # the multilingual held-out corpus (write_corpus languages=4)
+LID_ACC_MAX_DROP = 0.01  # LID accuracy at least the JAX file's over the same N, less this
+LID_MIN_SAME = 0.99  # share of language predictions equal to the JAX file's
+LID_FILES = 8  # files through transcribe --identify-language and the server
+# 14a, fp32 logits card vs CPU: the dense path's bound (LOGITS_FP32_MAX_ABS) and
+# this argmax agreement; the CPU's own gap when the mel moves by 1e-7 relative
+# was 1.5e-5 to 2.3e-5 with every argmax equal over 4 draws (PERF.md section 6)
+MOE_LOGITS_MIN_AGREE = 0.999
+UPCYCLE_MIN_AGREE = 0.99  # upcycled greedy frames equal to the dense model's
+MULTILANG_MOE_TRAIN_CONFIG = os.path.join(ROOT, "configs", "train_synth_multilang_moe.yaml")
+MULTILANG_MOE_MODEL_CONFIG = os.path.join(ROOT, "configs", "model_synth_multilang_moe.yaml")
+MOE_STREAM_CONFIG = os.path.join(ROOT, "configs", "train_synth_moe_stream.yaml")
+MOE_MODEL_CONFIG = os.path.join(ROOT, "configs", "model_synth_moe.yaml")
+MOE_STREAM_STEPS = 10
+# 14d: 9b's [0.2, 0.5] with the top raised by 0.1 for the two aux terms
+# (0.01 x ~1 each) and a 10-step mean at the recipe's start
+MOE_STREAM_LOSS_RANGE = (0.2, 0.6)
 # the gradient of a loss on y and h_final through two carried launches of
 # 50 steps against one launch of 100, relative to each gradient's max|ref|
 # (the same arithmetic; the backward's dA and dB/dC sums split at the seam)
@@ -2791,6 +2847,7 @@ def phase_training(manifest, batched):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"counts": counts, "steps": TRAIN_STEPS,
+            "p50_ms": np.percentile([ms for _, ms, _, traced in steps if not traced], 50),
             "finetune_p50_ms": np.percentile([ms for _, ms, _, _ in ft_steps], 50)}
 
 
@@ -3677,6 +3734,514 @@ def phase_qat(tmp: str, manifest: str, batched, training, card: str):
     return counts
 
 
+# ---------------------------------------------------------------- phase 14
+
+
+def moe_ckpt(name: str) -> str:
+    return os.path.join(ROOT, "checkpoints", name, "final_pretrained")
+
+
+def moe_eval(name: str, file: str) -> str:
+    return os.path.join(ROOT, "checkpoints", name, file)
+
+
+def lid_eval(model, decoder, ds, n):
+    """A batched greedy evaluation (batch 16, bucket 200) with the
+    language-ID head on every batch; returns (result, launch counts,
+    wall seconds)."""
+    import torch
+
+    from velocity_asr_tpu_torch import evaluate as ev
+    from velocity_asr_tpu_torch.data import ASRCollator
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+
+    collator = ASRCollator(frame_bucket=FRAME_BUCKET, target_bucket=1)
+    ev.evaluate(model, decoder, ds, min(n, BATCH), collator, BATCH,
+                identify_language=True)  # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = ev.evaluate(model, decoder, ds, n, collator, BATCH, identify_language=True)
+    torch.cuda.synchronize()
+    return res, dict(launch_counts), time.perf_counter() - t0
+
+
+def moe_batched(manifest: str, batched, counts):
+    """14a: moe_run batched at 16 in bf16 and --int8 against its eval
+    files, then fp32 logits card against CPU with the CPU's own gap under
+    a 1e-7 nudge of the mel beside them. Returns {mode: ms/utterance}."""
+    import torch
+
+    from velocity_asr_tpu_torch import evaluate as ev
+    from velocity_asr_tpu_torch.data import ASRCollator
+    from velocity_asr_tpu_torch.models.model import from_pretrained
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.transcribe import checkpoint_decoder
+
+    ckpt = moe_ckpt("moe_run")
+    ds, n = ev.load_test_set(manifest)
+    collator = ASRCollator(frame_bucket=FRAME_BUCKET, target_bucket=1)
+    n_batches = -(-n // BATCH)
+    ms = {}
+    for mode, overrides, jax_file in (("bf16", {}, "eval_fp32_final.json"),
+                                      ("int8", {"int8_inference": True},
+                                       "eval_int8_dynamic.json")):
+        model = from_pretrained(ckpt, device="cuda", **overrides)
+        decoder = checkpoint_decoder(ckpt, model.config.vocab_size)
+        ev.evaluate(model, decoder, ds, min(n, BATCH), collator, BATCH)  # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = ev.evaluate(model, decoder, ds, n, collator, BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(launch_counts)
+        counts.update(got)
+        refs = [r["reference"] for r in res["results"]]
+        check_wer(f"14a MoE {mode}", [r["prediction"] for r in res["results"]], refs,
+                  moe_eval("moe_run", jax_file))
+        want = {"scan_fwd_f32": SCANS_PER_STEP * n_batches}
+        if mode == "int8":
+            want["int8_dense_dynamic_f32"] = 11 * n_batches
+        expect_launches(f"14a MoE {mode}", got, want)
+        ms[mode] = wall / n * 1e3
+        dense = batched[mode]["wall"] / n * 1e3
+        log(f"[14a MoE {mode}] {ms[mode]:.3f} ms/utterance with host mel "
+            f"({res['seconds'] / n * 1e3:.3f} model and decode) against phase 5's dense "
+            f"{dense:.3f} ({ms[mode] / dense:.2f}x)")
+
+    # fp32 logits, one 400-frame batch of 4: card against CPU
+    items = [ds[i] for i in range(n) if int(ds[i]["input_lengths"]) <= 400][:4]
+    batch = ASRCollator(frame_bucket=400, target_bucket=1)(items)
+    mel, lens = (torch.from_numpy(batch[k]) for k in ("mel_spectrogram", "input_lengths"))
+    nudged = mel * (1 + 1e-7 * torch.randn(mel.shape, generator=torch.Generator().manual_seed(0)))
+    lg = []
+    for device, m in (("cuda", mel), ("cpu", mel), ("cpu", nudged)):
+        model = from_pretrained(ckpt, device=device, dtype="float32")
+        on = next(model.parameters()).device
+        lg.append(ev.masked_logits(model, m.to(on), lens.to(on)).cpu())
+    max_abs = (lg[0] - lg[1]).abs().max().item()
+    agree = (lg[0].argmax(-1) == lg[1].argmax(-1)).float().mean().item()
+    own = (lg[2] - lg[1]).abs().max().item()
+    own_agree = (lg[2].argmax(-1) == lg[1].argmax(-1)).float().mean().item()
+    log(f"[14a MoE fp32] logits card vs CPU (4 x 400 frames): max_abs {max_abs:.3e} (tol "
+        f"{LOGITS_FP32_MAX_ABS:g}), argmax agreement {agree:.4f} (tol {MOE_LOGITS_MIN_AGREE:g}); "
+        f"the CPU against itself with the mel x (1 + 1e-7 N(0, 1)): max_abs {own:.3e}, argmax "
+        f"{own_agree:.4f}")
+    if not (torch.isfinite(lg[0]).all() and max_abs <= LOGITS_FP32_MAX_ABS
+            and agree >= MOE_LOGITS_MIN_AGREE):
+        raise AssertionError("[14a] MoE logits on the card disagree with the CPU")
+    return ms
+
+
+def moe_streaming(manifest: str, plan, counts):
+    """14b: moe_run streaming at batch 16, greedy and beam 8 + the LM,
+    against its eval files; 16 live sessions against the batched greedy
+    run; the dense checkpoint's batched greedy run beside it."""
+    import torch
+
+    from velocity_asr_tpu_torch.audio import load_audio
+    from velocity_asr_tpu_torch.lm import CharNGramLM
+    from velocity_asr_tpu_torch.models.model import from_pretrained
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.streaming import BatchedStreamingTranscriber, StreamingTranscriber
+    from velocity_asr_tpu_torch.transcribe import checkpoint_decoder
+
+    with open(manifest) as f:
+        rows = [json.loads(line) for line in f]
+    audios = [load_audio(r["audio_path"]) for r in rows]
+    refs = [r["text"] for r in rows]
+    n = len(rows)
+    stream = plan["stream"]
+    lm = CharNGramLM.load(LM_PATH)
+    texts, ms = {}, {}
+    for name, ckpt in (("dense", CHECKPOINT), ("MoE", moe_ckpt("moe_run"))):
+        model = from_pretrained(ckpt, device="cuda")
+        decoder = checkpoint_decoder(ckpt, model.config.vocab_size)
+        runs = [("greedy", 0, None, "eval_streaming.json")]
+        if name == "MoE":
+            runs.append(("beam8+LM", BEAM_WIDTH, [(lm, LM_WEIGHT)],
+                         "eval_streaming_beam8_lm.json"))
+        for mode, beam, scorers, jax_file in runs:
+            bt = BatchedStreamingTranscriber(model, decoder, chunk_frames=CHUNK_FRAMES,
+                                             batch_size=BATCH, beam_width=beam,
+                                             beam_scorers=scorers)
+            bt.transcribe_batch(audios[:BATCH])  # warm-up, not counted
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = bt.transcribe_batch(audios)
+            torch.cuda.synchronize()
+            ms[(name, mode)] = (time.perf_counter() - t0) / n * 1e3
+            got = dict(launch_counts)
+            tag = f"14b {name} streaming {mode}"
+            expect_launches(tag, got, {"scan_fwd_state_f32": stream["launches"][0]})
+            counts.update(got)
+            if name == "MoE":
+                check_wer(tag, out, refs, moe_eval("moe_run", jax_file))
+            texts[(name, mode)] = out
+        if name == "MoE":
+            st = StreamingTranscriber(model, decoder, chunk_frames=CHUNK_FRAMES)
+            reset_launch_counts()
+            live, step_ms, _ = live_sessions(st, audios[:LIVE_UTTS])
+            torch.cuda.synchronize()
+            got = dict(launch_counts)
+            counts.update(got)
+            agree = sum(a == b for a, b in zip(live, texts[("MoE", "greedy")]))
+            log(f"[14b MoE live] {LIVE_UTTS} sessions fed {LIVE_BLOCK}-sample blocks: {agree}/"
+                f"{LIVE_UTTS} transcripts identical to the batched greedy run (need "
+                f"{LIVE_MIN_AGREE}); chunk step at batch 1 p50 {np.percentile(step_ms, 50):.3f} "
+                f"ms, p95 {np.percentile(step_ms, 95):.3f} ms")
+            expect_launches("14b MoE live", got, {"scan_fwd_state_f32": stream["launches"]["live"]})
+            if agree < LIVE_MIN_AGREE:
+                raise AssertionError("[14b] live MoE sessions disagree with the batched run")
+    log(f"[14b] streaming at batch {BATCH}, ms/utterance with the host mel: MoE greedy "
+        f"{ms[('MoE', 'greedy')]:.3f} against dense greedy {ms[('dense', 'greedy')]:.3f} "
+        f"({ms[('MoE', 'greedy')] / ms[('dense', 'greedy')]:.2f}x); MoE beam 8 + LM "
+        f"{ms[('MoE', 'beam8+LM')]:.3f}")
+    return ms
+
+
+def lid_paths(tmp: str, manifest: str, counts):
+    """14c: multilang_run and multilang_moe_run batched with the head over
+    the multilingual held-out set against eval_multilang.json; the
+    multilingual MoE model on the monolingual set against
+    eval_mono_regression.json; transcribe --identify-language and the
+    server's /transcribe?identify_language=1 on LID_FILES files."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from velocity_asr_tpu_torch import evaluate as ev
+    from velocity_asr_tpu_torch import synth
+    from velocity_asr_tpu_torch import transcribe as tr
+    from velocity_asr_tpu_torch.models.model import from_pretrained
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.serve import ASRService, make_handler
+    from velocity_asr_tpu_torch.transcribe import checkpoint_decoder
+
+    mono_ds, n = ev.load_test_set(manifest)
+    t0 = time.perf_counter()
+    multi = synth.write_corpus(os.path.join(tmp, "multilang"), n, split="test", seed=1234,
+                               languages=MULTILANG_LANGUAGES)
+    ds, _ = ev.load_test_set(multi)
+    log(f"[14c] multilingual held-out corpus: {n} utterances, languages "
+        f"{dict(sorted(collections.Counter(r['language'] for r in ds.samples).items()))}, "
+        f"written in {time.perf_counter() - t0:.3f} s")
+    n_batches = -(-n // BATCH)
+    batched = {}
+    for name in ("multilang_run", "multilang_moe_run"):
+        ckpt = moe_ckpt(name)
+        model = from_pretrained(ckpt, device="cuda")
+        decoder = checkpoint_decoder(ckpt, model.config.vocab_size)
+        res, got, wall = lid_eval(model, decoder, ds, n)
+        counts.update(got)
+        results = res["results"]
+        refs = [r["reference"] for r in results]
+        tag = f"14c {name}"
+        check_wer(tag, [r["prediction"] for r in results], refs,
+                  moe_eval(name, "eval_multilang.json"))
+        with open(moe_eval(name, "eval_multilang.json")) as f:
+            jax_rows = json.load(f)["results"][:n]
+        jax_acc = np.mean([r["language_pred"] == r["language"] for r in jax_rows])
+        same = sum(a["language_pred"] == b["language_pred"] for a, b in zip(results, jax_rows))
+        acc = res["lid"]["accuracy"]
+        log(f"[{tag}] LID accuracy {acc:.4f} against the JAX file's {jax_acc:.4f} over the same "
+            f"{n} (tol -{LID_ACC_MAX_DROP:g}); language_pred equal to JAX's on {same}/{n} (need "
+            f"{math.ceil(LID_MIN_SAME * n)}); per language "
+            + ", ".join(f"L{k}: recall {v['lid_recall']:.4f} WER {v['wer'] * 100:.2f}%"
+                        for k, v in res["lid"]["per_language"].items())
+            + f"; {wall / n * 1e3:.3f} ms/utterance with host mel and the head's forward")
+        # per batch: the transcription forward and the head's own
+        expect_launches(tag, got, {"scan_fwd_f32": 2 * SCANS_PER_STEP * n_batches})
+        if acc < jax_acc - LID_ACC_MAX_DROP or same < math.ceil(LID_MIN_SAME * n):
+            raise AssertionError(f"[{tag}] language ID disagrees with the JAX file")
+        batched[name] = results
+
+    ckpt = moe_ckpt("multilang_moe_run")
+    model = from_pretrained(ckpt, device="cuda")
+    decoder = checkpoint_decoder(ckpt, model.config.vocab_size)
+    from velocity_asr_tpu_torch.data import ASRCollator
+
+    reset_launch_counts()
+    res = ev.evaluate(model, decoder, mono_ds, n, ASRCollator(frame_bucket=FRAME_BUCKET,
+                                                              target_bucket=1), BATCH)
+    counts.update(launch_counts)
+    check_wer("14c multilang_moe_run monolingual", [r["prediction"] for r in res["results"]],
+              [r["reference"] for r in res["results"]],
+              moe_eval("multilang_moe_run", "eval_mono_regression.json"))
+
+    # transcribe --identify-language on LID_FILES files, then the server
+    paths = [r["audio_path"] for r in ds.samples[:LID_FILES]]
+    want_lang = [r["language_pred"] for r in batched["multilang_moe_run"][:LID_FILES]]
+    out_json = os.path.join(tmp, "lid_cli.json")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    if tr.main(paths + ["--checkpoint", ckpt, "--identify-language", "--json", "--output",
+                        out_json, "--device", "cuda"]) != 0:
+        raise AssertionError("[14c] transcribe --identify-language failed")
+    torch.cuda.synchronize()
+    got = dict(launch_counts)
+    counts.update(got)
+    with open(out_json) as f:
+        cli = json.load(f)
+    cli_lang = [r["language"] for r in cli]
+    log(f"[14c transcribe --identify-language] {len(cli)} files in "
+        f"{time.perf_counter() - t0:.3f} s: languages {cli_lang} against the batched run's "
+        f"{want_lang}; probabilities " + ", ".join(f"{r['language_prob']:.4f}" for r in cli))
+    expect_launches("14c transcribe --identify-language", got,
+                    {"scan_fwd_f32": 2 * SCANS_PER_STEP * LID_FILES,
+                     "log_mel_f32": 2 * LID_FILES})
+    if cli_lang != want_lang:
+        raise AssertionError("[14c] the transcribe CLI's languages differ from the batched run's")
+
+    svc = ASRService.from_checkpoint(ckpt, device="cuda")
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.server_address[1]
+        bodies = []
+        for p in paths:
+            with open(p, "rb") as f:
+                bodies.append(f.read())
+        serve_transcribe(port, bodies[:2], 2, "identify_language=1")  # warm-up
+        torch.cuda.synchronize()
+        forwards = [0]
+        masked = svc.transcriber.masked_logits
+
+        def counted(*args):
+            forwards[0] += 1
+            return masked(*args)
+
+        svc.transcriber.masked_logits = counted
+        reset_launch_counts()
+        results, req_ms, wall = serve_transcribe(port, bodies, len(bodies), "identify_language=1")
+        torch.cuda.synchronize()
+        got = dict(launch_counts)
+        counts.update(got)
+        del svc.transcriber.masked_logits
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+    srv_lang = [r["language"] for r in results]
+    same_text = sum(a["text"] == b["text"] for a, b in zip(results, cli))
+    log(f"[14c serve] /transcribe?identify_language=1 from {len(bodies)} clients in {wall:.3f} s "
+        f"(p50 {np.percentile(req_ms, 50):.1f} ms): languages {srv_lang}; texts identical to "
+        f"the transcribe CLI's on {same_text}/{len(bodies)}; {forwards[0]} micro-batched "
+        f"forwards and {len(bodies)} head forwards")
+    expect_launches("14c serve", got,
+                    {"scan_fwd_f32": SCANS_PER_STEP * (forwards[0] + len(bodies)),
+                     "log_mel_f32": forwards[0] + len(bodies)})
+    if srv_lang != want_lang or same_text != len(bodies):
+        raise AssertionError("[14c] the server's languages or texts differ")
+
+
+def multilang_check_batch():
+    """14d's batch: the first CHECK_BATCH multilingual train-split
+    utterances of at most CHECK_FRAMES frames, host mel, labelled."""
+    from velocity_asr_tpu_torch.data import ASRCollator
+    from velocity_asr_tpu_torch.synth import SyntheticSpeechDataset
+
+    ds = SyntheticSpeechDataset(TRAIN_SYNTH, split="train", seed=1234,
+                                languages=MULTILANG_LANGUAGES)
+    items = []
+    for i in range(len(ds)):
+        item = ds[i]
+        if item["mel_spectrogram"].shape[0] <= CHECK_FRAMES:
+            items.append(item)
+        if len(items) == CHECK_BATCH:
+            break
+    return ASRCollator(frame_bucket=CHECK_FRAMES)(items)
+
+
+def moe_lid_step(device, batch):
+    """One fp32 micro-step of multilang_moe_run (dropout off, the LID and
+    aux terms on): (loss, {name: gradient on the CPU})."""
+    import torch
+
+    from velocity_asr_tpu_torch.models.model import from_pretrained
+    from velocity_asr_tpu_torch.training import Trainer, TrainingConfig
+
+    model = from_pretrained(moe_ckpt("multilang_moe_run"), device=device, dtype="float32",
+                            dropout=0.0)
+    trainer = Trainer(model, TrainingConfig(lid_loss_weight=0.3, moe_aux_weight=0.01),
+                      iter(()))
+    model.train()
+    loss = trainer._loss(trainer._to_device(batch), None)
+    grads = torch.autograd.grad(loss, trainer.params)
+    names = [n for n, _ in model.named_parameters()]
+    return loss.item(), {n: g.cpu() for n, g in zip(names, grads)}
+
+
+def step_gaps(a, b):
+    """(loss rel, worst non-router gradient rel and name, worst router rel,
+    exact-zero gradients' share of the largest) of step a against b."""
+    (la, ga), (lb, gb) = a, b
+    top = max(g.abs().max().item() for g in gb.values())
+    rel = {n: ((ga[n] - gb[n]).abs().max() / gb[n].abs().max().clamp_min(1e-30)).item()
+           for n in gb if n not in ZERO_GRAD_PARAMS}
+    zero = max(max(ga[n].abs().max().item(), gb[n].abs().max().item()) / top
+               for n in ZERO_GRAD_PARAMS)
+    router = max(v for n, v in rel.items() if "router" in n)
+    worst = max((v, n) for n, v in rel.items() if "router" not in n)
+    return abs(la - lb) / abs(lb), worst, router, zero
+
+
+def moe_training(manifest: str, training, counts):
+    """14d: one fp32 micro-step of multilang_moe_run card against CPU; 20
+    micro-steps of the multilingual MoE recipe through the CLI from the
+    dense checkpoint (upcycled, LID head grafted), the upcycled model's
+    greedy frames against the dense model's; 10 micro-steps of the MoE
+    streaming-aware recipe from moe_run; a checkpointed MoE micro-step
+    bit-equal to the plain one."""
+    import torch
+
+    from velocity_asr_tpu_torch import evaluate as ev
+    from velocity_asr_tpu_torch.checkpoint import read_params, params_from_numpy
+    from velocity_asr_tpu_torch.config import load_yaml, model_config_from_yaml
+    from velocity_asr_tpu_torch.data import ASRCollator
+    from velocity_asr_tpu_torch.models.model import create_model, from_pretrained
+    from velocity_asr_tpu_torch.train import init_tree
+    from velocity_asr_tpu_torch.training import Trainer, TrainingConfig, ctc_loss, step_seed
+
+    batch = multilang_check_batch()
+    card, cpu = moe_lid_step("cuda", batch), moe_lid_step("cpu", batch)
+    nudged = dict(batch, mel_spectrogram=(batch["mel_spectrogram"] * (1 + 1e-7 * np.random.default_rng(0)
+                  .standard_normal(batch["mel_spectrogram"].shape))).astype(np.float32))
+    own = step_gaps(moe_lid_step("cpu", nudged), cpu)
+    loss_rel, (grad_rel, grad_name), router_rel, zero_rel = step_gaps(card, cpu)
+    log(f"[14d] fp32 micro-step of multilang_moe_run (lid_loss_weight 0.3, moe_aux_weight "
+        f"0.01, dropout off) on 4 x 400 labelled host mel {batch['language'].tolist()}, card vs "
+        f"CPU: loss {card[0]:.6f} vs {cpu[0]:.6f} (rel {loss_rel:.3e}, tol "
+        f"{TRAIN_LOSS_MAX_REL:g}); worst gradient {grad_rel:.3e} ({grad_name}; tol "
+        f"{TRAIN_GRAD_MAX_REL:g}); routers' worst {router_rel:.3e} (tol {TRAIN_GRAD_MAX_REL:g}); "
+        f"exact-zero {zero_rel:.3e} (tol {ZERO_GRAD_MAX_REL:g}) | the CPU against itself with "
+        f"the mel x (1 + 1e-7 N(0, 1)): loss {own[0]:.3e}, worst gradient {own[1][0]:.3e} "
+        f"({own[1][1]}), routers {own[2]:.3e}")
+    if not (math.isfinite(card[0]) and loss_rel <= TRAIN_LOSS_MAX_REL
+            and grad_rel <= TRAIN_GRAD_MAX_REL and router_rel <= TRAIN_GRAD_MAX_REL
+            and zero_rel <= ZERO_GRAD_MAX_REL):
+        raise AssertionError("[14d] the MoE + LID micro-step on the card disagrees with the CPU")
+
+    # the upcycled model's first eval forward against the dense checkpoint's
+    cfg = model_config_from_yaml(load_yaml(MULTILANG_MOE_MODEL_CONFIG))
+    dense = from_pretrained(CHECKPOINT, device="cuda")
+    cfg = dataclasses.replace(cfg, vocab_size=dense.config.vocab_size)
+    upcycled = create_model(cfg, device="cuda")
+    upcycled.load_state_dict(params_from_numpy(init_tree(
+        read_params(os.path.join(CHECKPOINT, "params.msgpack")), upcycled)), strict=True)
+    ds, n = ev.load_test_set(manifest)
+    collator = ASRCollator(frame_bucket=FRAME_BUCKET, target_bucket=1)
+    agree = total = 0
+    device = next(dense.parameters()).device
+    for start in range(0, min(n, 4 * BATCH), BATCH):
+        b = collator([ds[i] for i in range(start, min(start + BATCH, n))])
+        mel = torch.from_numpy(b["mel_spectrogram"]).to(device)
+        lens = torch.from_numpy(b["input_lengths"]).to(device)
+        a, d = ev.masked_logits(upcycled.eval(), mel, lens), ev.masked_logits(dense, mel, lens)
+        valid = torch.arange(a.shape[1], device=device)[None] < ((lens + 1) // 2)[:, None]
+        agree += ((a.argmax(-1) == d.argmax(-1)) & valid).sum().item()
+        total += valid.sum().item()
+    log(f"[14d upcycle] the dense checkpoint upcycled into {cfg.moe_experts} experts (router "
+        f"fresh, LID head grafted): greedy tokens equal to the dense model's on {agree}/{total} "
+        f"valid frames ({agree / total:.4f}; tol {UPCYCLE_MIN_AGREE:g})")
+    if agree / total < UPCYCLE_MIN_AGREE:
+        raise AssertionError("[14d] the upcycled model's forward is not the dense one's")
+
+    work = tempfile.mkdtemp(prefix="velocity_asr_moe_")
+    # 20 micro-steps of the multilingual MoE recipe from the dense checkpoint
+    trainer, steps, got, wall = run_train_cli(
+        os.path.join(work, "multilang_moe"), ["--init-from", CHECKPOINT, "--max-steps",
+                                             str(FINETUNE_STEPS)],
+        config=MULTILANG_MOE_TRAIN_CONFIG, synthetic=TRAIN_SYNTH, tag="14d multilang MoE",
+        model_config=MULTILANG_MOE_MODEL_CONFIG)
+    counts.update(got)
+    losses = [loss for _, _, loss, _ in steps]
+    report_steps("14d multilang MoE", steps, trainer, wall, load_yaml(
+        MULTILANG_MOE_TRAIN_CONFIG)["training"]["batch_size"])
+    p50 = np.percentile([ms for _, ms, _, _ in steps], 50)
+    log(f"[train 14d multilang MoE] losses {[round(v, 4) for v in losses]}; p50 {p50:.3f} ms a "
+        f"micro-step against 8b's dense {training['p50_ms']:.3f} ms at batch {TRAIN_BATCH} "
+        f"(host mel there, device mel here)")
+    expect_launches("train 14d multilang MoE", got,
+                    {"log_mel_f32": FINETUNE_STEPS,
+                     "scan_fwd_bounds_f32": SCANS_PER_STEP * FINETUNE_STEPS,
+                     "scan_bwd_f32": SCANS_PER_STEP * FINETUNE_STEPS})
+    if not (len(losses) == FINETUNE_STEPS and all(math.isfinite(v) for v in losses)):
+        raise AssertionError("[14d] a multilingual MoE loss is not finite or a step is missing")
+
+    # 10 micro-steps of the MoE streaming-aware recipe from moe_run
+    trainer, steps, got, wall = run_train_cli(
+        os.path.join(work, "moe_stream"), ["--init-from", moe_ckpt("moe_run"), "--max-steps",
+                                           str(MOE_STREAM_STEPS)],
+        config=MOE_STREAM_CONFIG, synthetic=STREAM_SYNTH, tag="14d MoE stream",
+        model_config=MOE_MODEL_CONFIG)
+    counts.update(got)
+    losses = [loss for _, _, loss, _ in steps]
+    mean = float(np.mean(losses))
+    lo, hi = MOE_STREAM_LOSS_RANGE
+    report_steps("14d MoE stream", steps, trainer, wall, STREAM_BATCH)
+    log(f"[train 14d MoE stream] mean loss of {len(losses)} micro-steps {mean:.4f} (range {lo:g}-"
+        f"{hi:g})")
+    check_stream_launches("14d MoE stream", got, steps)
+    if not (len(losses) == MOE_STREAM_STEPS and lo <= mean <= hi):
+        raise AssertionError(f"[14d] MoE streaming-aware mean loss {mean:.4f}")
+    shutil.rmtree(work, ignore_errors=True)
+
+    # a checkpointed MoE micro-step against the plain one, bit for bit
+    cfg = dataclasses.replace(model_config_from_yaml(load_yaml(MOE_MODEL_CONFIG)),
+                              dtype="float32", dropout=0.1, vocab_size=30)
+    b = check_batch()
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True, False):
+            model = create_model(dataclasses.replace(cfg, gradient_checkpointing=remat),
+                                 device="cuda", generator=torch.Generator().manual_seed(3))
+            model.train()
+            rng = torch.Generator(device=device)
+            rng.manual_seed(step_seed(0, 7))
+            collect = []
+            logits = model(torch.from_numpy(b["mel_spectrogram"]).to(device), rng=rng,
+                           collect=collect)
+            aux = sum(a for a, _ in collect) / len(collect)
+            loss = ctc_loss(logits.cpu(), torch.as_tensor(b["targets"]),
+                            torch.as_tensor((b["input_lengths"] + 1) // 2),
+                            torch.as_tensor(b["target_lengths"])) + 0.01 * aux.cpu()
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            runs.append((loss.detach(), aux.detach().cpu(), [g.cpu() for g in grads]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    def same(x, y):
+        return (torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+                and all(torch.equal(p, q) for p, q in zip(x[2], y[2])))
+
+    bit_equal, repeatable = same(runs[0], runs[1]), same(runs[0], runs[2])
+    log(f"[14d checkpointed MoE] fp32, dropout 0.1, aux on, 4 x 400: loss {float(runs[0][0]):.6f},"
+        f" aux {float(runs[0][1]):.6f}; checkpointed {'bit-equal to' if bit_equal else 'DIFFERS from'}"
+        f" the plain step (aux and every gradient, the routers' included); plain step "
+        f"{'repeatable' if repeatable else 'NOT repeatable'}")
+    if not (bit_equal and repeatable):
+        raise AssertionError("[14d] the checkpointed MoE step is not bit-equal to the plain one")
+
+
+def phase_moe_lid(tmp: str, manifest: str, plan, batched, training, card: str):
+    """Phase 14: MoE and the language-ID head (14a-14d); returns the launch
+    counts of the runs that count toward the kernels line."""
+    counts = collections.Counter()
+    log(f"[14] {card}")
+    moe_batched(manifest, batched, counts)
+    moe_streaming(manifest, plan, counts)
+    lid_paths(tmp, manifest, counts)
+    moe_training(manifest, training, counts)
+    return counts
+
+
 def exp_floor_ms(batch, length, d_inner, state_dim):
     """The least time the SFU takes for the forward's one IEEE expf per
     (b, t, d, n): exp2 at SFU_PER_CLOCK_PER_SM a clock on every SM at the
@@ -4064,11 +4629,14 @@ def main(argv=None) -> int:
         data_counts.update(run_phase(
             "13 QAT, int8 package, export",
             lambda: phase_qat(tmp, manifest, batched, training, card), t_start))
+        data_counts.update(run_phase(
+            "14 MoE and language ID",
+            lambda: phase_moe_lid(tmp, manifest, plan, batched, training, card), t_start))
         kernels = run_phase(
             "6 timing",
             lambda: phase_timing(counts, bucket, errs, batched, streaming, training,
                                  stream_training, serve["transcribe"]), t_start)
-        for kernel in kernels["kernels"]:  # phases 12's and 13's launches join each count
+        for kernel in kernels["kernels"]:  # phases 12-14's launches join each count
             kernel["launches"] += data_counts.get(kernel["name"], 0)
     except PhaseFailed as e:
         print(f"chip_smoke: phase {e} failed", file=sys.stderr)

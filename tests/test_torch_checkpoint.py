@@ -128,14 +128,15 @@ def test_from_pretrained_loads_committed_checkpoint_and_overrides():
     assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
-# QAT and int8_inference are ported: with both on, the JAX package's
-# quant_mode picks QAT, and the model builds with QAT projections. MoE
-# and the language-ID head still raise.
+# Every option of the JAX package's model config is ported now. QAT and
+# int8_inference: with both on, the JAX package's quant_mode picks QAT,
+# and the model builds with QAT projections. MoE and the language-ID head
+# build, and a saved model loads back with them.
 @pytest.mark.parametrize("option", [
     {"qat": True}, {"int8_inference": True, "qat": True}, {"moe_experts": 8},
     {"num_languages": 4},
 ])
-def test_unported_options_raise(option):
+def test_unported_options_raise(option, tmp_path):
     if option.get("qat"):
         from velocity_asr_tpu_torch.quantize import DynamicInt8Dense, QuantDense
 
@@ -143,8 +144,15 @@ def test_unported_options_raise(option):
         assert isinstance(model.ctc_head.proj, QuantDense)
         assert not any(isinstance(m, DynamicInt8Dense) for m in model.modules())
         return
-    with pytest.raises(NotImplementedError):
-        tmodel.create_model(VelocityASRConfig(**option), device="cpu")
+    cfg = VelocityASRConfig(d_model=32, ssm_layers=2, **option)
+    model = tmodel.create_model(cfg, device="cpu")
+    blocks = model.local_ssm.layers
+    assert all((b.moe is not None) == ("moe_experts" in option) for b in blocks)
+    assert (model.lid_head is not None) == ("num_languages" in option)
+    tmodel.save_pretrained(str(tmp_path), cfg, model)
+    back = tmodel.from_pretrained(str(tmp_path), device="cpu")
+    for key, value in model.state_dict().items():
+        assert torch.equal(back.state_dict()[key], value), key
 
 
 def test_cuda_entry_points_raise_without_a_card():

@@ -124,6 +124,18 @@ def test_qat_and_export_modules_are_checked(module):
     assert module in _modules()
 
 
+@pytest.mark.parametrize("module", [
+    "velocity_asr_tpu_torch.models.moe", "velocity_asr_tpu_torch.models.ssm",
+    "velocity_asr_tpu_torch.models.model", "velocity_asr_tpu_torch.synth",
+    "velocity_asr_tpu_torch.serve",
+])
+def test_moe_and_lid_modules_are_checked(module):
+    """The mixture of experts, the language-ID head, the multilingual
+    corpus and the server's ?identify_language are among the modules both
+    checks walk."""
+    assert module in _modules()
+
+
 def test_qat_names_need_no_jax():
     """The QAT names are the port's own classes, not re-exports."""
     import velocity_asr_tpu_torch as port

@@ -390,12 +390,16 @@ HOST_MEL_WAVEFORM = "noise_injection / speed_perturb require data.device_mel"
     pytest.param({"train": {"augment": taugment.SpecAugmentConfig(enabled=True,
                                                                   speed_perturb=True)}},
                  ValueError, HOST_MEL_WAVEFORM, id="speed_perturb"),
-    pytest.param({"train": {"lid_loss_weight": 0.3}}, NotImplementedError,
-                 "ROADMAP module item 8", id="lid_loss_weight"),
+    # the language-ID loss is ported: without the head it is the JAX
+    # Trainer's ValueError
+    pytest.param({"train": {"lid_loss_weight": 0.3}}, ValueError,
+                 "training.lid_loss_weight > 0 requires a model with num_languages > 0 "
+                 "\\(the language-ID head\\)", id="lid_loss_weight"),
 ])
 def test_unported_options_raise(change, error, match, monkeypatch):
     """Options the port does not train raise, naming their ROADMAP item,
-    when the Trainer is built; streaming_chunks and the waveform
+    when the Trainer is built (a language-ID loss without the head raises
+    the JAX Trainer's ValueError there); streaming_chunks and the waveform
     augmentations raise ValueError at the first micro-step on a host-mel
     batch; the ported options (error None) take a finite step. Model
     options are set when the model is built, as the blocks read them."""

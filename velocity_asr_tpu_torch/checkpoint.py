@@ -10,8 +10,10 @@ scalar ext types) into plain dicts of numpy arrays.
 ``params_from_numpy`` maps that tree onto the port's ``state_dict``:
 Dense kernels (in, out) become Linear weights (out, in), conv kernels
 (k, in/groups, out) become Conv1d weights (out, in/groups, k), LayerNorm
-``scale`` becomes ``weight`` and ``layers_{i}`` becomes ``layers.{i}``.
-It is the inverse of ``velocity_asr_tpu/compat/torch_convert.py``.
+``scale`` becomes ``weight`` and ``layers_{i}`` becomes ``layers.{i}``; an MoE block's
+``moe/{w_in, b_in, w_out, b_out}`` keep the flax layout ((E, d, h) and
+(E, h, d) are already matmul layout), its ``moe/router/kernel`` is a
+Dense's. It is the inverse of ``velocity_asr_tpu/compat/torch_convert.py``.
 ``params_to_numpy`` maps a model's parameters back onto the flax tree,
 and ``write_msgpack`` encodes such a tree byte for byte as
 ``flax.serialization.to_bytes`` does, so the JAX package's
@@ -316,9 +318,15 @@ def _flax_path(key: str, module: torch.nn.Module) -> Tuple[Tuple[str, ...], str]
     return tuple(mods) + (leaf,), "copy"
 
 
+def _sorted_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The tree with every dict's keys sorted (the JAX pytree order)."""
+    return {k: _sorted_tree(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}
+
+
 def params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
     """A model's parameters as the flax parameter tree (nested dicts of
-    fp32 numpy arrays): the inverse of ``params_from_numpy``."""
+    fp32 numpy arrays, keys sorted as a jax pytree keeps them, so the
+    msgpack bytes are flax's): the inverse of ``params_from_numpy``."""
     tree: Dict[str, Any] = {}
     for key, param in model.named_parameters():
         owner = model.get_submodule(key.rpartition(".")[0]) if "." in key else model
@@ -332,7 +340,7 @@ def params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
         for name in path[:-1]:
             node = node.setdefault(name, {})
         node[path[-1]] = np.array(arr, order="C")  # a copy: never a view of the parameter
-    return tree
+    return _sorted_tree(tree)
 
 
 def quant_stats_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:

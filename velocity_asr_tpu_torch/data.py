@@ -16,8 +16,8 @@ repeats it. ``LibriSpeechDataset`` reads LibriSpeech's on-disk layout
 (FLAC through ``io.decode_audio_file``); ``create_dataloader`` and
 ``create_librispeech_dataloaders`` build the training and validation
 loaders of a manifest or of LibriSpeech splits. A manifest row's optional
-integer ``language`` rides along to the batch (the language-ID head that
-reads it is not ported).
+integer ``language`` rides along to the batch (the language-ID head's
+labels).
 """
 
 from __future__ import annotations

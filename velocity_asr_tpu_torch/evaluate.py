@@ -8,7 +8,7 @@ transcripts of a directory.
          [--hotwords FILE|w1,w2 | --hotwords-oracle] [--hotword-weight 2.0]] \
         [--max-utts N] [--calib-batches 8] [--output results.json] [--device cuda] \
         [--streaming [--chunk-seconds 2.0] [--lookahead N] [--stream-tokens K]
-         [--stream-memory M]]
+         [--stream-memory M]] [--identify-language]
 
 ``--test-set`` is a JSONL manifest, or else a LibriSpeech split under
 ``--librispeech-root`` (``data.LibriSpeechDataset``, its FLAC read
@@ -34,6 +34,10 @@ each utterance through the chunked streaming path instead, batched
 across utterances (``streaming.BatchedStreamingTranscriber``; a beam
 carried across chunks, the LM and hot words rescoring each utterance's
 n-best at its end), and measures the streaming-vs-offline accuracy gap.
+``--identify-language`` (a model with a language-ID head, a test set
+whose rows carry ``language``) also runs the head on every batch, outside
+the timed region, and reports its accuracy and per-language recall and
+WER (``lid``), each result with ``language_pred`` and ``language``.
 The output JSON has the keys of the JAX package's ``eval_*.json`` files.
 """
 
@@ -60,7 +64,7 @@ from .quantize import calibrate_int8_model
 from .streaming import BatchedStreamingTranscriber
 from .training import compute_cer, compute_wer
 from .transcribe import (Transcriber, checkpoint_decoder, chunk_frames_of, collect_files,
-                         combine_scorers, transcribe_files)
+                         combine_scorers, lid_probabilities, transcribe_files)
 
 logger = logging.getLogger("velocity_asr_tpu_torch.evaluate")
 
@@ -157,8 +161,25 @@ def beam_texts(decoder: CTCDecoder, logits: torch.Tensor, beam_width: int,
     return texts
 
 
+def lid_summary(predictions: List[str], references: List[str], lid_predictions: List[int],
+                lid_labels: List[int]) -> dict:
+    """The JAX CLI's ``lid`` record: accuracy, and per language (by label)
+    its utterances, recall and WER."""
+    correct = sum(p == l for p, l in zip(lid_predictions, lid_labels))
+    lid = {"accuracy": correct / max(len(lid_labels), 1), "per_language": {}}
+    for lang in sorted(set(lid_labels)):
+        sel = [i for i, l in enumerate(lid_labels) if l == lang]
+        lid["per_language"][str(lang)] = {
+            "utterances": len(sel),
+            "lid_recall": sum(lid_predictions[i] == lang for i in sel) / max(len(sel), 1),
+            "wer": compute_wer([predictions[i] for i in sel], [references[i] for i in sel]),
+        }
+    return lid
+
+
 def evaluate(model: VelocityASR, decoder: CTCDecoder, ds, n: int, collator: ASRCollator,
-             batch_size: int, beam_width: int = 0, scorer_for=None) -> dict:
+             batch_size: int, beam_width: int = 0, scorer_for=None,
+             identify_language: bool = False) -> dict:
     """Decode the first n utterances batch by batch: greedily, or with
     beam_width > 1 by the device beam. scorer_for, if given, maps a
     batch's reference texts to the (scorer, weight) that rescores its
@@ -167,11 +188,15 @@ def evaluate(model: VelocityASR, decoder: CTCDecoder, ds, n: int, collator: ASRC
     Returns wer, cer, rtf (model and decode seconds per second of audio,
     host mel excluded, as in the JAX package), utterances, results (one
     {"prediction", "reference"} per utterance) and seconds (the model and
-    decode time behind rtf).
+    decode time behind rtf). identify_language adds ``lid``
+    (``lid_summary``) and each result's ``language_pred`` and
+    ``language``, from a forward of the head outside the timed region.
     """
     device = next(model.parameters()).device
     predictions: List[str] = []
     references: List[str] = []
+    lid_predictions: List[int] = []
+    lid_labels: List[int] = []
     total_audio_s = total_wall = 0.0
     for start in range(0, n, batch_size):
         batch = collator([ds[i] for i in range(start, min(start + batch_size, n))])
@@ -188,11 +213,20 @@ def evaluate(model: VelocityASR, decoder: CTCDecoder, ds, n: int, collator: ASRC
             predictions.extend(decoder.tokens_to_text(toks[b, : lens[b]].tolist())
                                for b in range(toks.shape[0]))
         total_wall += time.perf_counter() - t0
+        if identify_language:
+            if "language" not in batch:
+                raise SystemExit("--identify-language: the test set's rows "
+                                 "carry no 'language' labels (regenerate "
+                                 "with synth.write_corpus(languages=K) or "
+                                 "add the field to the manifest)")
+            probs = lid_probabilities(model, mel, (in_lens + 1) // 2)
+            lid_predictions.extend(probs.argmax(dim=-1).tolist())
+            lid_labels.extend(int(x) for x in batch["language"])
         references.extend(batch["texts"])
         total_audio_s += float(np.sum(batch["input_lengths"])) * HOP_SECONDS
         if (start // batch_size) % 20 == 0:
             logger.info("  %d/%d", min(start + batch_size, n), n)
-    return {
+    out = {
         "wer": compute_wer(predictions, references),
         "cer": compute_cer(predictions, references),
         "rtf": total_wall / max(total_audio_s, 1e-9),
@@ -201,6 +235,12 @@ def evaluate(model: VelocityASR, decoder: CTCDecoder, ds, n: int, collator: ASRC
                     for p, r in zip(predictions, references)],
         "seconds": total_wall,
     }
+    if identify_language:
+        out["lid"] = lid_summary(predictions, references, lid_predictions, lid_labels)
+        for rec, p, l in zip(out["results"], lid_predictions, lid_labels):
+            rec["language_pred"] = p
+            rec["language"] = l
+    return out
 
 
 def evaluate_streaming(model: VelocityASR, decoder: CTCDecoder, ds, n: int,
@@ -282,6 +322,11 @@ def main(argv: List[str] | None = None) -> dict:
                         help="override config.stream_summary_tokens")
     parser.add_argument("--stream-memory", type=int, default=None,
                         help="override config.stream_memory_chunks")
+    parser.add_argument("--identify-language", action="store_true",
+                        help="also measure language-ID accuracy and per-language WER "
+                             "(models trained with num_languages > 0 on a manifest whose "
+                             "rows carry 'language' labels, e.g. "
+                             "synth.write_corpus(languages=K))")
     args = parser.parse_args(argv)
     if not args.audio_dir and not args.test_set:
         parser.error("provide --audio-dir or --test-set")
@@ -309,6 +354,13 @@ def main(argv: List[str] | None = None) -> dict:
     if args.lm and args.beam_width <= 1:
         parser.error("--lm fuses into the beam search; add --beam-width "
                      "(e.g. --beam-width 8)")
+    if args.identify_language and args.streaming:
+        parser.error("--identify-language is not supported with --streaming "
+                     "(the LID head pools over the full utterance)")
+    if args.identify_language and args.audio_dir:
+        parser.error("--identify-language accuracy needs --test-set with "
+                     "'language' labels; for per-file predictions use "
+                     "transcribe.py --identify-language")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(levelname)s | %(message)s")
 
     overrides = {}
@@ -321,6 +373,10 @@ def main(argv: List[str] | None = None) -> dict:
     if args.stream_memory is not None:
         overrides["stream_memory_chunks"] = args.stream_memory
     model = from_pretrained(args.checkpoint, device=args.device, **overrides)
+    if args.identify_language and model.config.num_languages <= 0:
+        raise SystemExit("--identify-language requires a model with a "
+                         "LID head (trained with num_languages > 0); "
+                         "this checkpoint has none")
     decoder = checkpoint_decoder(args.checkpoint, model.config.vocab_size)
     scorer_for = fusion_scorer_for(
         decoder, lm=CharNGramLM.load(args.lm) if args.lm else None, lm_weight=args.lm_weight,
@@ -364,15 +420,25 @@ def main(argv: List[str] | None = None) -> dict:
         logger.info("Calibrated static int8 scales on %d utterances", n_calib)
 
     result = evaluate(model, decoder, ds, n, collator, args.batch_size,
-                      beam_width=args.beam_width, scorer_for=scorer_for)
+                      beam_width=args.beam_width, scorer_for=scorer_for,
+                      identify_language=args.identify_language)
     logger.info("WER: %.2f%% | CER: %.2f%% | RTF: %.5f | utts/s: %.2f",
                 result["wer"] * 100, result["cer"] * 100, result["rtf"],
                 n / max(result["seconds"], 1e-9))
+    lid = result.get("lid")
+    if lid is not None:
+        logger.info("LID accuracy: %.2f%% over %d languages (%s)",
+                    lid["accuracy"] * 100, len(lid["per_language"]),
+                    ", ".join(f"L{k}: {v['lid_recall'] * 100:.1f}%/WER {v['wer'] * 100:.2f}%"
+                              for k, v in lid["per_language"].items()))
     if args.output:
+        keys = ("wer", "cer", "rtf", "utterances", "results") + (("lid",) if lid else ())
         with open(args.output, "w") as f:
-            json.dump({k: result[k] for k in ("wer", "cer", "rtf", "utterances", "results")},
-                      f, indent=2)
-    return {k: result[k] for k in ("wer", "cer", "rtf")}
+            json.dump({k: result[k] for k in keys}, f, indent=2)
+    out = {k: result[k] for k in ("wer", "cer", "rtf")}
+    if lid is not None:
+        out["lid_accuracy"] = lid["accuracy"]
+    return out
 
 
 if __name__ == "__main__":

@@ -38,7 +38,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from .checkpoint import params_from_numpy, quant_stats_from_numpy, read_params, write_params
+from .checkpoint import (_sorted_tree, params_from_numpy, quant_stats_from_numpy, read_params,
+                         write_params)
 from .models.config import VelocityASRConfig
 from .models.layers import _time_encoding
 from .models.model import VelocityASR, _empty_model
@@ -94,11 +95,6 @@ def load_exported(path: str):
 
 
 # ----- the int8 weight package ------------------------------------------------
-
-
-def _sorted_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """The tree with every dict's keys sorted (the JAX pytree order)."""
-    return {k: _sorted_tree(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}
 
 
 def quantize_weights_int8(params: Dict[str, Any],

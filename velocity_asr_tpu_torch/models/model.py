@@ -7,6 +7,9 @@ JAX package's checkpoint directory (``config.json`` + flax
 ``params.msgpack``) with no JAX or flax, and ``save_pretrained`` writes
 one that the JAX package's ``from_pretrained`` reads. ``module.train()``
 turns dropout on; its masks come from the generator passed as ``rng``.
+With ``moe_experts > 0`` every local block's FFN is a routed mixture of
+experts (``moe.py``); with ``num_languages > 0`` an offline forward that
+returns its features also gives ``lid_logits``, the language-ID head's.
 """
 
 from __future__ import annotations
@@ -24,15 +27,12 @@ from ..device import resolve_device
 from ..ops.pooling import adaptive_avg_pool1d
 from .attention import HierarchicalGlobalContext
 from .config import VelocityASRConfig
-from .layers import CTCOutputHead, PositionalEncoding2D, TemporalBindingLayer
+from .layers import CTCOutputHead, Dense, PositionalEncoding2D, TemporalBindingLayer
+from .moe import MoEFFN, expert_init_bound
 from .ssm import LocalSSMProcessor, SelectiveSSM
 
 PARAMS_FILE = "params.msgpack"
 CONFIG_FILE = "config.json"
-
-# Options of the JAX package that this port does not implement yet: a
-# config that sets one must not load as a model that silently ignores it.
-_UNSUPPORTED = {"moe_experts": 0, "num_languages": 0}
 
 
 class VelocityASR(nn.Module):
@@ -40,11 +40,6 @@ class VelocityASR(nn.Module):
 
     def __init__(self, config: VelocityASRConfig):
         super().__init__()
-        for name, default in _UNSUPPORTED.items():
-            if getattr(config, name) != default:
-                raise NotImplementedError(
-                    f"{name}={getattr(config, name)!r} is not ported yet"
-                )
         self.config = cfg = config
         dtype = cfg.compute_dtype
         qat = {"qat": cfg.qat, "qat_bits": (cfg.qat_weight_bits, cfg.qat_activation_bits)}
@@ -53,7 +48,8 @@ class VelocityASR(nn.Module):
         self.local_ssm = LocalSSMProcessor(
             cfg.d_model, cfg.ssm_layers, cfg.ssm_state_dim, cfg.ssm_expand_ratio,
             cfg.ssm_kernel_size, cfg.scan_mode, dtype, cfg.dropout,
-            checkpoint=cfg.gradient_checkpointing,
+            checkpoint=cfg.gradient_checkpointing, moe_experts=cfg.moe_experts,
+            moe_top_k=cfg.moe_top_k, moe_capacity_factor=cfg.moe_capacity_factor,
         )
         quant = {"int8": cfg.int8_inference, "int8_static": cfg.int8_static, **qat}
         self.global_context = HierarchicalGlobalContext(
@@ -62,14 +58,30 @@ class VelocityASR(nn.Module):
         )
         self.ctc_head = CTCOutputHead(cfg.d_model, cfg.vocab_size, dtype, dropout=cfg.dropout,
                                       **quant)
+        if cfg.num_languages > 0:
+            # flax's nn.LayerNorm default eps (1e-6), fp32 throughout
+            self.lid_norm = nn.LayerNorm(cfg.d_model, eps=1e-6)
+            self.lid_head = Dense(cfg.d_model, cfg.num_languages, dtype=torch.float32)
+        else:
+            self.lid_norm = self.lid_head = None
 
     def forward(self, mel_spectrogram: torch.Tensor, stream_state: Optional[dict] = None,
                 time_offset=0, return_state: bool = False, frozen_mem: bool = False,
-                return_features: bool = False, rng: Optional[torch.Generator] = None):
+                return_features: bool = False, rng: Optional[torch.Generator] = None,
+                feature_lengths: Optional[torch.Tensor] = None,
+                collect: Optional[list] = None):
         """(batch, frames, mel_bins) -> fp32 logits (batch, (frames+1)//2, vocab)
         [, features dict] offline. In training mode both forwards apply
         dropout with masks from `rng` (a ``torch.Generator`` on the model's
-        device), at the JAX package's sites.
+        device), at the JAX package's sites. `collect`, a list, receives
+        each MoE block's (load-balance aux, first-choice fractions), offline
+        and streaming.
+
+        With a language-ID head, the offline features also hold
+        ``lid_logits`` (batch, num_languages) fp32: the fused features mean
+        pooled in fp32 over each row's first ``feature_lengths`` output
+        frames (all frames without it), an fp32 LayerNorm and Dense. A
+        streaming call never computes it.
 
         Streaming (``stream_state`` given or ``return_state``): one chunk
         of an even number of frames, its first output frame at
@@ -97,15 +109,18 @@ class VelocityASR(nn.Module):
             )
         if not streaming:
             x = self.temporal_binding(mel_spectrogram)
-            local_features = self.local_ssm(x, rng=rng)
+            local_features = self.local_ssm(x, rng=rng, collect=collect)
             fused_features = self.global_context(local_features, rng=rng)
             logits = self.ctc_head(fused_features, rng=rng).to(torch.float32)
             if return_features:
-                return logits, {
+                feats = {
                     "temporal_binding": x,
                     "local_features": local_features,
                     "fused_features": fused_features,
                 }
+                if self.lid_head is not None:
+                    feats["lid_logits"] = self.lid_logits(fused_features, feature_lengths)
+                return logits, feats
             return logits
 
         state = stream_state or init_stream_state(cfg, mel_spectrogram.shape[0],
@@ -114,7 +129,7 @@ class VelocityASR(nn.Module):
             mel_spectrogram, carry=state["mel_carry"], time_offset=time_offset,
             return_carry=True)
         local_features, block_states = self.local_ssm(x, state["blocks"], return_state=True,
-                                                      rng=rng)
+                                                      rng=rng, collect=collect)
         summary = adaptive_avg_pool1d(local_features.to(torch.float32),
                                       cfg.stream_summary_tokens)
         gc_state = {"mem": state["gc_mem"], "blocks": state["gc_blocks"],
@@ -132,6 +147,21 @@ class VelocityASR(nn.Module):
             "gc_blocks": new_gc["blocks"],
             "gc_init": new_gc["init"],
         }
+
+    def lid_logits(self, fused_features: torch.Tensor,
+                   feature_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The language-ID head on (batch, T, d) fused features: fp32 mean
+        pool over each row's first feature_lengths frames (all without),
+        LayerNorm, Dense."""
+        feats = fused_features.to(torch.float32)
+        if feature_lengths is None:
+            pooled = feats.mean(dim=1)
+        else:
+            lengths = torch.as_tensor(feature_lengths, device=feats.device).reshape(-1, 1)
+            mask = torch.arange(feats.shape[1], device=feats.device)[None, :] < lengths
+            denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1).to(torch.float32)
+            pooled = (feats * mask[..., None]).sum(dim=1) / denom
+        return self.lid_head(self.lid_norm(pooled))
 
     @staticmethod
     def get_output_length(input_length: int) -> int:
@@ -182,7 +212,13 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     - conv kernels kaiming-normal, fan_out = out * k, std sqrt(2 / fan_out),
       biases 0 (``layers.kaiming_conv_init``);
     - ``A_log = log(1..N)`` and ``D = 1`` in every SelectiveSSM;
-    - LayerNorm weight 1 and bias 0; ``pe_freq`` normal with std 0.02.
+    - LayerNorm weight 1 and bias 0; ``pe_freq`` normal with std 0.02;
+    - MoE experts (E, fan_in, fan_out) xavier-uniform with flax's fans,
+      which count E as receptive field (``moe.expert_init_bound``),
+      biases 0; the router a Dense like any other;
+    - the language-ID head's kernel lecun-normal (flax's ``nn.Dense``
+      default: a normal truncated to +-2 std, std sqrt(1 / fan_in) /
+      0.8796...), its bias 0.
 
     The draws come from `generator` (a CPU generator, so the tensors must
     be on the CPU): the distributions are JAX's, the values are not.
@@ -208,6 +244,16 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             nn.init.ones_(module.D)
         elif isinstance(module, PositionalEncoding2D):
             nn.init.normal_(module.pe_freq, std=0.02, generator=generator)
+        elif isinstance(module, MoEFFN):
+            for w in (module.w_in, module.w_out):
+                bound = expert_init_bound(*w.shape)
+                nn.init.uniform_(w, -bound, bound, generator=generator)
+            nn.init.zeros_(module.b_in)
+            nn.init.zeros_(module.b_out)
+    if getattr(model, "lid_head", None) is not None:
+        std = (1.0 / model.lid_head.in_features) ** 0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(model.lid_head.weight, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
     for module in model.modules():
         if isinstance(module, DynamicInt8Dense):
             module.requantize()

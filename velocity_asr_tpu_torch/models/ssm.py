@@ -16,6 +16,11 @@ stack runs each block of a stateless pass under autograd as
 runs without recording (the no-bounds scan), and the backward runs the
 block again, recording (the bounds scan), with its dropout masks
 replayed from the generator state saved at the block's entry.
+
+With ``moe_experts > 0`` a block's FFN is ``moe.MoEFFN`` (its dropout
+after the GELU drawn from the same ``rng``); a ``collect`` list passed
+down the stack receives each MoE block's (aux, f_frac), in the graph
+under autograd, a checkpointed block's included.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch.nn.functional as F
 from ..ops.conv import causal_depthwise_conv1d
 from ..ops.scan import selective_scan
 from .layers import Dense, Dropout, LayerNorm
+from .moe import MoEFFN
 
 
 class SelectiveSSM(nn.Module):
@@ -67,11 +73,14 @@ class SelectiveSSM(nn.Module):
 class SSMBlock(nn.Module):
     """Pre-norm block: norm1 -> causal depthwise conv -> SelectiveSSM ->
     dropout -> +residual; norm2 -> FFN (d -> expand*d, exact GELU, dropout,
-    -> d) -> dropout -> +residual."""
+    -> d; or with moe_experts > 0 the routed experts) -> dropout ->
+    +residual."""
 
     def __init__(self, d_model: int = 192, state_dim: int = 64, expand_ratio: int = 2,
                  kernel_size: int = 4, scan_mode: str = "parallel",
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25):
         super().__init__()
         self.d_model = d_model
         self.kernel_size = kernel_size
@@ -81,16 +90,23 @@ class SSMBlock(nn.Module):
         self.conv = nn.Conv1d(d_model, d_model, kernel_size, groups=d_model)
         self.ssm = SelectiveSSM(d_model, state_dim, expand_ratio, scan_mode, dtype)
         self.norm2 = LayerNorm(d_model, dtype)
-        self.ffn_in = Dense(d_model, d_model * expand_ratio, dtype=dtype)
-        self.ffn_out = Dense(d_model * expand_ratio, d_model, dtype=dtype)
+        if moe_experts > 0:
+            self.moe = MoEFFN(d_model, d_model * expand_ratio, moe_experts, moe_top_k,
+                              moe_capacity_factor, dropout, dtype)
+        else:
+            self.moe = None
+            self.ffn_in = Dense(d_model, d_model * expand_ratio, dtype=dtype)
+            self.ffn_out = Dense(d_model * expand_ratio, d_model, dtype=dtype)
         self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, state: dict | None = None,
-                return_state: bool = False, rng: torch.Generator | None = None):
+                return_state: bool = False, rng: torch.Generator | None = None,
+                collect: list | None = None):
         """out, or (out, new state) with return_state. A passed state is
         spliced in either way: the carried conv tail goes in front of the
         chunk, so the causal conv is exact across chunk boundaries. `rng`
-        draws the dropout masks in training mode."""
+        draws the dropout masks in training mode; `collect` receives an MoE
+        block's (aux, f_frac)."""
         h = self.norm1(x)
         if return_state and state is None:
             state = self.init_stream_state(x.shape[0], x.device)
@@ -108,8 +124,11 @@ class SSMBlock(nn.Module):
         else:
             h = self.ssm(h, ssm_state)
         x = self.dropout(h, rng) + x
-        h = self.dropout(F.gelu(self.ffn_in(self.norm2(x))), rng)
-        out = self.dropout(self.ffn_out(h), rng) + x
+        if self.moe is not None:
+            h = self.moe(self.norm2(x), rng=rng, collect=collect)
+        else:
+            h = self.ffn_out(self.dropout(F.gelu(self.ffn_in(self.norm2(x))), rng))
+        out = self.dropout(h, rng) + x
         if return_state:
             return out, {"conv": new_tail.to(torch.float32), "ssm": ssm_final}
         return out
@@ -133,18 +152,27 @@ class CheckpointedBlock(torch.autograd.Function):
     runs the block again from x with a generator at that state, so its
     dropout masks are the first pass's, and returns the gradients of x
     and of the block's parameters (passed as `params`, in
-    ``block.parameters()`` order)."""
+    ``block.parameters()`` order). With `with_aux` (an MoE block whose
+    load-balance loss is asked for) it returns (out, aux, f_frac), and
+    the backward takes aux's gradient too (f_frac has none)."""
 
     @staticmethod
-    def forward(ctx, block, rng, x, *params):
+    def forward(ctx, block, rng, with_aux, x, *params):
         ctx.block = block
+        ctx.with_aux = with_aux
         ctx.rng_state = None if rng is None else rng.get_state()
         ctx.rng_device = None if rng is None else rng.device
         ctx.save_for_backward(x)
-        return block(x, rng=rng)
+        if not with_aux:
+            return block(x, rng=rng)
+        collect = []
+        out = block(x, rng=rng, collect=collect)
+        aux, f_frac = collect[0]
+        ctx.mark_non_differentiable(f_frac)
+        return out, aux, f_frac
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, g_aux=None, g_f=None):
         (x,) = ctx.saved_tensors
         rng = None
         if ctx.rng_state is not None:
@@ -152,12 +180,17 @@ class CheckpointedBlock(torch.autograd.Function):
             rng.set_state(ctx.rng_state)
         params = list(ctx.block.parameters())
         with torch.enable_grad():
-            x_in = x.detach().requires_grad_(ctx.needs_input_grad[2])
-            out = ctx.block(x_in, rng=rng)
-        wanted = [t for t, need in zip([x_in] + params, ctx.needs_input_grad[2:]) if need]
-        grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
-        return (None, None) + tuple(next(grads) if need else None
-                                    for need in ctx.needs_input_grad[2:])
+            x_in = x.detach().requires_grad_(ctx.needs_input_grad[3])
+            if ctx.with_aux:
+                collect = []
+                outs = [ctx.block(x_in, rng=rng, collect=collect), collect[0][0]]
+                gs = [g, g_aux]
+            else:
+                outs, gs = [ctx.block(x_in, rng=rng)], [g]
+        wanted = [t for t, need in zip([x_in] + params, ctx.needs_input_grad[3:]) if need]
+        grads = iter(torch.autograd.grad(outs, wanted, gs, allow_unused=True))
+        return (None, None, None) + tuple(next(grads) if need else None
+                                          for need in ctx.needs_input_grad[3:])
 
 
 class LocalSSMProcessor(nn.Module):
@@ -168,32 +201,40 @@ class LocalSSMProcessor(nn.Module):
     def __init__(self, d_model: int = 192, num_layers: int = 8, state_dim: int = 64,
                  expand_ratio: int = 2, kernel_size: int = 4,
                  scan_mode: str = "parallel", dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0, checkpoint: bool = False):
+                 dropout: float = 0.0, checkpoint: bool = False, moe_experts: int = 0,
+                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25):
         super().__init__()
         self.checkpoint = checkpoint
         self.layers = nn.ModuleList(
-            SSMBlock(d_model, state_dim, expand_ratio, kernel_size, scan_mode, dtype, dropout)
+            SSMBlock(d_model, state_dim, expand_ratio, kernel_size, scan_mode, dtype, dropout,
+                     moe_experts, moe_top_k, moe_capacity_factor)
             for _ in range(num_layers)
         )
         self.norm = LayerNorm(d_model, dtype)
 
     def forward(self, x: torch.Tensor, states: list | None = None,
-                return_state: bool = False, rng: torch.Generator | None = None):
+                return_state: bool = False, rng: torch.Generator | None = None,
+                collect: list | None = None):
         """out, or (out, per-block states) with return_state. Passed
         states are spliced in even when no state is asked back (running
-        stateless would decode the chunk as a fresh stream)."""
+        stateless would decode the chunk as a fresh stream). `collect`
+        receives each MoE block's (aux, f_frac)."""
         new_states = []
         remat = (self.checkpoint and states is None and not return_state
                  and torch.is_grad_enabled())
         for i, block in enumerate(self.layers):
             state = None if states is None else states[i]
             if remat:
-                x = CheckpointedBlock.apply(block, rng, x, *block.parameters())
+                with_aux = collect is not None and block.moe is not None
+                x = CheckpointedBlock.apply(block, rng, with_aux, x, *block.parameters())
+                if with_aux:
+                    x, aux, f_frac = x
+                    collect.append((aux, f_frac))
             elif return_state:
-                x, st = block(x, state, return_state=True, rng=rng)
+                x, st = block(x, state, return_state=True, rng=rng, collect=collect)
                 new_states.append(st)
             else:
-                x = block(x, state, rng=rng)
+                x = block(x, state, rng=rng, collect=collect)
         out = self.norm(x)
         return (out, new_states) if return_state else out
 

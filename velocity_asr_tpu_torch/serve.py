@@ -28,10 +28,12 @@ Endpoints:
       the device.
 
 A client's fault (an undecodable body, a bad query value) is a 400, the
-stream budget a 503, anything else a 500. The JAX server's /diarize and
-?identify_language need a speaker model and a language-ID head, which the
-port has not taken yet: both answer 400, as the JAX server answers for a
-checkpoint without them. /transcribe bodies are decoded by
+stream budget a 503, anything else a 500. /transcribe?identify_language=1
+adds the language-ID head's prediction (``language``, ``language_prob``,
+``language_probs``) from a forward of its own under the lock, on either
+request path; a model without the head answers 400, as the JAX server
+does. /diarize needs a speaker model, which the port has not taken yet:
+it answers 400 as the JAX server answers without one. /transcribe bodies are decoded by
 io.decode_audio_file (WAV, FLAC, mp3, Ogg Vorbis, and m4a where the
 system codecs are), sniffed from their first bytes.
 
@@ -371,7 +373,7 @@ class ASRService:
 
     def transcribe_bytes(self, data: bytes, timestamps: bool, beam: int, hotwords: str = "",
                          hotword_weight: float = 2.0, identify_language: bool = False) -> dict:
-        if identify_language:
+        if identify_language and self.transcriber.num_languages <= 0:
             raise BadRequest("?identify_language needs a model with a LID head (trained with "
                              "num_languages > 0)")
         eff_beam = beam if beam > 0 else self.transcriber.beam_width
@@ -394,6 +396,10 @@ class ASRService:
                     lm_weight=hotword_weight if booster else None)
         else:
             result = self.batcher.submit(audio).result()
+        if identify_language:
+            # a forward of the head's own, under the lock, on either path
+            with self.lock:
+                self.transcriber._lid_result(audio, result)
         result["rtf"] = (time.perf_counter() - t0) / max(result["duration"], 1e-9)
         return result
 

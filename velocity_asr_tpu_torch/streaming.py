@@ -266,7 +266,7 @@ def _model_device(model: VelocityASR) -> torch.device:
 
 
 def streaming_forward(model: VelocityASR, mel: torch.Tensor, chunk_frames: int,
-                      rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                      rng: Optional[torch.Generator] = None, collect_losses: bool = False):
     """Full-utterance logits computed by the streaming path: the model's
     chunk step over mel's time axis, from ``init_stream_state``, chunk c
     at time offset c * chunk_frames // 2, the carried state handed on.
@@ -279,16 +279,28 @@ def streaming_forward(model: VelocityASR, mel: torch.Tensor, chunk_frames: int,
     of every chunk come from `rng`. mel (batch, t, mel_bins) with t a
     multiple of chunk_frames (the collator's frame bucket makes it one);
     returns fp32 (batch, t // 2, vocab).
+
+    collect_losses=True returns (logits, aux): aux the mean over chunks of
+    the mean over MoE layers of each chunk step's load-balance loss (0
+    without MoE layers), each chunk routing its tokens within itself.
     """
     b, t, _ = mel.shape
     assert t % chunk_frames == 0, (t, chunk_frames)
     state = init_stream_state(model.config, b, mel.device)
-    logits = []
+    logits, auxes = [], []
     for c in range(t // chunk_frames):
+        collect = [] if collect_losses else None
         out, state = model(mel[:, c * chunk_frames:(c + 1) * chunk_frames], stream_state=state,
-                           time_offset=c * chunk_frames // 2, return_state=True, rng=rng)
+                           time_offset=c * chunk_frames // 2, return_state=True, rng=rng,
+                           collect=collect)
         logits.append(out)
-    return torch.cat(logits, dim=1)
+        if collect_losses:
+            auxes.append(sum(a for a, _ in collect) / len(collect) if collect
+                         else torch.zeros((), device=mel.device))
+    logits = torch.cat(logits, dim=1)
+    if collect_losses:
+        return logits, torch.stack(auxes).mean()
+    return logits
 
 
 class StreamingTranscriber:

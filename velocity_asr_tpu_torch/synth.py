@@ -7,7 +7,12 @@ speaker, rate, level and noise jitter. Everything is deterministic in
 regenerates the JAX package's held-out set bit for bit, and its WER
 results (checkpoints/synth_run/eval_fp32_final.json) apply to it;
 ``SyntheticSpeechDataset`` serves the train and dev splits as the JAX
-package's does (one language; host mel, or raw audio for the device mel).
+package's does (host mel, or raw audio for the device mel). With
+``languages`` K > 1 each utterance draws one of K synthetic languages
+(``make_language_lexicon``: language 0 is the base lexicon, 1-3 have
+phonologies of their own) from a seed stream of its own, and items and
+manifest rows carry its ``language`` label; K = 1 is the monolingual
+corpus byte for byte.
 ``write_librispeech_tree`` writes utterances of a split in LibriSpeech's
 on-disk layout (FLAC, transcripts in upper case) with a manifest over
 the same files.
@@ -139,6 +144,57 @@ def sample_sentence(lexicon: List[str], rng, min_words: int = 2, max_words: int 
     return " ".join(lexicon[int(rng.integers(0, len(lexicon)))] for _ in range(n))
 
 
+# ----- synthetic languages (the multilingual / language-ID corpus) ----------
+
+#: Per-language phonologies over the shared grapheme set: which phonemes
+#: occur and in which syllable patterns. Language 0 is make_lexicon's.
+_LANGUAGE_PHONOLOGIES: List[Optional[Dict]] = [
+    None,  # language 0: make_lexicon's mixed-CV pseudo-words
+    {  # open syllables: small consonant set, strict CV, a/i/u
+        "consonants": "ptkmnsrlhw",
+        "vowels": "aiu",
+        "patterns": ["CV", "CVCV", "CVCVCV", "CVVCV", "CVCVCVCV"],
+    },
+    {  # clusters: voiced/fricative consonants, closed syllables
+        "consonants": "bdgvzjfqxc",
+        "vowels": "eoy",
+        "patterns": ["CVC", "CCVC", "CVCC", "CVCCVC", "CCVCVC"],
+    },
+    {  # vowel-initial: sonorants, vowel-heavy sequences
+        "consonants": "mnrlszt",
+        "vowels": "aeiouy",
+        "patterns": ["VCV", "VCCV", "VCVC", "VVCV", "VCVCVV"],
+    },
+]
+
+#: Languages available (a model's num_languages may be at most this).
+NUM_SYNTH_LANGUAGES = len(_LANGUAGE_PHONOLOGIES)
+
+
+def make_language_lexicon(language: int, n_words: int = 1500, seed: int = 1234) -> List[str]:
+    """Deterministic pseudo-word lexicon of one synthetic language:
+    language 0 is make_lexicon(n_words, seed), languages 1-3 draw words
+    from their phonology's syllable patterns."""
+    if not 0 <= language < NUM_SYNTH_LANGUAGES:
+        raise ValueError(f"language {language} out of range 0..{NUM_SYNTH_LANGUAGES - 1}")
+    phon = _LANGUAGE_PHONOLOGIES[language]
+    if phon is None:
+        return make_lexicon(n_words, seed=seed)
+    rng = _char_seed(seed, "lexicon_lang", language)
+    cons, vows, patterns = phon["consonants"], phon["vowels"], phon["patterns"]
+    words, seen = [], set()
+    while len(words) < n_words:
+        pat = patterns[int(rng.integers(0, len(patterns)))]
+        w = "".join(
+            (cons if ch == "C" else vows)[int(rng.integers(0, len(cons if ch == "C" else vows)))]
+            for ch in pat
+        )
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+    return words
+
+
 def utterance(idx: int, split: str = "test", seed: int = 1234,
               lexicon: Optional[List[str]] = None,
               voice: Optional[SynthVoice] = None,
@@ -154,22 +210,30 @@ def utterance(idx: int, split: str = "test", seed: int = 1234,
 class SyntheticSpeechDataset:
     """``data.ASRDataset``-compatible corpus generated on the fly: items
     deterministic in (seed, split, idx), bit-equal to the JAX package's
-    ``SyntheticSpeechDataset(languages=1)``: host mel, or with
-    `device_mel` the raw audio and its frame count (the mel is computed on
-    the device by the trainer). The vocabulary is the manifest datasets'
-    rule over a-z and space: <blank>, <unk>, <pad>, then the sorted
-    characters, 30 tokens."""
+    ``SyntheticSpeechDataset``: host mel, or with `device_mel` the raw
+    audio and its frame count (the mel is computed on the device by the
+    trainer). With `languages` K > 1 each item's sentence comes from the
+    lexicon of its language (``language_for``) and the item carries
+    ``language``. The vocabulary is the manifest datasets' rule over a-z
+    and space: <blank>, <unk>, <pad>, then the sorted characters, 30
+    tokens."""
 
     def __init__(self, n_utts: int = 10000, split: str = "train", seed: int = 1234,
-                 min_words: int = 2, max_words: int = 8, device_mel: bool = False):
+                 lexicon_words: int = 1500, min_words: int = 2, max_words: int = 8,
+                 device_mel: bool = False, languages: int = 1):
+        if not 1 <= languages <= NUM_SYNTH_LANGUAGES:
+            raise ValueError(f"languages must be 1..{NUM_SYNTH_LANGUAGES}, got {languages}")
         self.n_utts = n_utts
         self.split = split
         self.seed = seed
         self.min_words = min_words
         self.max_words = max_words
         self.device_mel = device_mel
+        self.languages = languages
         self.voice = SynthVoice(seed=seed)
-        self.lexicon = make_lexicon(1500, seed=seed)
+        self.lexicons = [make_language_lexicon(lang, lexicon_words, seed=seed)
+                         for lang in range(languages)]
+        self.lexicon = self.lexicons[0]
         specials = ["<blank>", "<unk>", "<pad>"]
         self.vocab = {tok: i for i, tok in enumerate(specials + sorted(set(CHARS + " ")))}
 
@@ -180,29 +244,47 @@ class SyntheticSpeechDataset:
         unk = self.vocab["<unk>"]
         return [self.vocab.get(c, unk) for c in text]
 
+    def language_for(self, idx: int) -> int:
+        """Utterance idx's language, uniform over the languages, from a
+        seed stream apart from the text's (so one language is the
+        monolingual corpus)."""
+        if self.languages == 1:
+            return 0
+        return int(_char_seed(self.seed, "lang", self.split, idx).integers(0, self.languages))
+
     def text_for(self, idx: int) -> str:
         """Utterance idx's transcript, without rendering its audio."""
-        return sample_sentence(self.lexicon, _char_seed(self.seed, "text", self.split, idx),
+        return sample_sentence(self.lexicons[self.language_for(idx)],
+                               _char_seed(self.seed, "text", self.split, idx),
                                self.min_words, self.max_words)
 
+    def audio_for(self, idx: int, text: str) -> np.ndarray:
+        """Utterance idx's 16 kHz waveform of `text`."""
+        return self.voice.render(text, _char_seed(self.seed, "audio", self.split, idx))
+
     def __getitem__(self, idx: int) -> Dict:
-        text, audio = utterance(idx, self.split, self.seed, self.lexicon, self.voice,
-                                self.min_words, self.max_words)
-        return speech_item(audio, text, self.text_to_tokens(text), self.device_mel)
+        text = self.text_for(idx)
+        item = speech_item(self.audio_for(idx, text), text, self.text_to_tokens(text),
+                           self.device_mel)
+        if self.languages > 1:
+            item["language"] = np.int32(self.language_for(idx))
+        return item
 
 
 def write_corpus(out_dir: str, n_utts: int, split: str = "test", seed: int = 1234,
                  lexicon_words: int = 1500, min_words: int = 2,
-                 max_words: int = 8) -> str:
+                 max_words: int = 8, languages: int = 1) -> str:
     """Write utterances 0..n_utts-1 of a split as 16-bit WAVs plus a JSONL
-    manifest (audio_path, text, duration); returns the manifest path."""
-    lexicon = make_lexicon(lexicon_words, seed=seed)
-    voice = SynthVoice(seed=seed)
+    manifest (audio_path, text, duration, and with languages > 1 each
+    row's ``language``); returns the manifest path."""
+    ds = SyntheticSpeechDataset(n_utts, split=split, seed=seed, lexicon_words=lexicon_words,
+                                min_words=min_words, max_words=max_words, languages=languages)
     os.makedirs(out_dir, exist_ok=True)
     manifest = os.path.join(out_dir, f"{split}_manifest.jsonl")
     with open(manifest, "w") as mf:
         for i in range(n_utts):
-            text, audio = utterance(i, split, seed, lexicon, voice, min_words, max_words)
+            text = ds.text_for(i)
+            audio = ds.audio_for(i, text)
             path = os.path.join(out_dir, f"{split}_{i:05d}.wav")
             pcm = np.clip(audio * 32767, -32768, 32767).astype("<i2")
             with wave.open(path, "wb") as w:
@@ -211,6 +293,8 @@ def write_corpus(out_dir: str, n_utts: int, split: str = "test", seed: int = 123
                 w.setframerate(SAMPLE_RATE)
                 w.writeframes(pcm.tobytes())
             row = {"audio_path": path, "text": text, "duration": len(audio) / SAMPLE_RATE}
+            if languages > 1:
+                row["language"] = ds.language_for(i)
             mf.write(json.dumps(row) + "\n")
     return manifest
 

@@ -21,7 +21,12 @@ random data with a warning. The mel is computed on the host, or with
 model's vocabulary is rebuilt from the dataset's. ``--profile-dir``
 writes a ``torch.profiler`` trace of micro-steps ``[profile_start,
 profile_start + profile_steps)``. ``--init-from`` starts from a
-``final_pretrained`` directory's weights with a fresh optimizer and step;
+``final_pretrained`` directory's weights with a fresh optimizer and step
+(a dense checkpoint into an MoE model is upcycled, every expert a copy of
+its block's FFN and the router drawn fresh; a model with a language-ID
+head gets a fresh head grafted onto a head-less checkpoint);
+``data.synthetic_languages`` K > 1 trains on the multilingual corpus,
+its batches labelled for ``training.lid_loss_weight``;
 ``--resume`` restores a trainer checkpoint. At the end the run writes
 ``final_model/`` (trainer checkpoint) and ``final_pretrained/``
 (``config.json``, flax ``params.msgpack``, ``vocabulary.json``) under the
@@ -46,13 +51,15 @@ import os
 from typing import List, Optional
 
 import numpy as np
+import torch
 
-from .checkpoint import params_from_numpy, read_params, write_params
+from .checkpoint import params_from_numpy, params_to_numpy, read_params, write_params
 from .config import load_yaml, model_config_from_yaml, training_config_from_yaml
 from .data import (ASRCollator, DataLoader, create_dataloader,
                    create_librispeech_dataloaders, cycle)
 from .device import resolve_device
 from .models.model import CONFIG_FILE, PARAMS_FILE, create_model, save_pretrained
+from .models.moe import upcycle_dense_to_moe
 from .quantize import QuantizationConfig, prepare_model_for_qat, quant_stats_to_numpy
 from .synth import SyntheticSpeechDataset
 from .training import Trainer
@@ -142,15 +149,14 @@ def build_data(data_cfg: dict, batch_size: int, num_workers: int, vocab_size: in
 
 def _synthetic_data(data_cfg: dict, n_synth: int, device_mel: bool, batch_size: int,
                     num_workers: int):
-    if int(data_cfg.get("synthetic_languages", 1)) != 1:
-        raise NotImplementedError("multilingual synthetic data (language-ID training) is not "
-                                  "ported yet (ROADMAP module item 8)")
     collator = ASRCollator(frame_bucket=int(data_cfg.get("frame_bucket", 200)))
     seed = int(data_cfg.get("synthetic_seed", 1234))
     split = str(data_cfg.get("synthetic_split", "train"))
     words = {"min_words": int(data_cfg.get("synthetic_min_words", 2)),
              "max_words": int(data_cfg.get("synthetic_max_words", 8)),
-             "device_mel": device_mel}
+             "device_mel": device_mel,
+             # > 1 mixes the synthetic languages; items carry "language"
+             "languages": int(data_cfg.get("synthetic_languages", 1))}
     logger.info("Using synthetic speech corpus: %d train utterances", n_synth)
     train_ds = SyntheticSpeechDataset(n_synth, split=split, seed=seed, **words)
     eval_ds = SyntheticSpeechDataset(
@@ -171,6 +177,25 @@ def _is_pretrain_artifact(path: str) -> bool:
         return False
     with open(config_file) as f:
         return json.load(f).get("objective") == "masked_prediction"
+
+
+def init_tree(tree: dict, model) -> dict:
+    """A pretrained flax tree made to fit `model` (the JAX CLI's
+    ``--init-from``): dense FFNs upcycled into the model's experts
+    (``upcycle_dense_to_moe``, its router drawn from a generator seeded
+    with 0) and, for a model with a language-ID head, the model's freshly
+    initialised ``lid_norm`` / ``lid_head`` grafted onto a head-less tree."""
+    cfg = model.config
+    if cfg.moe_experts > 0 and "ffn_in" in tree.get("local_ssm", {}).get("layers_0", {}):
+        tree = upcycle_dense_to_moe(tree, cfg.moe_experts, torch.Generator().manual_seed(0))
+        logger.info("Upcycled dense FFNs into %d experts per block (sparse upcycling; "
+                    "router fresh)", cfg.moe_experts)
+    if cfg.num_languages > 0 and "lid_head" not in tree:
+        fresh = params_to_numpy(model)
+        tree = {**tree, "lid_head": fresh["lid_head"], "lid_norm": fresh["lid_norm"]}
+        logger.info("Grafted a fresh LID head (num_languages=%d) onto the loaded weights",
+                    cfg.num_languages)
+    return tree
 
 
 def qat_config(model_cfg, quant_dict: dict):
@@ -273,7 +298,7 @@ def main(argv: Optional[List[str]] = None):
                              "with the vocabulary the weights were trained on")
         # a float tree's conv_kernel and a QAT tree's conv/kernel both map
         # onto temporal_binding.conv.weight: either loads into either model
-        tree = read_params(os.path.join(args.init_from, PARAMS_FILE))
+        tree = init_tree(read_params(os.path.join(args.init_from, PARAMS_FILE)), model)
         model.load_state_dict(params_from_numpy(tree), strict=True)
         logger.info("Initialized weights from %s (fresh optimizer/step)", args.init_from)
     logger.info("Model config: %s", model_cfg)

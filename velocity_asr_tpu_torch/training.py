@@ -47,6 +47,11 @@ uses.
   the same utterances, normalised with causal per-chunk statistics and
   masked by the same SpecAugment draws;
   loss = (1 - w) * offline + w * streaming, w = ``streaming_aux_weight``.
+- An MoE model (``moe_experts > 0``) adds, in training, ``moe_aux_weight``
+  times the mean over its MoE layers of the Switch load-balance aux to
+  each term (the streaming term's aux the mean over its chunks); a model
+  with a language-ID head adds ``lid_loss_weight`` times the cross
+  entropy of its ``lid_logits`` for batches that carry ``language``.
 
 The model's scans train through ``ops.scan.SelectiveScanFn`` (offline)
 and ``ops.scan.CarriedStateScanFn`` (the streaming term): on the card the
@@ -83,8 +88,8 @@ logger = logging.getLogger(__name__)
 class TrainingConfig:
     """Training configuration: the JAX package's fields and defaults. The
     port trains the offline objective and, with ``streaming_chunks``, the
-    streaming-aware one; a config that turns on MoE, the language-ID loss
-    or parallel training makes ``Trainer`` raise (``_unsupported``)."""
+    streaming-aware one, with the MoE and language-ID terms; a config that
+    turns on parallel training makes ``Trainer`` raise (``_unsupported``)."""
 
     learning_rate: float = 1e-4
     weight_decay: float = 0.01
@@ -303,28 +308,27 @@ class Optimizer:
 # ----- trainer -----------------------------------------------------------------
 
 
-def _refuse_qat_combinations(model_config, config: TrainingConfig) -> None:
-    """The JAX Trainer's refusals of QAT with the streaming-aware
-    objective or with MoE."""
-    if not getattr(model_config, "qat", False):
-        return
-    if config.streaming_chunks:
-        raise ValueError("QAT + the streaming-aware objective is not supported "
-                         "(streaming_forward does not thread quant_stats)")
-    if getattr(model_config, "moe_experts", 0) > 0:
-        raise ValueError("QAT + MoE is not supported")
+def _refuse_combinations(model_config, config: TrainingConfig) -> None:
+    """The JAX Trainer's ValueErrors: QAT with the streaming-aware
+    objective or with MoE, and a language-ID loss without the head."""
+    if getattr(model_config, "qat", False):
+        if config.streaming_chunks:
+            raise ValueError("QAT + the streaming-aware objective is not supported "
+                             "(streaming_forward does not thread quant_stats)")
+        if getattr(model_config, "moe_experts", 0) > 0:
+            raise ValueError("QAT + MoE is not supported")
+    if config.lid_loss_weight > 0 and getattr(model_config, "num_languages", 0) <= 0:
+        raise ValueError("training.lid_loss_weight > 0 requires a model with "
+                         "num_languages > 0 (the language-ID head)")
 
 
-def _unsupported(model_config, config: TrainingConfig) -> Optional[str]:
-    """What the port cannot train yet, with the ROADMAP item it waits on."""
-    checks = [
-        (getattr(model_config, "moe_experts", 0) > 0, "MoE (ROADMAP module item 8)"),
-        (getattr(model_config, "num_languages", 0) > 0 or config.lid_loss_weight > 0,
-         "the language-ID head and loss (ROADMAP module item 8)"),
-        (config.num_model_shards > 1 or config.num_pipeline_stages > 1
-         or config.num_data_shards not in (None, 1), "parallel training (ROADMAP module item 9)"),
-    ]
-    return next((what for bad, what in checks if bad), None)
+def _unsupported(config: TrainingConfig) -> Optional[str]:
+    """What the port cannot train yet, with the ROADMAP item it waits on
+    (pipeline stages with MoE among it)."""
+    if (config.num_model_shards > 1 or config.num_pipeline_stages > 1
+            or config.num_data_shards not in (None, 1)):
+        return "parallel training (ROADMAP module item 9)"
+    return None
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -358,8 +362,8 @@ class Trainer:
                  train_iter: Iterator[Dict[str, Any]],
                  eval_batches: Optional[Callable[[], Iterator[Dict[str, Any]]]] = None,
                  seed: int = 0):
-        _refuse_qat_combinations(model.config, config)
-        why = _unsupported(model.config, config)
+        _refuse_combinations(model.config, config)
+        why = _unsupported(config)
         if why:
             raise NotImplementedError(f"{why} is not ported yet")
         self.model = model
@@ -379,7 +383,7 @@ class Trainer:
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {key: torch.as_tensor(np.asarray(batch[key])).to(self.device)
                 for key in ("mel_spectrogram", "audio", "targets", "input_lengths",
-                            "target_lengths") if key in batch}
+                            "target_lengths", "language") if key in batch}
 
     @staticmethod
     def _batch_mel(batch: Dict[str, torch.Tensor]):
@@ -423,8 +427,13 @@ class Trainer:
 
     def _loss(self, batch: Dict[str, torch.Tensor], rng: Optional[torch.Generator]):
         """The micro-batch's loss; `rng` draws the augmentations and dropout
-        (None: neither). With ``streaming_chunks`` and a device-mel batch,
-        the streaming term is added in training and evaluation alike."""
+        (None: neither). CTC, plus in training ``moe_aux_weight`` times the
+        MoE layers' mean load-balance aux, plus ``lid_loss_weight`` times the
+        language-ID cross entropy (the head pooled over each row's output
+        frames) for a batch with ``language``. With ``streaming_chunks`` and
+        a device-mel batch, the streaming term (its own CTC and aux) is
+        mixed in at ``streaming_aux_weight``, in training and evaluation
+        alike."""
         cfg = self.config
         batch = self._augment_waveform(batch, rng)
         mel, raw = self._batch_mel(batch)
@@ -444,7 +453,20 @@ class Trainer:
         def ctc(logits):
             return ctc_loss(logits, batch["targets"], out_lengths, batch["target_lengths"])
 
-        loss = ctc(self.model(mel, rng=rng))
+        mcfg = self.model.config
+        moe_aux = (self.model.training and mcfg.moe_experts > 0 and cfg.moe_aux_weight > 0)
+        want_lid = (cfg.lid_loss_weight > 0 and mcfg.num_languages > 0 and "language" in batch)
+        collect = [] if moe_aux else None
+        out = self.model(mel, rng=rng, collect=collect, return_features=want_lid,
+                         feature_lengths=out_lengths if want_lid else None)
+        logits, feats = out if want_lid else (out, None)
+        loss = ctc(logits)
+        if collect:
+            loss = loss + cfg.moe_aux_weight * (sum(a for a, _ in collect) / len(collect))
+        if want_lid:
+            lid_ce = F.cross_entropy(feats["lid_logits"].to(torch.float32),
+                                     batch["language"].to(torch.int64))
+            loss = loss + cfg.lid_loss_weight * lid_ce
         if not cfg.streaming_chunks or raw is None:
             return loss
         smel = causal_normalize_mel(raw, lengths, cfg.streaming_chunks)
@@ -453,7 +475,12 @@ class Trainer:
             fork = torch.Generator(device=rng.device)
             fork.set_state(aug_state)
             smel = spec_augment(smel, fork, aug, lengths)
-        s_loss = ctc(streaming_forward(self.model, smel, cfg.streaming_chunks, rng=rng))
+        if moe_aux:
+            slogits, s_aux = streaming_forward(self.model, smel, cfg.streaming_chunks, rng=rng,
+                                               collect_losses=True)
+            s_loss = ctc(slogits) + cfg.moe_aux_weight * s_aux
+        else:
+            s_loss = ctc(streaming_forward(self.model, smel, cfg.streaming_chunks, rng=rng))
         w = cfg.streaming_aux_weight
         return (1.0 - w) * loss + w * s_loss
 

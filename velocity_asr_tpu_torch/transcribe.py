@@ -4,7 +4,8 @@
         --checkpoint DIR [--timestamps] [--json] [--output FILE] \
         [--beam-width K [--lm LM.json.gz] [--lm-weight 0.5] [--hotwords FILE|w1,w2]
          [--hotword-weight 2.0]] \
-        [--streaming [--chunk-seconds 2.0] [--lookahead N]] [--device cuda]
+        [--streaming [--chunk-seconds 2.0] [--lookahead N]] [--identify-language] \
+        [--device cuda]
 
 Per utterance: reflect-pad the audio to its frame bucket (multiples of
 ``frame_bucket`` frames), round it to int16 as the JAX pipeline's wire
@@ -30,6 +31,11 @@ spans the session tracks). Files are decoded by ``io.decode_audio_file``
 ``--input-dir`` takes every such file under a directory, and a file that
 fails is reported and skipped. ``Transcriber.transcribe_batch`` is the server's batched
 greedy path: one forward per frame bucket.
+
+``--identify-language`` (a model with a language-ID head, offline only)
+adds each file's ``language``, ``language_prob`` and ``language_probs``:
+the head's posterior from a forward of its own, pooled over the
+utterance's valid output frames (``Transcriber.language_probs``).
 """
 
 from __future__ import annotations
@@ -95,6 +101,7 @@ class Transcriber:
         self.device = resolve_device(next(model.parameters()).device)
         self.hop = HOP_LENGTH
         self.sr = SAMPLE_RATE
+        self.num_languages = int(model.config.num_languages)
 
     def frame_bucket_of(self, audio: np.ndarray) -> int:
         """The frame bucket this utterance pads to."""
@@ -128,10 +135,39 @@ class Transcriber:
         logits = self.model(mel)
         return force_blank_beyond(logits, (n_valid_frames + 1) // 2)
 
+    @torch.inference_mode()
+    def language_probs(self, audio: np.ndarray) -> np.ndarray:
+        """The language-ID head's posterior over the model's languages for
+        one utterance: its bucketed int16 audio through the log-mel, the
+        mel normalised over its valid frames, the head pooled over its
+        valid output frames."""
+        if self.num_languages <= 0:
+            raise ValueError(
+                "this model has no language-ID head (num_languages=0); "
+                "train with model output.num_languages > 0 and "
+                "training.lid_loss_weight > 0"
+            )
+        padded, n_frames = self._pad_audio(audio)
+        wire = torch.from_numpy(self._to_wire(padded)).to(self.device)
+        mel = compute_mel_spectrogram(wire.to(torch.float32) * (1.0 / 32768.0), normalize=False)
+        mel = masked_normalize_mel(mel, n_frames)
+        out_len = torch.tensor([(n_frames + 1) // 2], device=self.device)
+        return lid_probabilities(self.model, mel, out_len)[0].cpu().numpy()
+
+    def _lid_result(self, audio: np.ndarray, result: dict) -> None:
+        """Add ``language`` (the argmax), ``language_prob`` and
+        ``language_probs`` to result."""
+        probs = self.language_probs(audio)
+        result["language"] = int(np.argmax(probs))
+        result["language_prob"] = float(np.max(probs))
+        result["language_probs"] = [float(p) for p in probs]
+
     def transcribe_array(self, audio: np.ndarray, timestamps: bool = False,
                          beam_width: Optional[int] = None, lm_scorer=None,
-                         lm_weight: Optional[float] = None) -> dict:
-        """Transcribe one utterance: {"text", "duration"[, "words"]}.
+                         lm_weight: Optional[float] = None,
+                         identify_language: bool = False) -> dict:
+        """Transcribe one utterance: {"text", "duration"[, "words"]}
+        [, "language", "language_prob", "language_probs"].
 
         beam_width, lm_scorer and lm_weight override the transcriber's own
         for this call only (the server passes each request's values and
@@ -148,6 +184,8 @@ class Transcriber:
         audio_dev = torch.from_numpy(self._to_wire(padded)).to(self.device)
         logits = self.masked_logits(audio_dev, n_frames)
         result = {"duration": len(audio) / self.sr}
+        if identify_language:
+            self._lid_result(audio, result)
         if timestamps and beam_width > 1:
             self._beam_timestamp_result(result, logits[:, :out_len], beam_width, lm_scorer,
                                         lm_weight)
@@ -212,12 +250,24 @@ class Transcriber:
                 texts[i] = self.decoder.tokens_to_text(toks[row, : lens[row]].tolist())
         return [{"text": t, "duration": len(a) / self.sr} for t, a in zip(texts, audios)]
 
-    def transcribe_file(self, path: str, timestamps: bool = False) -> dict:
+    def transcribe_file(self, path: str, timestamps: bool = False,
+                        identify_language: bool = False) -> dict:
         t0 = time.perf_counter()
-        result = self.transcribe_array(load_audio(path), timestamps=timestamps)
+        result = self.transcribe_array(load_audio(path), timestamps=timestamps,
+                                       identify_language=identify_language)
         result["file"] = path
         result["rtf"] = (time.perf_counter() - t0) / max(result["duration"], 1e-9)
         return result
+
+
+@torch.inference_mode()
+def lid_probabilities(model: VelocityASR, mel: torch.Tensor,
+                      out_lengths: torch.Tensor) -> torch.Tensor:
+    """Softmax of the language-ID head's fp32 logits for a batch of
+    normalised mel, each row pooled over its first out_lengths output
+    frames: (batch, num_languages)."""
+    _, feats = model(mel, return_features=True, feature_lengths=out_lengths)
+    return torch.softmax(feats["lid_logits"].to(torch.float32), dim=-1)
 
 
 def load_transcriber(checkpoint: str, device="cuda", frame_bucket: int = 200,
@@ -319,6 +369,9 @@ def main(argv: List[str] | None = None) -> int:
                         help="character n-gram LM for beam shallow fusion (a train_lm "
                              "artifact); requires --beam-width > 1")
     parser.add_argument("--lm-weight", type=float, default=0.5)
+    parser.add_argument("--identify-language", action="store_true",
+                        help="also report the language-ID head's prediction (models "
+                             "trained with num_languages > 0)")
     args = parser.parse_args(argv)
     if not args.audio and not args.input_dir:
         parser.error("provide audio file(s) or --input-dir")
@@ -330,8 +383,15 @@ def main(argv: List[str] | None = None) -> int:
     if args.lm and args.beam_width <= 1:
         parser.error("--lm fuses into the beam search; add --beam-width "
                      "(e.g. --beam-width 8)")
+    if args.identify_language and args.streaming:
+        parser.error("--identify-language is not supported with --streaming "
+                     "(the LID head pools over the full utterance)")
 
     pipeline = load_transcriber(args.checkpoint, device=args.device)
+    if args.identify_language and pipeline.num_languages <= 0:
+        parser.error("--identify-language requires a model with a LID head "
+                     "(trained with output.num_languages > 0); this "
+                     "checkpoint has none")
     pipeline.beam_width = args.beam_width
     parts = []
     if args.hotwords:
@@ -352,7 +412,8 @@ def main(argv: List[str] | None = None) -> int:
     def transcribe_one(path):
         if streamer is not None:
             return transcribe_streaming(streamer, path, timestamps=args.timestamps)
-        return pipeline.transcribe_file(path, timestamps=args.timestamps)
+        return pipeline.transcribe_file(path, timestamps=args.timestamps,
+                                        identify_language=args.identify_language)
 
     def show(result):
         if not args.output:
