@@ -77,7 +77,14 @@ its seconds:
      their longest at batch 1, and at 72 s (L = 3,600, K1 = 450) at batch
      1 and 16, the log-mel at 1 x 7,200 frames, at the longest's bucket
      and at the long-form batches, and on an 8 x 600 device-mel batch
-     speed-warped and noised as phase 12c's trainer does it;
+     speed-warped and noised as phase 12c's trainer does it; for phase 15,
+     the first 20 test-split conversations (rendered here) and the scan at
+     every batch the Diarizer embeds their windows at ((64, 75, 256, 32)
+     and each conversation's tail), the training scans at the speaker
+     recipe's shapes (32, 50..300, 256, 32) and the pretraining and
+     fine-tune recipes' (32 and 8, 100..400, 384, 64; 64, 384, 32), the
+     log-mel at 32 and 8 x 200..800 frames; phase 2 prints the backward's
+     workspace and grid at batch 32;
   4. offline path: load checkpoints/synth_run/final_pretrained, transcribe
      every WAV through
      the port's Transcriber, and hold the WER against the JAX package's
@@ -280,7 +287,36 @@ its seconds:
      configs/train_synth_moe_stream.yaml from moe_run (mean loss in [0.2,
      0.6], 9b's launches); a checkpointed MoE micro-step (dropout 0.1, aux
      on) bit-equal to the plain one;
-  6. (after 7, 10, 11, 8, 9, 12, 13 and 14, whose launch counts it reports) kernel timings beside
+  15. (after 14) diarization, masked-spectrogram pretraining and the
+     reference-checkpoint converter: (a) both committed speaker encoders
+     (speaker_run fp32, speaker_v2 bf16) over the 20 conversations, the
+     speaker count known and unknown: DER within 1.0 point of each
+     der_*_k.json and the same speaker-count accuracy, exactly 4 scans an
+     embedding call; one conversation's window embeddings card vs CPU
+     (least cosine 1 - 1e-5, fp32 and bf16); `diarize files --asr-model`
+     on two conversation WAVs and /diarize on a live server (plain,
+     ?num_speakers=N, ?transcripts=1): the library's segments (taken
+     before the counted runs), every segment with a text, exactly as
+     many embedding calls as the library made, 4 scans each, and 10
+     scans and 1 log-mel a transcript forward; (b) the speaker_run
+     recipe's first 100 micro-steps through the library with the CLI's
+     config: the 50-step
+     interval losses at 50 and 100 within +-15% and +-10% of the JAX
+     run's, 4 bounds forwards and 4 backwards a micro-step; one fp32
+     micro-step of the committed classifier card vs CPU (8a's limits);
+     (c) the first 100 micro-steps of configs/pretrain.yaml +
+     model_synth.yaml through the pretrain CLI: interval losses within
+     +-10% of the JAX run's at 50 and 100, 1 log-mel, 10 bounds forwards
+     and 10 backwards a micro-step, its final_backbone read back bit-equal;
+     one fp32 micro-step card vs CPU on the same mel and masks; 10
+     micro-steps of configs/finetune.yaml through train --init-from the
+     artifact (the backbone the artifact's and the CTC head a fresh init's
+     at step 0, losses finite, the same launches); (d) synth_run's weights
+     as a reference state_dict (tests/reference_layout.py) through
+     load_torch_checkpoint: logits on 4 held-out utterances bit-equal to
+     from_pretrained's (computed first), 10 scans in the converted
+     model's forward;
+  6. (after 7, 10, 11, 8, 9, 12, 13, 14 and 15, whose launch counts it reports) kernel timings beside
      their bounds and a library call: device time from CUDA graphs of many
      calls (what the JSON line reports), and CUDA events around eager
      calls, which include the host's launch; each scan forward's bound
@@ -548,7 +584,8 @@ TRAIN_TRACED = (100, 5)  # phase 8b: micro-steps 101-105 under torch.profiler
 STREAM_CONFIG = os.path.join(ROOT, "configs", "train_synth_stream.yaml")
 STREAM_SYNTH = 1600  # train utterances
 # micro-steps: 12 updates at accumulation 4, inside the 100-update warmup; a
-# depth cut to keep the script inside BUDGET_S (PERF.md section 4)
+# depth cut to keep the script inside BUDGET_S (PERF.md section 4): 50
+# since phase 14 (100 before)
 STREAM_STEPS = 50
 STREAM_BATCH = 8
 STREAM_CHUNK = 200  # training.streaming_chunks: 2 s chunks
@@ -599,6 +636,63 @@ TRAIN_SCAN_SHAPES = sorted(
 STATE_TRAIN_SHAPES = sorted({(b, STREAM_CHUNK // 2, 64) for b in (STREAM_BATCH, CHECK_BATCH)}
                             | {(b, 64, 32) for b in (STREAM_BATCH, CHECK_BATCH)}
                             | {(STREAM_BATCH, STREAM_CHUNK, 64)})
+
+
+# Phase 15: diarization, masked-spectrogram pretraining and the Stage-2
+# hand-off, the reference-checkpoint converter. The committed speaker
+# encoders and the JAX package's DER over the first 20 test-split
+# conversations (seed 1234, 2-4 speakers, collar 0.25, spectral), with
+# the speaker count known and unknown
+SPEAKER_MODELS = ("speaker_run", "speaker_v2")
+DIAR_CONVS = 20
+DER_MAX_DIFF = 0.01  # within 1.0 DER point of the file's
+# the diarizer's windows: 1.5 s (150 frames, L = 75 after the stride-2
+# binding) at d_inner 256 and N = 32, at most 64 a call
+DIAR_WINDOW_L, DIAR_D_INNER, DIAR_STATE_DIM, DIAR_BUCKET = 75, 256, 32, 64
+SPEAKER_SSM_LAYERS = 4  # scans an embedding call (and a speaker micro-step) launches
+# 15a, one conversation's window embeddings, card against CPU: the least
+# cosine, 1 - 1e-5 for both encoders. fp32 read 1 - 6e-8 on the H100;
+# bf16 (8 bits of mantissa, the two devices rounding their matmuls'
+# accumulations at other places) read 1 - 8.3e-7, so the bound is about
+# 12 times the bf16 gap (PERF.md section 6)
+SPEAKER_EMB_MIN_COS = {"speaker_run": 1 - 1e-5, "speaker_v2": 1 - 1e-5}
+DIAR_FILES = 2  # conversations through `diarize files --asr-model` and /diarize
+# 15b: the speaker_run recipe (64 speakers, 200 utterances each, batch 32,
+# lr 3e-4, warmup 300, horizon 3,000), cut to its first 100 micro-steps;
+# the 50-step interval mean loss at 50 and 100 against the JAX run's
+# (checkpoints/speaker_run/metrics.jsonl), within the band PERF.md wrote
+# before this phase first ran
+SPEAKER_STEPS = 100
+SPEAKER_LOSS_REF = {50: 11.331, 100: 10.271}
+# relative, by micro-step: the mean of steps 1-50 (the warmup's first sixth)
+# is mostly the initial loss, which the init's draw moves (11.8-15.5 over
+# five init seeds, the port on the CPU; PERF.md section 6)
+SPEAKER_LOSS_BAND = {50: 0.15, 100: 0.10}
+SPEAKER_BATCH = 32
+# frame buckets of 100 give L = 50..300 (the stream's longest clip is 5.3 s)
+SPEAKER_SCAN_SHAPES = [(SPEAKER_BATCH, f // 2, DIAR_STATE_DIM) for f in range(100, 601, 100)]
+SPEAKER_CHECK_BATCH = 8  # 15b card against CPU: the first 8 train-split utterances
+# 15c: configs/pretrain.yaml + model_synth.yaml, its first 100 micro-steps
+# (batch 32, device mel; the first 100 steps sit inside the 500-step warmup,
+# so the run's length does not move the rate); the interval means at 50 and
+# 100 against checkpoints/pretrain_run/metrics.jsonl
+PRETRAIN_CONFIG = os.path.join(ROOT, "configs", "pretrain.yaml")
+FINETUNE_CONFIG = os.path.join(ROOT, "configs", "finetune.yaml")
+PRETRAIN_STEPS = 100
+PRETRAIN_LOSS_REF = {50: 1.307, 100: 1.126}
+PRETRAIN_LOSS_BAND = {50: 0.10, 100: 0.10}  # relative, by micro-step
+PRETRAIN_BATCH = 32
+PRETRAIN_FT_STEPS = 10  # train --init-from the artifact (configs/finetune.yaml, batch 8)
+FINETUNE_BATCH = 8
+# the unlabeled stream's (and the fine-tune's train split's) clips pad to
+# 200..800 frames: local blocks L = 100..400 at N = 64, the global blocks
+# K1 = 64 at N = 32
+PRETRAIN_BUCKETS = range(200, 801, 200)
+PRETRAIN_SCAN_SHAPES = sorted({(b, f // 2, 64) for b in (PRETRAIN_BATCH, FINETUNE_BATCH)
+                               for f in PRETRAIN_BUCKETS}
+                              | {(b, 64, 32) for b in (PRETRAIN_BATCH, FINETUNE_BATCH)})
+PRETRAIN_CHECK = (4, 400)  # 15c card against CPU: 4 unlabeled clips of at most 400 frames
+CONVERT_UTTS = 4  # 15d: held-out utterances whose logits must be bit-equal
 
 
 def int8_shapes(batch: int, frames: int = 400):
@@ -883,7 +977,7 @@ def launched_once_each(name, call):
     return out, launch_counts[name] - before == 2
 
 
-def compare_train_scans(rng, state_dim, batch, length, forward=True):
+def compare_train_scans(rng, state_dim, batch, length, forward=True, d_inner=384):
     """The training kernels against their plain versions on one shape:
     (bounds forward's y bit-equal to scan_fwd's, bounds max_rel, bounds
     max_abs) and the backward's per-output (max_abs, max_rel) and whether
@@ -894,8 +988,8 @@ def compare_train_scans(rng, state_dim, batch, length, forward=True):
     from velocity_asr_tpu_torch.ops.scan import (scan_bwd, scan_bwd_plain, scan_fwd,
                                                  scan_fwd_bounds, scan_fwd_bounds_plain)
 
-    x, dt, A, B, C = scan_inputs(rng, length, state_dim, batch=batch)
-    g = torch.tensor(rng.standard_normal((batch, length, 384)).astype(np.float32),
+    x, dt, A, B, C = scan_inputs(rng, length, state_dim, d_inner=d_inner, batch=batch)
+    g = torch.tensor(rng.standard_normal((batch, length, d_inner)).astype(np.float32),
                      device="cuda")
     fwd = None
     ref_y, ref_bounds = scan_fwd_bounds_plain(x, dt, A, B, C)
@@ -1128,10 +1222,15 @@ def phase_build():
             f"{occ['threads']} threads, {occ['shared_bytes']} shared bytes, {occ['stages']} "
             f"stage(s) of K, {occ['blocks'] / (occ['blocks_per_sm'] * sms):.2f} waves of "
             f"{occ['blocks_per_sm']} x {sms} resident")
-    occ = lib.occupancy("scan_bwd_occupancy", 16, 0)  # N = 64: 16 lanes of 4 states
-    per_cluster = 8 * occ["threads"] // 16  # channels
-    for shape in ((TRAIN_BATCH, 300, 384, 64), (STREAM_BATCH, 100, 384, 64)):
-        grid = shape[0] * -(-shape[2] // per_cluster)
+    # the training shapes, with phase 15's at batch 32: the pretraining
+    # recipe's longest bucket and global blocks, the speaker recipe's
+    for shape in ((TRAIN_BATCH, 300, 384, 64), (STREAM_BATCH, 100, 384, 64),
+                  (PRETRAIN_BATCH, 400, 384, 64), (PRETRAIN_BATCH, 64, 384, 32),
+                  (SPEAKER_BATCH, 300, DIAR_D_INNER, DIAR_STATE_DIM)):
+        n = shape[3]  # lanes a channel: the narrowest of 1..16 with 4 states each covering N
+        lanes = next(g for g in (1, 2, 4, 8, 16) if 4 * g >= n or g == 16)
+        occ = lib.occupancy("scan_bwd_occupancy", lanes, 0)
+        grid = shape[0] * -(-shape[2] // (8 * occ["threads"] // lanes))
         log(f"  scan backward (batch, L, D, N) = {shape}: workspace "
             f"{4 * lib.lib.scan_bwd_workspace_floats(*shape) / 1e6:.3f} MB (cluster partials and "
             f"arrival counters); grid {grid} clusters of 8, {grid / occ['clusters']:.2f} waves of "
@@ -1256,6 +1355,19 @@ def phase_compare(plan):
         if not ok:
             raise AssertionError("scan kernel disagrees with its plain version")
         errs["scan_fwd_f32"] = max(errs["scan_fwd_f32"], max_abs)
+    # the Diarizer's embedding calls (phase 15a): every batch they run at
+    for batch in sorted(plan["diarize"]["batches"]):
+        args = scan_inputs(rng, DIAR_WINDOW_L, DIAR_STATE_DIM, d_inner=DIAR_D_INNER, batch=batch)
+        ker = scan_fwd(*args)
+        torch.cuda.synchronize()
+        max_abs, max_rel = rel_err(ker, scan_fwd_plain(*args))
+        ok = math.isfinite(max_rel) and max_rel <= SCAN_MAX_REL
+        log(f"scan N={DIAR_STATE_DIM} B={batch} L={DIAR_WINDOW_L} D={DIAR_D_INNER} (diarizer): "
+            f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} (tol rel {SCAN_MAX_REL:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("scan kernel disagrees with its plain version")
+        errs["scan_fwd_f32"] = max(errs["scan_fwd_f32"], max_abs)
     # the carried-state scan: every shape of the streaming path, the widths
     # at batch 1 and 4, then the seam
     path = set(plan["stream"]["shapes"])
@@ -1301,13 +1413,19 @@ def phase_compare(plan):
     # the training scans: every training shape (forward and backward),
     # then the backward's widths at batch 1 and 4, L off the 16-step chunk
     bwd_widths = {(b, length, n) for n in BWD_SCAN_DIMS for b in (1, 4) for length in (37, 100)}
-    for batch, length, state_dim in TRAIN_SCAN_SHAPES + sorted(bwd_widths):
-        training = (batch, length, state_dim) in TRAIN_SCAN_SHAPES
-        fwd, bwd, same = compare_train_scans(rng, state_dim, batch, length, forward=training)
+    phase15 = {(b, length, n, DIAR_D_INNER) for b, length, n in SPEAKER_SCAN_SHAPES} | {
+        (b, length, n, 384) for b, length, n in PRETRAIN_SCAN_SHAPES}
+    cases = ([(b, length, n, 384) for b, length, n in TRAIN_SCAN_SHAPES] + sorted(phase15)
+             + [(b, length, n, 384) for b, length, n in sorted(bwd_widths)])
+    for batch, length, state_dim, d_inner in cases:
+        training = ((batch, length, state_dim) in TRAIN_SCAN_SHAPES
+                    or (batch, length, state_dim, d_inner) in phase15)
+        fwd, bwd, same = compare_train_scans(rng, state_dim, batch, length, forward=training,
+                                             d_inner=d_inner)
         worst = max(e[1] for name, e in bwd.items() if name != "dA")
         ok = (same and math.isfinite(worst) and worst <= BWD_MAX_REL
               and bwd["dA"][1] <= BWD_DA_MAX_REL)
-        line = (f"train scan N={state_dim} B={batch} L={length} D=384"
+        line = (f"train scan N={state_dim} B={batch} L={length} D={d_inner}"
                 f"{' (training path)' if training else ''}: ")
         if fwd is not None:
             y_same, b_rel, b_abs = fwd
@@ -1372,7 +1490,9 @@ def phase_compare(plan):
                   + [(1, LONG_FRAMES, " (72 s)"),
                      (1, plan["longform"]["longest_bucket"], " (long form, batch 1, 12b)")]
                   + [(b, f, " (long form, batched)")
-                     for b, f in sorted(plan["longform"]["batched"])])
+                     for b, f in sorted(plan["longform"]["batched"])]
+                  + [(b, f, f" (training path, 15c {'pretraining' if b == PRETRAIN_BATCH else 'fine-tune'})")
+                     for b in (PRETRAIN_BATCH, FINETUNE_BATCH) for f in PRETRAIN_BUCKETS])
     # held against the plain version run in fp64, each band within its
     # tolerance (MEL_MAX_ABS, widened by MEL_FP32_NOISE in bands far below
     # their frame's power); the plain version in fp32, held to the same
@@ -1533,6 +1653,7 @@ def phase_corpus(tmp: str, n_utts: int):
         for chunk in (mel_lens[s:s + BATCH] for s in range(0, n, BATCH)))
     stream = streaming_plan(n_samples)
     longform = longform_plan(tmp)
+    diarize = diarize_plan()
     log(f"offline frame buckets {dict(sorted(offline.items()))}; batched (size, padded "
         f"frames) {dict(sorted(batched.items()))}")
     log(f"streaming: chunks per utterance {dict(sorted(collections.Counter(stream['chunks']).items()))}; "
@@ -1540,7 +1661,38 @@ def phase_corpus(tmp: str, n_utts: int):
         f"chunks at batch 1; carried-state scan shapes (batch, L, N) {stream['shapes']}; "
         f"planned launches {stream['launches']}")
     return manifest, {"offline": offline, "batched": batched, "mel_lens": mel_lens,
-                      "stream": stream, "longform": longform}
+                      "stream": stream, "longform": longform, "diarize": diarize}
+
+
+def diarize_plan():
+    """Phase 15a's conversations (rendered once) and the batch sizes of the
+    Diarizer's embedding calls on them: the windows of each conversation's
+    speech, DIAR_BUCKET a call, the last call the rest."""
+    from velocity_asr_tpu_torch import diarize as dz
+    from velocity_asr_tpu_torch.audio import compute_mel_spectrogram_np
+    from velocity_asr_tpu_torch.synth import SyntheticConversationDataset
+
+    t0 = time.perf_counter()
+    ds = SyntheticConversationDataset(DIAR_CONVS, split="test", seed=1234)
+    convs = [ds[i] for i in range(len(ds))]
+    cfg = dz.DiarizeConfig()
+    window = int(round(cfg.window_s / dz.FRAME_S))
+    hop = max(int(round(cfg.hop_s / dz.FRAME_S)), 1)
+    windows = []
+    for item in convs:
+        mel = compute_mel_spectrogram_np(item["audio"], normalize=False)
+        speech = dz.energy_vad(mel, cfg.vad_threshold, cfg.min_speech_s, cfg.min_gap_s)
+        windows.append(len(dz.window_plan(dz.speech_regions(speech), window, hop)))
+    batches = collections.Counter()
+    for n in windows:
+        batches.update([cfg.batch_bucket] * (n // cfg.batch_bucket))
+        if n % cfg.batch_bucket:
+            batches[n % cfg.batch_bucket] += 1
+    log(f"diarization: {len(convs)} test conversations ({sum(len(c['audio']) for c in convs) / 16000:.1f} s, "
+        f"{sum(c['n_speakers'] for c in convs)} voices) rendered in {time.perf_counter() - t0:.3f} s; "
+        f"windows a conversation {windows}; embedding calls by batch "
+        f"{dict(sorted(batches.items()))} at L = {DIAR_WINDOW_L}")
+    return {"convs": convs, "batches": batches}
 
 
 def longform_plan(tmp: str):
@@ -2580,39 +2732,49 @@ def check_batch():
     return batch
 
 
-def train_card_vs_cpu(tag, batch, shared_mel=None, check=True, **config):
-    """8a and 9a: the loss and every gradient of one micro-batch, card
-    against CPU, at fp32 with dropout and SpecAugment off; then one
+def train_card_vs_cpu(tag, batch, shared_mel=None, check=True, make_trainer=None,
+                      loss_fn=None, **config):
+    """8a, 9a, 15b and 15c: the loss and every gradient of one micro-batch,
+    card against CPU, at fp32 with dropout and SpecAugment off; then one
     optimizer update on each (its largest weight difference is reported).
-    `config` adds TrainingConfig fields (9a: the streaming term). With
-    `shared_mel`, a device-mel batch's (normalised, raw) mel on the CPU,
-    both sides start from that mel instead of computing their own: the
-    gap then leaves out the log-mel's. `check` False only reports.
-    Returns the worst gradient's max_abs / max|grad|."""
+    By default synth_run's model under the Trainer; `make_trainer(device)`
+    builds another (15b's speaker classifier, 15c's masked predictor) and
+    `loss_fn(trainer, device)` its micro-step loss. `config` adds
+    TrainingConfig fields (9a: the streaming term). With `shared_mel`, a
+    device-mel batch's (normalised, raw) mel on the CPU, both sides start
+    from that mel instead of computing their own: the gap then leaves out
+    the log-mel's. `check` False only reports. Returns the worst
+    gradient's max_abs / max|grad|."""
     import torch
 
     from velocity_asr_tpu_torch.models.model import from_pretrained
     from velocity_asr_tpu_torch.training import Trainer, TrainingConfig
 
-    shape = "x".join(str(d) for d in next(batch[k] for k in ("mel_spectrogram", "audio")
-                                          if k in batch).shape)
-    results = []
-    for device in ("cuda", "cpu"):
+    def synth_trainer(device):
         model = from_pretrained(CHECKPOINT, device=device, dtype="float32", dropout=0.0)
         trainer = Trainer(model, TrainingConfig(learning_rate=3e-4, warmup_steps=1, **config),
                           iter(()))
         if shared_mel is not None:
             mel = tuple(m.to(device) for m in shared_mel)
             trainer._batch_mel = lambda _batch, mel=mel: mel
-        model.train()
-        loss = trainer._loss(trainer._to_device(batch), None)
+        return trainer
+
+    make_trainer = make_trainer or synth_trainer
+    loss_fn = loss_fn or (lambda trainer, device: trainer._loss(trainer._to_device(batch), None))
+    shape = "x".join(str(d) for d in next(batch[k] for k in ("mel_spectrogram", "audio")
+                                          if k in batch).shape)
+    results = []
+    for device in ("cuda", "cpu"):
+        trainer = make_trainer(device)
+        trainer.model.train()
+        loss = loss_fn(trainer, device)
         grads = torch.autograd.grad(loss, trainer.params)
         trainer.optimizer.step(list(grads))
         results.append((loss.item(), [g.cpu() for g in grads],
                         [p.detach().cpu() for p in trainer.params]))
     (loss_card, g_card, p_card), (loss_cpu, g_cpu, p_cpu) = results
     loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    names = [n for n, _ in from_pretrained(CHECKPOINT, device="cpu").named_parameters()]
+    names = [n for n, _ in trainer.model.named_parameters()]
     top = max(g.abs().max().item() for g in g_cpu)
     grad_rel, zero_rel = {}, {}
     for n, a, b in zip(names, g_card, g_cpu):
@@ -2678,18 +2840,18 @@ def batch_frames(batch):
 
 
 def run_train_cli(ckpt_dir, argv, traced=None, config=TRAIN_CONFIG, synthetic=TRAIN_SYNTH,
-                  tag="8b", model_config=TRAIN_MODEL_CONFIG):
-    """velocity_asr_tpu_torch.train's main with these arguments, each
-    micro-step timed to a synchronise (frames, ms, loss, traced), and the
-    launch counts of the run. traced = (first, count): a torch.profiler
-    window over those micro-steps, whose device time by kernel is logged
-    (those steps carry the profiler's cost and are marked). synthetic
-    None leaves the data to the config."""
+                  tag="8b", model_config=TRAIN_MODEL_CONFIG, cli=None, on_first_step=None):
+    """velocity_asr_tpu_torch.train's main (or `cli`'s, e.g. the pretrain
+    module) with these arguments, each micro-step timed to a synchronise
+    (frames, ms, loss, traced), and the launch counts of the run. traced =
+    (first, count): a torch.profiler window over those micro-steps, whose
+    device time by kernel is logged (those steps carry the profiler's cost
+    and are marked). synthetic None leaves the data to the config.
+    on_first_step(trainer) runs before the first micro-step."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from velocity_asr_tpu_torch import train as cli
-    from velocity_asr_tpu_torch import training
+    from velocity_asr_tpu_torch import train, training
     from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
 
     steps = []
@@ -2699,6 +2861,8 @@ def run_train_cli(ckpt_dir, argv, traced=None, config=TRAIN_CONFIG, synthetic=TR
                              schedule=schedule(wait=first, warmup=0, active=count, repeat=1))
 
     def timed_step(self, batch):
+        if not steps and on_first_step is not None:
+            on_first_step(self)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = step(self, batch)
@@ -2717,8 +2881,8 @@ def run_train_cli(ckpt_dir, argv, traced=None, config=TRAIN_CONFIG, synthetic=TR
         if count:
             prof.start()
         data = [] if synthetic is None else ["--synthetic", str(synthetic)]
-        out = cli.main(["--config", config, "--model-config", model_config, *data,
-                        "--checkpoint-dir", ckpt_dir, "--device", "cuda", *argv])
+        out = (cli or train).main(["--config", config, "--model-config", model_config, *data,
+                                   "--checkpoint-dir", ckpt_dir, "--device", "cuda", *argv])
     finally:
         training.Trainer._step = step
         if count:
@@ -2920,8 +3084,10 @@ def phase_stream_training(manifest, stream_wers):
             out_dir, ["--init-from", CHECKPOINT, "--max-steps", str(STREAM_STEPS)],
             STREAM_TRACED, config=STREAM_CONFIG, synthetic=STREAM_SYNTH, tag="9b")
         losses = [loss for _, _, loss, _ in steps]
-        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
-            logged = [json.loads(line) for line in f]
+        logged = []  # one line per log interval: none in a run shorter than one
+        if os.path.exists(os.path.join(out_dir, "metrics.jsonl")):
+            with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+                logged = [json.loads(line) for line in f]
         mean = float(np.mean(losses))
         buckets = collections.Counter(frames for frames, _, _, _ in steps)
         lo, hi = STREAM_LOSS_RANGE
@@ -4242,6 +4408,445 @@ def phase_moe_lid(tmp: str, manifest: str, plan, batched, training, card: str):
     return counts
 
 
+def speaker_model(name: str) -> str:
+    return os.path.join(ROOT, "checkpoints", name, "final_speaker")
+
+
+def diarization(tmp: str, plan, counts):
+    """15a: DER of each committed encoder over the 20 test conversations,
+    count known and unknown, against its files, with exactly
+    SPEAKER_SSM_LAYERS scans an embedding call; one conversation's
+    embeddings card against CPU; `diarize files --asr-model` and /diarize
+    on a live server against the library's segments."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from velocity_asr_tpu_torch import diarize as dz
+    from velocity_asr_tpu_torch import serve as sv
+    from velocity_asr_tpu_torch.audio import compute_mel_spectrogram_np, load_audio
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.synth import write_conversations
+    from velocity_asr_tpu_torch.transcribe import Transcriber
+
+    convs = plan["diarize"]["convs"]
+    calls = {"embed": 0, "forward": 0}
+    embed, forward = dz.Diarizer._embed, Transcriber.masked_logits
+
+    def counted_embed(self, windows, lengths):
+        calls["embed"] += 1
+        return embed(self, windows, lengths)
+
+    def counted_forward(self, wire, n_valid):
+        calls["forward"] += 1
+        return forward(self, wire, n_valid)
+
+    def reset():
+        reset_launch_counts()
+        calls.update(embed=0, forward=0)
+
+    def expect_calls(tag, embeds):
+        """The embedding calls the library made for the same work, and
+        SPEAKER_SSM_LAYERS scans each, plus 10 scans and a log-mel a
+        transcript forward."""
+        if calls["embed"] != embeds:
+            raise AssertionError(f"[{tag}] {calls['embed']} embedding calls, the library "
+                                 f"made {embeds}")
+        expect_launches(tag, {k: v for k, v in launch_counts.items() if v},
+                        {k: v for k, v in (
+                            ("scan_fwd_f32", SPEAKER_SSM_LAYERS * embeds
+                             + SCANS_PER_STEP * calls["forward"]),
+                            ("log_mel_f32", calls["forward"])) if v})
+
+    diarizers = {}
+    dz.Diarizer._embed = counted_embed
+    Transcriber.masked_logits = counted_forward
+    try:
+        for name in SPEAKER_MODELS:
+            diar = diarizers[name] = dz.Diarizer(speaker_model(name), device="cuda")
+            for known in (True, False):
+                reset()
+                t0 = time.perf_counter()
+                agg = dz.evaluate_conversations(diar, convs, known)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = dict(launch_counts)
+                counts.update(got)
+                with open(os.path.join(ROOT, "checkpoints", name,
+                                       f"der_{'known' if known else 'unknown'}_k.json")) as f:
+                    ref = json.load(f)
+                tag = f"15a {name} {'known' if known else 'unknown'} count"
+                ok = (abs(agg["der"] - ref["der"]) <= DER_MAX_DIFF
+                      and agg["speaker_count_accuracy"] == ref["speaker_count_accuracy"]
+                      and agg["n_conversations"] == ref["n_conversations"])
+                log(f"[{tag}] DER {agg['der'] * 100:.4f}% (miss {agg['miss_rate'] * 100:.4f}%, "
+                    f"fa {agg['fa_rate'] * 100:.4f}%, confusion {agg['confusion_rate'] * 100:.4f}%) "
+                    f"over {agg['n_conversations']} conversations, {agg['total_speech_s']:.3f} s of "
+                    f"speech, against the JAX file's {ref['der'] * 100:.4f}% (tol "
+                    f"{DER_MAX_DIFF * 100:g} point); speaker-count accuracy "
+                    f"{agg['speaker_count_accuracy']:g} (file {ref['speaker_count_accuracy']:g}); "
+                    f"{calls['embed']} embedding calls; {wall:.3f} s ({wall / len(convs) * 1e3:.3f} "
+                    f"ms a conversation, {wall / agg['total_speech_s']:.5f} RTF) "
+                    f"{'ok' if ok else 'FAIL'}")
+                expect_launches(tag, got, {"scan_fwd_f32": SPEAKER_SSM_LAYERS * calls["embed"]})
+                if not ok:
+                    raise AssertionError(f"[{tag}] DER or speaker count off its JAX file")
+
+        # one conversation's embeddings, card against CPU
+        cfg = dz.DiarizeConfig()
+        mel = compute_mel_spectrogram_np(convs[0]["audio"], normalize=False)
+        speech = dz.energy_vad(mel, cfg.vad_threshold, cfg.min_speech_s, cfg.min_gap_s)
+        windows = dz.window_plan(dz.speech_regions(speech),
+                                 int(round(cfg.window_s / dz.FRAME_S)),
+                                 max(int(round(cfg.hop_s / dz.FRAME_S)), 1))
+        for name in SPEAKER_MODELS:
+            card = diarizers[name].embed_windows(mel, windows)
+            cpu = dz.Diarizer(speaker_model(name), device="cpu").embed_windows(mel, windows)
+            cos = (card * cpu).sum(1) / (np.linalg.norm(card, axis=1)
+                                         * np.linalg.norm(cpu, axis=1))
+            bound = SPEAKER_EMB_MIN_COS[name]
+            ok = bool(cos.min() >= bound)
+            log(f"[15a {name}] conversation 0's {len(windows)} window embeddings "
+                f"({diarizers[name].encoder_config.dtype}), card vs CPU: least cosine "
+                f"{cos.min():.8f} (bound {bound:g}), max_abs {np.abs(card - cpu).max():.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"[15a {name}] embeddings on the card disagree with the CPU")
+
+        # the CLI with transcripts, and /diarize on a live server, on two
+        # WAVs; the library's segments (and its embedding calls) are taken
+        # first, outside the counted runs
+        wav_dir = os.path.join(tmp, "conversations")
+        manifest = write_conversations(wav_dir, DIAR_FILES, split="test", seed=1234)
+        with open(manifest) as f:
+            rows = [json.loads(line) for line in f]
+        paths = [r["audio_path"] for r in rows]
+        diar = diarizers["speaker_run"]
+        audios = [load_audio(p) for p in paths]
+        queries = (("", None), ("?num_speakers={}", "n_speakers"), ("?transcripts=1", None))
+        want = {}
+        for i, (audio, row) in enumerate(zip(audios, rows)):
+            for query, key in queries:
+                n_spk = row[key] if key else None
+                reset()
+                want[i, query] = ([s.to_dict() for s in diar.diarize(audio, n_speakers=n_spk)],
+                                  calls["embed"])
+
+        out_json = os.path.join(tmp, "diarize_files.json")
+        reset()
+        t0 = time.perf_counter()
+        records = dz.main(["files", *paths, "--speaker-model", speaker_model("speaker_run"),
+                           "--asr-model", CHECKPOINT, "--output", out_json, "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        counts.update(launch_counts)
+        segs = [rec.get("segments", []) for rec in records]
+        texts = [s.get("text") for seg in segs for s in seg]
+        ok = (all("error" not in rec for rec in records)
+              and [[{k: v for k, v in s.items() if k != "text"} for s in seg] for seg in segs]
+              == [want[i, ""][0] for i in range(len(paths))]
+              and all(t is not None for t in texts) and calls["forward"] > 0)
+        log(f"[15a files] `diarize files --asr-model` on {len(paths)} conversations: "
+            f"{[len(seg) for seg in segs]} segments, equal to the library's: "
+            f"{ok}; {sum(bool(t) for t in texts)} of {len(texts)} segments with a non-empty text "
+            f"(e.g. {texts[:2]}); {wall:.3f} s; {calls['embed']} embedding calls, "
+            f"{calls['forward']} transcript forwards")
+        if not ok:
+            raise AssertionError("[15a] the files CLI's segments differ from the library's")
+        expect_calls("15a files", sum(want[i, ""][1] for i in range(len(paths))))
+
+        service = sv.ASRService.from_checkpoint(CHECKPOINT, device="cuda",
+                                                speaker_model=speaker_model("speaker_run"))
+        server = ThreadingHTTPServer(("127.0.0.1", 0), sv.make_handler(service))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+        reset()
+        try:
+            for i, (path, row) in enumerate(zip(paths, rows)):
+                with open(path, "rb") as f:
+                    body = f.read()
+                for query, key in queries:
+                    ref = want[i, query][0]
+                    forwards = calls["forward"]
+                    t0 = time.perf_counter()
+                    code, out = http_json(port, "POST",
+                                          f"/diarize{query.format(row.get(key))}", body)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    got = [{k: v for k, v in s.items() if k != "text"} for s in out["segments"]]
+                    texts = query == "?transcripts=1"
+                    ok = (code == 200 and got == ref
+                          and out["num_speakers"] == len({s["speaker"] for s in ref})
+                          and all(("text" in s) == texts for s in out["segments"])
+                          and (calls["forward"] > forwards) == texts)
+                    log(f"[15a /diarize{query.format(row.get(key))}] {os.path.basename(path)} "
+                        f"({out.get('duration', 0):.2f} s): {len(got)} segments, "
+                        f"{out.get('num_speakers')} speakers, equal to the library's: "
+                        f"{got == ref}; {calls['forward'] - forwards} transcript forwards; "
+                        f"{ms:.3f} ms, rtf {out.get('rtf', 0):.5f} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError("[15a] /diarize differs from the library")
+            code, out = http_json(port, "POST", "/diarize?num_speakers=two", body)
+            if code != 400:
+                raise AssertionError("[15a] a bad /diarize query is not a 400")
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+        counts.update(launch_counts)
+        log(f"[15a serve] {calls['embed']} embedding calls, {calls['forward']} transcript "
+            f"forwards")
+        expect_calls("15a serve", sum(v[1] for v in want.values()))
+    finally:
+        dz.Diarizer._embed = embed
+        Transcriber.masked_logits = forward
+
+
+def check_interval_losses(tag, history, log_interval, refs, bands):
+    """The logged interval means at refs' micro-steps against refs, each
+    within its relative band."""
+    got = {log_interval * (i + 1): v for i, v in enumerate(history["train_loss"])}
+    rows = {s: (got.get(s), ref, None if got.get(s) is None else got[s] / ref - 1)
+            for s, ref in refs.items()}
+    ok = all(d is not None and abs(d) <= bands[s] for s, (_, _, d) in rows.items())
+    log(f"[{tag}] interval mean loss " + "; ".join(
+        f"step {s}: {v if v is None else round(v, 4)} vs JAX {r} "
+        f"({'n/a' if d is None else f'{d:+.2%}'}, band +-{bands[s]:.0%})"
+        for s, (v, r, d) in rows.items()) + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] losses outside the band")
+
+
+def speaker_training(tmp: str, counts):
+    """15b: the speaker_run recipe's first SPEAKER_STEPS micro-steps through
+    the library with the CLI's config, its loss against the JAX run's;
+    one micro-step card against CPU."""
+    import torch
+
+    from velocity_asr_tpu_torch import diarize as dz
+    from velocity_asr_tpu_torch.checkpoint import params_from_numpy
+    from velocity_asr_tpu_torch.data import ASRCollator, cycle
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.synth import SyntheticSpeakerDataset
+    from velocity_asr_tpu_torch.training import Trainer
+
+    ckpt = os.path.join(tmp, "speaker")
+    args = dz.build_parser().parse_args(["train", "--checkpoint-dir", ckpt, "--device", "cuda"])
+    cfg, train_cfg, train_loader, eval_loader = dz.speaker_training(args)
+    # the 3,000-step run's schedule and warmup, cut after SPEAKER_STEPS
+    train_cfg = dataclasses.replace(train_cfg, max_steps=SPEAKER_STEPS,
+                                    lr_total_steps=args.steps)
+    model = dz.create_speaker_model(cfg, device="cuda")
+    batches = cycle(train_loader)
+    trainer = dz.SpeakerTrainer(model, train_cfg, batches, lambda: iter(eval_loader))
+    step = Trainer._step
+    ms = []
+
+    def timed(self, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(self, batch)
+        loss.item()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return loss
+
+    Trainer._step = timed
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        history = trainer.train()
+    finally:
+        Trainer._step = step
+        batches.close()
+    wall = time.perf_counter() - t0
+    got = dict(launch_counts)
+    counts.update(got)
+    log(f"[15b speaker training] {SPEAKER_STEPS} micro-steps at batch {train_cfg.batch_size} "
+        f"(warmup {train_cfg.warmup_steps}, horizon {train_cfg.lr_total_steps}) in {wall:.3f} s: "
+        f"p50 {np.percentile(ms, 50):.3f} ms, p95 {np.percentile(ms, 95):.3f} ms a micro-step; "
+        f"host data wait {trainer.data_wait_seconds:.3f} s; lr {history['lr']}")
+    check_interval_losses("15b speaker training", history, train_cfg.log_interval,
+                          SPEAKER_LOSS_REF, SPEAKER_LOSS_BAND)
+    expect_launches("15b speaker training", got,
+                    {"scan_fwd_bounds_f32": SPEAKER_SSM_LAYERS * SPEAKER_STEPS,
+                     "scan_bwd_f32": SPEAKER_SSM_LAYERS * SPEAKER_STEPS})
+
+    ds = SyntheticSpeakerDataset(cfg.n_speakers, 200, split="train", seed=1234)
+    batch = ASRCollator(frame_bucket=args.frame_bucket, target_bucket=1)(
+        [ds[i] for i in range(SPEAKER_CHECK_BATCH)])
+
+    def classifier(device):
+        config, tree = dz.load_speaker_artifact(speaker_model("speaker_run"))
+        net = dz.SpeakerClassifier(dataclasses.replace(config, dropout=0.0))
+        net.load_state_dict(params_from_numpy(tree), strict=True)
+        return dz.SpeakerTrainer(net.to(device), dataclasses.replace(train_cfg, max_steps=1),
+                                 iter(()))
+
+    train_card_vs_cpu("15b speaker_run micro-step, host mel", batch, make_trainer=classifier)
+
+
+def pretraining(tmp: str, counts):
+    """15c: the pretraining recipe's first PRETRAIN_STEPS micro-steps
+    through the CLI, its loss against the JAX run's, its artifact read
+    back; one micro-step card against CPU with the same masks; the
+    fine-tune recipe from the artifact."""
+    import torch
+
+    from velocity_asr_tpu_torch import pretrain as pt
+    from velocity_asr_tpu_torch.checkpoint import _flatten, params_to_numpy
+    from velocity_asr_tpu_torch.config import load_yaml, model_config_from_yaml
+    from velocity_asr_tpu_torch.data import ASRCollator
+    from velocity_asr_tpu_torch.models.model import create_model
+    from velocity_asr_tpu_torch.synth import SyntheticSpeechDataset
+    from velocity_asr_tpu_torch.training import TrainingConfig
+
+    ckpt = os.path.join(tmp, "pretrain")
+    trainer, steps, got, wall = run_train_cli(
+        ckpt, ["--max-steps", str(PRETRAIN_STEPS)], config=PRETRAIN_CONFIG, synthetic=None,
+        tag="15c pretraining", cli=pt)
+    counts.update(got)
+    report_steps("15c pretraining", steps, trainer, wall, trainer.config.batch_size)
+    check_interval_losses("15c pretraining", {"train_loss": [
+        float(np.mean([v for _, _, v, _ in steps[i:i + 50]])) for i in range(0, len(steps), 50)]},
+        50, PRETRAIN_LOSS_REF, PRETRAIN_LOSS_BAND)
+    expect_launches("15c pretraining", got,
+                    {"log_mel_f32": PRETRAIN_STEPS,
+                     "scan_fwd_bounds_f32": SCANS_PER_STEP * PRETRAIN_STEPS,
+                     "scan_bwd_f32": SCANS_PER_STEP * PRETRAIN_STEPS})
+    backbone = os.path.join(ckpt, "final_backbone")
+    cfg, masking, tree = pt.load_pretrain_artifact(backbone)
+    mine = params_to_numpy(trainer.model)
+    flat = dict(_flatten(tree))
+    same = all(np.array_equal(v, flat[k]) for k, v in _flatten(mine)) and len(flat) == len(
+        dict(_flatten(mine)))
+    log(f"[15c artifact] final_backbone read back by load_pretrain_artifact: {len(flat)} "
+        f"tensors bit-equal to the trained model's: {same}; masking {masking}")
+    if not (same and cfg == trainer.model.config):
+        raise AssertionError("[15c] the pretraining artifact does not read back")
+
+    # one micro-step card against CPU, the same host mel and masks on both
+    ds = SyntheticSpeechDataset(2000, split="unlab", seed=1234)
+    items = [it for it in (ds[i] for i in range(64))
+             if it["mel_spectrogram"].shape[0] <= PRETRAIN_CHECK[1]][:PRETRAIN_CHECK[0]]
+    batch = ASRCollator(frame_bucket=PRETRAIN_CHECK[1])(items)
+    model_cfg = dataclasses.replace(model_config_from_yaml(load_yaml(TRAIN_MODEL_CONFIG)),
+                                    dtype="float32", dropout=0.0)
+    b, t = batch["mel_spectrogram"].shape[:2]
+    gen = torch.Generator().manual_seed(0)
+    masks = (pt.sample_time_mask(gen, b, t, torch.as_tensor(batch["input_lengths"]),
+                                 pt.MaskedPredictionConfig()),
+             pt.sample_freq_mask(gen, b, 80, pt.MaskedPredictionConfig()))
+
+    def predictor(device):
+        net = pt.create_pretrain_model(model_cfg, device=device,
+                                       generator=torch.Generator().manual_seed(3))
+        return pt.PretrainTrainer(net, TrainingConfig(), iter(()))
+
+    def loss(trainer, device):
+        return trainer._loss(trainer._to_device(batch), None,
+                             masks=tuple(m.to(device) for m in masks))
+
+    train_card_vs_cpu(f"15c pretraining micro-step, host mel, {int(masks[0].sum())} masked "
+                      f"frames, {int(masks[1].any(1).sum())} banded rows", batch,
+                      make_trainer=predictor, loss_fn=loss)
+
+    # the Stage-2 fine-tune from the artifact: at step 0 the backbone is
+    # the artifact's and the CTC head fresh
+    first = {}
+
+    def snapshot(tr):
+        first.update(params_to_numpy(tr.model))
+
+    trainer, steps, got, wall = run_train_cli(
+        os.path.join(tmp, "finetune"), ["--init-from", backbone, "--max-steps",
+                                        str(PRETRAIN_FT_STEPS)],
+        config=FINETUNE_CONFIG, synthetic=None, tag="15c fine-tune", on_first_step=snapshot)
+    counts.update(got)
+    losses = [v for _, _, v, _ in steps]
+    report_steps("15c fine-tune", steps, trainer, wall, trainer.config.batch_size)
+    backbone_same = all(
+        np.array_equal(v, dict(_flatten(tree[key]))[k])
+        for key in pt.BACKBONE_KEYS for k, v in _flatten(first[key]))
+    # the head is a fresh model's (create_model, generator seeded 0): the
+    # artifact has none (its recon_head predicts mel)
+    fresh = params_to_numpy(create_model(trainer.model.config, device="cpu"))["ctc_head"]
+    head_fresh = "ctc_head" not in tree and all(
+        np.array_equal(v, dict(_flatten(fresh))[k]) for k, v in _flatten(first["ctc_head"]))
+    log(f"[15c fine-tune] train --init-from final_backbone, {len(losses)} micro-steps at batch "
+        f"{trainer.config.batch_size}: losses {[round(v, 4) for v in losses]}; at step 0 every backbone "
+        f"tensor equals the artifact's: {backbone_same}; the CTC head a fresh init's, not the "
+        f"artifact's: {head_fresh}")
+    expect_launches("15c fine-tune", got,
+                    {"log_mel_f32": PRETRAIN_FT_STEPS,
+                     "scan_fwd_bounds_f32": SCANS_PER_STEP * PRETRAIN_FT_STEPS,
+                     "scan_bwd_f32": SCANS_PER_STEP * PRETRAIN_FT_STEPS})
+    if not (backbone_same and head_fresh and len(losses) == PRETRAIN_FT_STEPS
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError("[15c] the fine-tune from the artifact is not the Stage-2 init")
+
+
+def converter(tmp: str, manifest: str, counts):
+    """15d: synth_run's weights as a reference state_dict, through
+    load_torch_checkpoint into a model on the card: its logits on
+    CONVERT_UTTS held-out utterances bit-equal to from_pretrained's."""
+    import torch
+
+    from velocity_asr_tpu_torch import evaluate as ev
+    from velocity_asr_tpu_torch.checkpoint import params_from_numpy, read_params
+    from velocity_asr_tpu_torch.compat.torch_convert import load_torch_checkpoint
+    from velocity_asr_tpu_torch.data import ASRCollator
+    from velocity_asr_tpu_torch.models.model import create_model, from_pretrained
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+
+    ref = from_pretrained(CHECKPOINT, device="cuda")
+    sd = repo_test_module("reference_layout").reference_state_dict(
+        read_params(os.path.join(CHECKPOINT, "params.msgpack")))
+    path = os.path.join(tmp, "reference.pt")
+    torch.save({"config": ref.config.to_dict(),
+                "model_state_dict": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)
+    t0 = time.perf_counter()
+    cfg, tree = load_torch_checkpoint(path)
+    model = create_model(cfg, device="cuda")
+    model.load_state_dict(params_from_numpy(tree), strict=True)
+    load_s = time.perf_counter() - t0
+    ds, n = ev.load_test_set(manifest)
+    b = ASRCollator(frame_bucket=FRAME_BUCKET, target_bucket=1)(
+        [ds[i] for i in range(CONVERT_UTTS)])
+    mel = torch.from_numpy(b["mel_spectrogram"]).to(next(ref.parameters()).device)
+    with torch.inference_mode():
+        r = ref(mel)
+        reset_launch_counts()
+        a = model.eval()(mel)
+    torch.cuda.synchronize()
+    got = dict(launch_counts)
+    counts.update(got)
+    same = torch.equal(a, r)
+    log(f"[15d converter] {len(sd)} reference tensors ({os.path.getsize(path) / 1e6:.3f} MB) "
+        f"converted and loaded in {load_s:.3f} s, config equal: {cfg == ref.config}; logits "
+        f"{tuple(a.shape)} on {CONVERT_UTTS} held-out utterances "
+        f"{'bit-equal to' if same else 'DIFFER from'} from_pretrained's (max_abs "
+        f"{(a - r).abs().max().item():.3e})")
+    if not (same and cfg == ref.config):
+        raise AssertionError("[15d] the converted checkpoint's logits differ")
+    expect_launches("15d converter", got, {"scan_fwd_f32": SCANS_PER_STEP})
+
+
+def phase_diarize_pretrain(tmp: str, manifest: str, plan, card: str):
+    """Phase 15: diarization (15a), speaker training (15b), pretraining and
+    the Stage-2 hand-off (15c), the converter (15d); returns the launch
+    counts of the runs that count toward the kernels line."""
+    counts = collections.Counter()
+    log(f"[15] {card}")
+    for name, fn in (("15a", lambda: diarization(tmp, plan, counts)),
+                     ("15b", lambda: speaker_training(tmp, counts)),
+                     ("15c", lambda: pretraining(tmp, counts)),
+                     ("15d", lambda: converter(tmp, manifest, counts))):
+        t0 = time.perf_counter()
+        fn()
+        log(f"[{name}] {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
 def exp_floor_ms(batch, length, d_inner, state_dim):
     """The least time the SFU takes for the forward's one IEEE expf per
     (b, t, d, n): exp2 at SFU_PER_CLOCK_PER_SM a clock on every SM at the
@@ -4632,11 +5237,14 @@ def main(argv=None) -> int:
         data_counts.update(run_phase(
             "14 MoE and language ID",
             lambda: phase_moe_lid(tmp, manifest, plan, batched, training, card), t_start))
+        data_counts.update(run_phase(
+            "15 diarization, pretraining, converter",
+            lambda: phase_diarize_pretrain(tmp, manifest, plan, card), t_start))
         kernels = run_phase(
             "6 timing",
             lambda: phase_timing(counts, bucket, errs, batched, streaming, training,
                                  stream_training, serve["transcribe"]), t_start)
-        for kernel in kernels["kernels"]:  # phases 12-14's launches join each count
+        for kernel in kernels["kernels"]:  # phases 12-15's launches join each count
             kernel["launches"] += data_counts.get(kernel["name"], 0)
     except PhaseFailed as e:
         print(f"chip_smoke: phase {e} failed", file=sys.stderr)

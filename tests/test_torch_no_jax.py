@@ -136,6 +136,21 @@ def test_moe_and_lid_modules_are_checked(module):
     assert module in _modules()
 
 
+@pytest.mark.parametrize("module", [
+    "velocity_asr_tpu_torch.diarize", "velocity_asr_tpu_torch.pretrain",
+    "velocity_asr_tpu_torch.compat", "velocity_asr_tpu_torch.compat.torch_convert",
+    "velocity_asr_tpu_torch.synth", "velocity_asr_tpu_torch.serve",
+    "velocity_asr_tpu_torch.train",
+])
+def test_diarization_pretraining_and_converter_modules_are_checked(module):
+    """Diarization (the speaker encoder, its trainer, the Diarizer and its
+    CLI), masked-spectrogram pretraining and its CLI, the reference
+    checkpoint converter, the conversation corpus, the server's /diarize
+    and the train CLI's Stage-2 --init-from are among the modules both
+    checks walk."""
+    assert module in _modules()
+
+
 def test_qat_names_need_no_jax():
     """The QAT names are the port's own classes, not re-exports."""
     import velocity_asr_tpu_torch as port

@@ -24,13 +24,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NOT_PORTED = {
     # named for its framework: the port's device beam is beam.ctc_beam_search_torch
     "ctc_beam_search_jax": "ctc_beam_search_torch",
-    # ROADMAP §1 item 8: masked-prediction pretraining is not ported yet
-    "MaskedPredictor": "item 8", "MaskedPredictionConfig": "item 8",
-    "PretrainTrainer": "item 8", "init_asr_from_backbone": "item 8",
-    # ROADMAP §1 item 8: diarization is not ported yet
-    "Diarizer": "item 8", "DiarizeConfig": "item 8", "SpeakerEncoder": "item 8",
-    "SpeakerEncoderConfig": "item 8", "SpeakerTrainer": "item 8",
-    "diarization_error_rate": "item 8",
 }
 
 
@@ -72,11 +65,10 @@ def test_jax_lazy_name_resolves(name):
     if name in NOT_PORTED:
         with pytest.raises(AttributeError):
             getattr(tpkg, name)
-        replacement = NOT_PORTED[name]
-        if not replacement.startswith("item"):
-            assert getattr(tpkg, replacement) is not None
+        assert getattr(tpkg, NOT_PORTED[name]) is not None
         return
-    assert getattr(tpkg, name) is not None
+    value = getattr(tpkg, name)
+    assert value is not None and value.__module__.startswith("velocity_asr_tpu_torch.")
 
 
 def test_unknown_name_raises():

@@ -14,10 +14,15 @@ search (``beam.py``, ``decode.CTCDecoder.decode_beam_search``) runs
 offline and streaming on the logits' device, rescored by a character
 n-gram LM (``lm.py``, built by ``train_lm.py``) and hot-word boosting
 (``hotwords.py``). ``export.py`` and ``export_model.py`` write a
-``torch.export`` program and the int8 weight package.
+``torch.export`` program and the int8 weight package. ``diarize.py``
+trains a speaker encoder and diarizes audio (its embeddings through the
+scan kernel); ``pretrain.py`` pretrains the backbone by masked-spectrogram
+prediction for the Stage-2 fine-tune; ``compat/torch_convert.py`` reads
+reference PyTorch checkpoints.
 
 The public names are the JAX package's: its ``__all__`` here, and its
-lazily imported names (trainer, data, beam, streaming, LM, hot words)
+lazily imported names (trainer, data, beam, streaming, LM, hot words,
+diarization, pretraining)
 through ``__getattr__``. Nothing here imports JAX or the JAX package.
 """
 
@@ -79,6 +84,10 @@ _LAZY = {
                      "StreamSessionBatcher"), "streaming"),
     "HotwordBooster": "hotwords",
     **dict.fromkeys(("CharNGramLM", "CombinedScorer"), "lm"),
+    **dict.fromkeys(("Diarizer", "DiarizeConfig", "SpeakerEncoder", "SpeakerEncoderConfig",
+                     "SpeakerTrainer", "diarization_error_rate"), "diarize"),
+    **dict.fromkeys(("MaskedPredictor", "MaskedPredictionConfig", "PretrainTrainer",
+                     "init_asr_from_backbone"), "pretrain"),
 }
 
 

@@ -365,8 +365,10 @@ def qat_params_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
 
 def float_params_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
     """The inverse of ``qat_params_tree``: a QAT model's tree in the float
-    model's layout (what a QAT run's ``final_pretrained`` holds)."""
-    binding = dict(tree["temporal_binding"])
+    model's layout (what a QAT run's ``final_pretrained`` holds). A tree
+    with no temporal binding at its top (a speaker classifier's) comes
+    back as it is."""
+    binding = dict(tree.get("temporal_binding", {}))
     if "conv" not in binding:
         return tree
     conv = binding.pop("conv")

@@ -251,9 +251,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             nn.init.zeros_(module.b_in)
             nn.init.zeros_(module.b_out)
     if getattr(model, "lid_head", None) is not None:
-        std = (1.0 / model.lid_head.in_features) ** 0.5 / 0.87962566103423978
-        nn.init.trunc_normal_(model.lid_head.weight, std=std, a=-2 * std, b=2 * std,
-                              generator=generator)
+        lecun_normal_(model.lid_head.weight, generator)
     for module in model.modules():
         if isinstance(module, DynamicInt8Dense):
             module.requantize()
@@ -261,6 +259,15 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 init_params = init_parameters  # the JAX package's name
+
+
+@torch.no_grad()
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``nn.Dense`` default kernel init on a Linear weight (out,
+    in): a normal truncated to +-2 std, std sqrt(1 / fan_in) / 0.8796...
+    (the truncation's correction), drawn from `generator`."""
+    std = (1.0 / weight.shape[1]) ** 0.5 / 0.87962566103423978
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
 def count_parameters(model: nn.Module) -> int:

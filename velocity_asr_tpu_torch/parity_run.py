@@ -1,8 +1,11 @@
-"""The first leg of the JAX package's synthetic training run, replayed by
-the port, and held against that run's records.
+"""The first leg of the JAX package's synthetic training run, or its
+pretraining recipe and the Stage-2 fine-tune, replayed by the port and
+held against that run's records.
 
     python -m velocity_asr_tpu_torch.parity_run --out DIR [--steps 6000] \
         [--eval-utts 1000] [--num-workers 8] [--device cuda]
+    python -m velocity_asr_tpu_torch.parity_run --pretrain --out DIR [--steps 6000] \
+        [--eval-utts 1000] [--device cuda]
 
 The JAX run's first leg (``checkpoints/synth_run``): micro-steps 0-6,000
 of ``configs/train_synth.yaml`` + ``model_synth.yaml`` at batch 8 x
@@ -17,6 +20,17 @@ at micro-steps 500, 1,000, 3,000 and 6,000 beside the JAX run's
 (``metrics.jsonl``), the WER and CER beside the JAX file's, the trainer's
 data-wait share and the card's name and power limit, and writes them to
 ``DIR/parity.json``.
+
+With ``--pretrain``: Stage 1 is ``configs/pretrain.yaml`` +
+``model_synth.yaml`` through ``python -m velocity_asr_tpu_torch.pretrain``
+(``checkpoints/pretrain_run``: 6,000 micro-steps at batch 32); Stage 2
+``configs/finetune.yaml`` through ``train --init-from`` Stage 1's
+``final_backbone`` (``checkpoints/finetune_pretrained``: the recipe's
+3,000 micro-steps at 8 x 4 on 1,000 labelled utterances), then the fp32 evaluation above.
+It prints Stage 1's interval mean loss at micro-steps 500, 1,000, 3,000
+and 6,000 beside ``pretrain_run/metrics.jsonl``'s, and the WER and CER
+beside ``finetune_pretrained/eval_fp32.json``'s, into
+``DIR/pretrain_parity.json``.
 """
 
 from __future__ import annotations
@@ -36,6 +50,8 @@ JAX_METRICS = os.path.join(RUN_DIR, "metrics.jsonl")
 JAX_EVAL = os.path.join(RUN_DIR, "eval_step06000_fp32.json")
 CHECK_STEPS = (500, 1000, 3000, 6000)
 FIRST_LEG = {"batch_size": 8, "gradient_accumulation_steps": 4}
+PRETRAIN_METRICS = os.path.join(ROOT, "checkpoints", "pretrain_run", "metrics.jsonl")
+FINETUNE_EVAL = os.path.join(ROOT, "checkpoints", "finetune_pretrained", "eval_fp32.json")
 
 
 def first_leg_yaml(src: str, dst: str) -> None:
@@ -91,10 +107,78 @@ def evaluate_fp32(pretrained: str, corpus: str, n: int, device: str) -> dict:
                     batch_size=16)
 
 
+def run_cli(module: str, argv: List[str], log_path: str):
+    """`python -m velocity_asr_tpu_torch.<module> argv` from the repo root,
+    its output into log_path; (seconds, (data wait s, loop s) or None)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"velocity_asr_tpu_torch.{module}", *argv],
+                          cwd=ROOT, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    with open(log_path, "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-6000:])
+        raise SystemExit(f"{module} failed (exit {proc.returncode})")
+    wait = re.search(r"data wait ([0-9.]+) s of ([0-9.]+) s", proc.stderr)
+    return seconds, (float(wait.group(1)), float(wait.group(2))) if wait else None
+
+
+def pretrain_leg(args, card: str) -> dict:
+    """Stage 1 (the pretraining recipe) and Stage 2 (the fine-tune from its
+    backbone, then the fp32 evaluation), against the JAX runs' records."""
+    model_yaml = os.path.join(ROOT, "configs", "model_synth.yaml")
+    common = ["--model-config", model_yaml, "--num-workers", str(args.num_workers),
+              "--device", args.device]
+    stage1 = os.path.join(args.out, "pretrain")
+    s1, wait1 = run_cli("pretrain", ["--config", os.path.join(ROOT, "configs", "pretrain.yaml"),
+                                     "--checkpoint-dir", stage1, "--max-steps", str(args.steps),
+                                     *common], os.path.join(args.out, "pretrain.log"))
+    stage2 = os.path.join(args.out, "finetune")
+    s2, wait2 = run_cli("train", ["--config", os.path.join(ROOT, "configs", "finetune.yaml"),
+                                  "--init-from", os.path.join(stage1, "final_backbone"),
+                                  "--checkpoint-dir", stage2, *common],
+                        os.path.join(args.out, "finetune.log"))
+    ours, jax = interval_losses(os.path.join(stage1, "metrics.jsonl")), interval_losses(
+        PRETRAIN_METRICS)
+    ft_ours = interval_losses(os.path.join(stage2, "metrics.jsonl"))
+    ft_jax = interval_losses(os.path.join(os.path.dirname(FINETUNE_EVAL), "metrics.jsonl"))
+    t1 = time.perf_counter()
+    result = evaluate_fp32(os.path.join(stage2, "final_pretrained"),
+                           os.path.join(args.out, "corpus"), args.eval_utts, args.device)
+    with open(FINETUNE_EVAL) as f:
+        jax_eval = json.load(f)
+    last = max(ft_ours) if ft_ours else None
+    summary = {
+        "card": card,
+        "pretrain_steps": args.steps,
+        "pretrain_seconds": s1,
+        "pretrain_data_wait_seconds": wait1,
+        "finetune_seconds": s2,
+        "finetune_data_wait_seconds": wait2,
+        "pretrain_loss": {str(s): [ours.get(s), jax.get(s)] for s in CHECK_STEPS},
+        "finetune_loss_last": [last, ft_ours.get(last), ft_jax.get(last)],
+        "wer": [result["wer"], jax_eval["wer"]],
+        "cer": [result["cer"], jax_eval["cer"]],
+        "eval_utterances": result["utterances"],
+        "eval_seconds": time.perf_counter() - t1,
+    }
+    for s in CHECK_STEPS:
+        print(f"pretraining micro-step {s}: loss {ours.get(s)} (JAX {jax.get(s)})")
+    print(f"fine-tune micro-step {last}: loss {ft_ours.get(last)} (JAX {ft_jax.get(last)})")
+    print(f"WER {result['wer']:.4%} CER {result['cer']:.4%} over {result['utterances']} "
+          f"(JAX {jax_eval['wer']:.4%} / {jax_eval['cer']:.4%})")
+    with open(os.path.join(args.out, "pretrain_parity.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    print(json.dumps(summary))
+    return summary
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", required=True, help="run directory (checkpoints, metrics)")
     parser.add_argument("--steps", type=int, default=6000, help="micro-steps")
+    parser.add_argument("--pretrain", action="store_true",
+                        help="the pretraining recipe and the Stage-2 fine-tune from it")
     parser.add_argument("--eval-utts", type=int, default=1000)
     parser.add_argument("--num-workers", type=int, default=8)
     parser.add_argument("--device", default="cuda")
@@ -102,23 +186,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
     os.makedirs(args.out, exist_ok=True)
     card = card_line()
     print(card, flush=True)
+    if args.pretrain:
+        return pretrain_leg(args, card)
 
     config = os.path.join(args.out, "train_synth_b8x4.yaml")
     first_leg_yaml(os.path.join(ROOT, "configs", "train_synth.yaml"), config)
-    cmd = [sys.executable, "-m", "velocity_asr_tpu_torch.train", "--config", config,
-           "--model-config", os.path.join(ROOT, "configs", "model_synth.yaml"),
-           "--checkpoint-dir", args.out, "--max-steps", str(args.steps),
-           "--lr-total-steps", "6000", "--num-workers", str(args.num_workers),
-           "--device", args.device]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True)
-    train_s = time.perf_counter() - t0
-    with open(os.path.join(args.out, "train.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        sys.stderr.write(proc.stderr[-6000:])
-        raise SystemExit(f"training failed (exit {proc.returncode})")
-    wait = re.search(r"data wait ([0-9.]+) s of ([0-9.]+) s", proc.stderr)
+    train_s, wait = run_cli("train", [
+        "--config", config, "--model-config", os.path.join(ROOT, "configs", "model_synth.yaml"),
+        "--checkpoint-dir", args.out, "--max-steps", str(args.steps), "--lr-total-steps", "6000",
+        "--num-workers", str(args.num_workers), "--device", args.device],
+        os.path.join(args.out, "train.log"))
 
     ours = interval_losses(os.path.join(args.out, "metrics.jsonl"))
     jax = interval_losses(JAX_METRICS)
@@ -131,8 +208,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "card": card,
         "micro_steps": args.steps,
         "train_seconds": train_s,
-        "data_wait_seconds": float(wait.group(1)) if wait else None,
-        "train_loop_seconds": float(wait.group(2)) if wait else None,
+        "data_wait_seconds": wait[0] if wait else None,
+        "train_loop_seconds": wait[1] if wait else None,
         "loss": {str(s): [ours.get(s), jax.get(s)] for s in CHECK_STEPS},
         "wer": [result["wer"], jax_eval["wer"]],
         "cer": [result["cer"], jax_eval["cer"]],

@@ -2,7 +2,8 @@
 
     python -m velocity_asr_tpu_torch.serve --checkpoint DIR [--port 8570] \
         [--max-batch 8] [--batch-window-ms 10] [--max-streams 8] \
-        [--beam-width K] [--lm LM.json.gz --lm-weight 0.5] [--device cuda]
+        [--beam-width K] [--lm LM.json.gz --lm-weight 0.5] \
+        [--speaker-model DIR/final_speaker] [--device cuda]
 
 Endpoints:
   GET  /health       -> {"status": "ok", "model": {...}}
@@ -32,8 +33,14 @@ stream budget a 503, anything else a 500. /transcribe?identify_language=1
 adds the language-ID head's prediction (``language``, ``language_prob``,
 ``language_probs``) from a forward of its own under the lock, on either
 request path; a model without the head answers 400, as the JAX server
-does. /diarize needs a speaker model, which the port has not taken yet:
-it answers 400 as the JAX server answers without one. /transcribe bodies are decoded by
+does.
+  POST /diarize      -> {"segments": [{start, end, speaker[, text]}],
+                         "num_speakers", "duration", "rtf"}
+      needs --speaker-model (a speaker-embedding artifact; without one the
+      answer is a 400); ?num_speakers=N pins the speaker count,
+      ?transcripts=1 adds each segment's greedy transcript. It runs under
+      the device lock that /transcribe's single-utterance path takes.
+/transcribe and /diarize bodies are decoded by
 io.decode_audio_file (WAV, FLAC, mp3, Ogg Vorbis, and m4a where the
 system codecs are), sniffed from their first bytes.
 
@@ -261,8 +268,9 @@ class ASRService:
 
     def __init__(self, transcriber: Transcriber, max_batch: int = 8,
                  batch_window_ms: float = 10.0, max_streams: int = 2,
-                 lm: Optional[CharNGramLM] = None, lm_weight: float = 0.5):
+                 lm: Optional[CharNGramLM] = None, lm_weight: float = 0.5, diarizer=None):
         self.transcriber = transcriber
+        self.diarizer = diarizer  # a diarize.Diarizer: POST /diarize
         self.model = transcriber.model
         self.decoder = transcriber.decoder
         self.lock = threading.Lock()  # the single-utterance and pooled paths
@@ -282,14 +290,20 @@ class ASRService:
     @classmethod
     def from_checkpoint(cls, checkpoint: str, device="cuda", beam_width: int = 0,
                         lm_path: Optional[str] = None, lm_weight: float = 0.5,
-                        **kw) -> "ASRService":
+                        speaker_model: Optional[str] = None, **kw) -> "ASRService":
         transcriber = load_transcriber(checkpoint, device=device)
         transcriber.beam_width = beam_width
         lm = None
         if lm_path:
             lm = CharNGramLM.load(lm_path)
             logger.info("LM loaded: order-%d char n-gram, weight %.2f", lm.order, lm_weight)
-        return cls(transcriber, lm=lm, lm_weight=lm_weight, **kw)
+        diarizer = None
+        if speaker_model:
+            from .diarize import Diarizer
+
+            diarizer = Diarizer(speaker_model, device=device)
+            logger.info("Speaker model loaded: %s", speaker_model)
+        return cls(transcriber, lm=lm, lm_weight=lm_weight, diarizer=diarizer, **kw)
 
     def close(self) -> None:
         """Stop the batching threads."""
@@ -402,6 +416,31 @@ class ASRService:
                 self.transcriber._lid_result(audio, result)
         result["rtf"] = (time.perf_counter() - t0) / max(result["duration"], 1e-9)
         return result
+
+    def diarize_bytes(self, data: bytes, num_speakers: Optional[int] = None,
+                      transcripts: bool = False) -> dict:
+        """Diarize an uploaded body, optionally with each segment's greedy
+        transcript, under the device lock."""
+        if self.diarizer is None:
+            raise BadRequest("this server has no speaker model; restart "
+                             "serve.py with --speaker-model DIR to enable "
+                             "/diarize")
+        audio = self._decode_body(data)
+        t0 = time.perf_counter()
+        with self.lock:
+            segs = self.diarizer.diarize(audio, n_speakers=num_speakers)
+            if transcripts and segs:
+                clips = [audio[int(s.start * SAMPLE_RATE): int(s.end * SAMPLE_RATE)]
+                         for s in segs]
+                for s, r in zip(segs, self.transcriber.transcribe_batch(clips)):
+                    s.text = r["text"]
+        duration = len(audio) / SAMPLE_RATE
+        return {
+            "segments": [s.to_dict() for s in segs],
+            "num_speakers": len({s.speaker for s in segs}),
+            "duration": duration,
+            "rtf": (time.perf_counter() - t0) / max(duration, 1e-9),
+        }
 
 
 def _flag(q: dict, name: str) -> bool:
@@ -574,10 +613,16 @@ def make_handler(service: ASRService):
                     self._send(400, {"error": "empty body"})
                     return
                 data = self.rfile.read(length)
-                if parsed.path == "/diarize":
-                    raise BadRequest("this server has no speaker model: /diarize is not ported "
-                                     "yet (ROADMAP module item 8)")
                 q = parse_qs(parsed.query)
+                if parsed.path == "/diarize":
+                    try:
+                        num_speakers = q.get("num_speakers", [None])[0]
+                        num_speakers = int(num_speakers) if num_speakers is not None else None
+                    except ValueError as e:
+                        raise BadRequest(f"invalid query value: {e}") from e
+                    self._send(200, service.diarize_bytes(
+                        data, num_speakers=num_speakers, transcripts=_flag(q, "transcripts")))
+                    return
                 try:
                     beam = int(q.get("beam", ["0"])[0])
                     hotword_weight = float(q.get("hotword_weight", ["2.0"])[0])
@@ -620,16 +665,21 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="character n-gram LM (a train_lm artifact) for shallow fusion "
                              "on /stream ?beam requests")
     parser.add_argument("--lm-weight", type=float, default=0.5)
+    parser.add_argument("--speaker-model", default=None,
+                        help="speaker-embedding artifact directory (a diarize train run's "
+                             "final_speaker/): enables POST /diarize")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(levelname)s | %(message)s")
 
     service = ASRService.from_checkpoint(
         args.checkpoint, device=args.device, beam_width=args.beam_width,
         lm_path=args.lm, lm_weight=args.lm_weight, max_batch=args.max_batch,
-        batch_window_ms=args.batch_window_ms, max_streams=args.max_streams)
+        batch_window_ms=args.batch_window_ms, max_streams=args.max_streams,
+        speaker_model=args.speaker_model)
     server = ThreadingHTTPServer((args.host, args.port), make_handler(service))
-    logger.info("Serving on http://%s:%d (POST /transcribe, POST /stream, GET /health)",
-                args.host, server.server_address[1])
+    logger.info("Serving on http://%s:%d (POST /transcribe, POST /stream, GET /health%s)",
+                args.host, server.server_address[1],
+                ", POST /diarize" if service.diarizer else "")
     try:
         server.serve_forever()
     except KeyboardInterrupt:

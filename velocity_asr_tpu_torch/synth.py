@@ -16,6 +16,16 @@ corpus byte for byte.
 ``write_librispeech_tree`` writes utterances of a split in LibriSpeech's
 on-disk layout (FLAC, transcripts in upper case) with a manifest over
 the same files.
+
+The speaker and conversation parts serve diarization: ``SpeakerProfile``
+is a persistent voice (formant scale, rate, level, spectral tilt) that
+``SynthVoice.render(..., profile=...)`` renders with small per-utterance
+jitter; ``SyntheticSpeakerDataset`` yields (scalar-normalised mel,
+speaker id in ``targets[0]``) items for the speaker encoder, and
+``SyntheticConversationDataset`` / ``write_conversations`` multi-speaker
+conversations with their ground-truth turns, from voices (ids 1,000,000
++ 16 idx + k) that no speaker dataset trains on. All of it is the JAX
+package's, bit for bit.
 """
 
 from __future__ import annotations
@@ -24,11 +34,12 @@ import hashlib
 import json
 import os
 import wave
-from typing import Callable, Dict, List, Optional
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .audio import SAMPLE_RATE
+from .audio import SAMPLE_RATE, compute_mel_spectrogram_np
 from .data import speech_item
 
 VOWELS = "aeiouy"
@@ -38,6 +49,33 @@ CHARS = "abcdefghijklmnopqrstuvwxyz"
 def _char_seed(master_seed: int, *parts) -> np.random.Generator:
     h = hashlib.sha256(("|".join(map(str, parts)) + f"|{master_seed}").encode())
     return np.random.default_rng(int.from_bytes(h.digest()[:8], "little"))
+
+
+@dataclass
+class SpeakerProfile:
+    """A persistent synthetic voice: the per-utterance draws of
+    ``SynthVoice.render`` (formant scale, rate, level) become constants of
+    the speaker, jittered a little per utterance, plus a spectral tilt
+    (the weight of the higher formants)."""
+
+    fscale: float  # global formant scale ("vocal tract length")
+    rate: float  # speaking rate
+    level: float  # loudness
+    tilt: float  # relative weight of the higher formants
+
+    @classmethod
+    def sample(cls, rng: np.random.Generator) -> "SpeakerProfile":
+        return cls(
+            fscale=float(rng.uniform(0.85, 1.2)),
+            rate=float(rng.uniform(0.8, 1.25)),
+            level=float(rng.uniform(0.18, 0.4)),
+            tilt=float(rng.uniform(0.7, 1.3)),
+        )
+
+    @classmethod
+    def for_id(cls, speaker_id: int, seed: int = 1234) -> "SpeakerProfile":
+        """The profile of a speaker index, the same in every corpus of `seed`."""
+        return cls.sample(_char_seed(seed, "speaker", speaker_id))
 
 
 class SynthVoice:
@@ -58,12 +96,13 @@ class SynthVoice:
             ) + rng.uniform(-30, 30, 3)
             self.noise_tilt[c] = float(rng.uniform(0.3, 3.0))
 
-    def _phoneme(self, c: str, dur_s: float, fscale: float, rng) -> np.ndarray:
+    def _phoneme(self, c: str, dur_s: float, fscale: float, rng,
+                 tilt: float = 1.0) -> np.ndarray:
         n = max(int(dur_s * self.sr), 8)
         t = np.arange(n) / self.sr
         if c == " ":
             return np.zeros(n, np.float32)
-        amps = np.array([1.0, 0.55, 0.3]) * rng.uniform(0.85, 1.15, 3)
+        amps = np.array([1.0, 0.55 * tilt, 0.3 * tilt]) * rng.uniform(0.85, 1.15, 3)
         freqs = self.formants[c] * fscale
         sig = sum(
             a * np.sin(2 * np.pi * f * t + rng.uniform(0, 2 * np.pi))
@@ -82,19 +121,32 @@ class SynthVoice:
         env = np.minimum(1.0, np.minimum(t, t[::-1]) / 0.012)  # 12 ms ramps
         return (sig * env).astype(np.float32)
 
-    def render(self, text: str, rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    def render(self, text: str, rng: Optional[np.random.Generator] = None,
+               profile: Optional[SpeakerProfile] = None,
+               add_noise: bool = True) -> np.ndarray:
         """Render text to a 16 kHz waveform with speaker/rate/noise jitter.
 
-        The phoneme table covers lowercase a-z and space; other characters
+        Without a profile the "speaker" is drawn per utterance (the corpus
+        default); with one, its constants jittered by a few percent.
+        ``add_noise=False`` skips both noise draws, the last that consume
+        `rng`, so the rest of the waveform is the same either way. The
+        phoneme table covers lowercase a-z and space; other characters
         render as silence."""
         rng = rng or np.random.default_rng(0)
         text = "".join(
             c if c in self.formants or c == " " else " "
             for c in text.lower()
         )
-        fscale = rng.uniform(0.85, 1.2)  # "speaker" formant scale
-        rate = rng.uniform(0.8, 1.25)  # speaking rate
-        level = rng.uniform(0.18, 0.4)
+        if profile is None:
+            fscale = rng.uniform(0.85, 1.2)  # "speaker" formant scale
+            rate = rng.uniform(0.8, 1.25)  # speaking rate
+            level = rng.uniform(0.18, 0.4)
+            tilt = 1.0
+        else:
+            fscale = profile.fscale * rng.uniform(0.98, 1.02)
+            rate = profile.rate * rng.uniform(0.95, 1.05)
+            level = profile.level * rng.uniform(0.9, 1.1)
+            tilt = profile.tilt
         xfade = int(0.010 * self.sr)
 
         pieces: List[np.ndarray] = [np.zeros(int(rng.uniform(0.04, 0.15) * self.sr), np.float32)]
@@ -103,7 +155,7 @@ class SynthVoice:
                 dur = rng.uniform(0.05, 0.12)
             else:
                 dur = rng.uniform(0.07, 0.13) * rate
-            pieces.append(self._phoneme(c, dur, fscale, rng))
+            pieces.append(self._phoneme(c, dur, fscale, rng, tilt=tilt))
         pieces.append(np.zeros(int(rng.uniform(0.04, 0.15) * self.sr), np.float32))
 
         # overlap-add with short crossfades
@@ -115,9 +167,10 @@ class SynthVoice:
             pos += len(p) - xfade
         peak = np.max(np.abs(out)) + 1e-9
         out = out / peak * level
-        snr_db = rng.uniform(12.0, 32.0)
-        noise_rms = level / np.sqrt(2) / (10 ** (snr_db / 20))
-        out = out + rng.standard_normal(len(out)).astype(np.float32) * noise_rms
+        if add_noise:
+            snr_db = rng.uniform(12.0, 32.0)
+            noise_rms = level / np.sqrt(2) / (10 ** (snr_db / 20))
+            out = out + rng.standard_normal(len(out)).astype(np.float32) * noise_rms
         return out.astype(np.float32)
 
 
@@ -339,4 +392,143 @@ def write_librispeech_tree(root: str, split: str, n_utts: int,
                                  f"{spk}-{chap}.trans.txt")
             with open(trans, "w") as f:
                 f.write("\n".join(rows) + "\n")
+    return manifest
+
+
+# ----- speaker-attributed conversations (the diarization corpus) -------------
+
+
+def render_conversation(voice: SynthVoice, turns: Sequence[Tuple[int, str]],
+                        profiles: Sequence[SpeakerProfile], rng: np.random.Generator,
+                        gap_range: Tuple[float, float] = (0.3, 1.2),
+                        snr_db_range: Tuple[float, float] = (16.0, 30.0)):
+    """(waveform, segments) of a multi-speaker conversation: turns
+    (speaker index into `profiles`, text) rendered without noise,
+    separated by silent gaps, under one background-noise bed at an SNR
+    drawn over the speech. segments = [{"start", "end", "speaker",
+    "text"}] in seconds, the bounds those of each rendered turn (its own
+    lead and tail silence included)."""
+    sr = voice.sr
+    pieces: List[np.ndarray] = [np.zeros(int(rng.uniform(*gap_range) * sr), np.float32)]
+    pos = len(pieces[0])
+    segments: List[Dict] = []
+    for speaker, text in turns:
+        clip = voice.render(text, rng, profile=profiles[speaker], add_noise=False)
+        segments.append({"start": pos / sr, "end": (pos + len(clip)) / sr,
+                         "speaker": int(speaker), "text": text})
+        pieces.append(clip)
+        pos += len(clip)
+        gap = np.zeros(int(rng.uniform(*gap_range) * sr), np.float32)
+        pieces.append(gap)
+        pos += len(gap)
+    audio = np.concatenate(pieces)
+    speech = np.concatenate([pieces[i] for i in range(1, len(pieces), 2)])
+    speech_rms = float(np.sqrt(np.mean(speech ** 2)) + 1e-9)
+    snr_db = rng.uniform(*snr_db_range)
+    noise_rms = speech_rms / (10 ** (snr_db / 20))
+    audio = audio + rng.standard_normal(len(audio)).astype(np.float32) * noise_rms
+    return audio.astype(np.float32), segments
+
+
+class SyntheticSpeakerDataset:
+    """Utterances of persistent synthetic speakers for the speaker
+    encoder, in the ASR batch layout: the scalar-normalised host mel
+    (``diarize.scalar_normalize_mel``) and the speaker index as a
+    one-token ``targets``. Item idx is speaker idx % n_speakers; the eval
+    split renders other sentences of the same voices."""
+
+    def __init__(self, n_speakers: int = 64, utts_per_speaker: int = 100, split: str = "train",
+                 seed: int = 1234, lexicon_words: int = 1500, min_words: int = 2,
+                 max_words: int = 6):
+        self.n_speakers = n_speakers
+        self.utts_per_speaker = utts_per_speaker
+        self.split = split
+        self.seed = seed
+        self.min_words = min_words
+        self.max_words = max_words
+        self.voice = SynthVoice(seed=seed)
+        self.lexicon = make_lexicon(lexicon_words, seed=seed)
+        self.profiles = [SpeakerProfile.for_id(i, seed=seed) for i in range(n_speakers)]
+
+    def __len__(self) -> int:
+        return self.n_speakers * self.utts_per_speaker
+
+    def __getitem__(self, idx: int) -> Dict:
+        from .diarize import scalar_normalize_mel
+
+        speaker = idx % self.n_speakers
+        rng = _char_seed(self.seed, "spk_utt", self.split, idx)
+        text = sample_sentence(self.lexicon, rng, self.min_words, self.max_words)
+        audio = self.voice.render(text, rng, profile=self.profiles[speaker])
+        mel = scalar_normalize_mel(compute_mel_spectrogram_np(audio, normalize=False))
+        return {
+            "mel_spectrogram": mel,
+            "input_lengths": np.int32(mel.shape[0]),
+            "targets": np.asarray([speaker], np.int32),
+            "target_lengths": np.int32(1),
+            "text": text,
+        }
+
+
+class SyntheticConversationDataset:
+    """Conversations of 2-4 (``speakers_range``) unseen voices, 6-14
+    turns of 4-10 words, consecutive turns by different speakers; item
+    idx is {"audio", "segments", "n_speakers"}, deterministic in (seed,
+    split, idx)."""
+
+    def __init__(self, n_convs: int = 20, speakers_range: Tuple[int, int] = (2, 4),
+                 turns_range: Tuple[int, int] = (6, 14), words_range: Tuple[int, int] = (4, 10),
+                 split: str = "test", seed: int = 1234, lexicon_words: int = 1500):
+        self.n_convs = n_convs
+        self.speakers_range = speakers_range
+        self.turns_range = turns_range
+        self.words_range = words_range
+        self.split = split
+        self.seed = seed
+        self.voice = SynthVoice(seed=seed)
+        self.lexicon = make_lexicon(lexicon_words, seed=seed)
+
+    def __len__(self) -> int:
+        return self.n_convs
+
+    def __getitem__(self, idx: int) -> Dict:
+        rng = _char_seed(self.seed, "conv", self.split, idx)
+        n_spk = int(rng.integers(self.speakers_range[0], self.speakers_range[1] + 1))
+        profiles = [SpeakerProfile.for_id(1_000_000 + idx * 16 + k, seed=self.seed)
+                    for k in range(n_spk)]
+        n_turns = int(rng.integers(self.turns_range[0], self.turns_range[1] + 1))
+        turns: List[Tuple[int, str]] = []
+        prev = -1
+        for _ in range(n_turns):
+            choices = [k for k in range(n_spk) if k != prev] or [0]
+            spk = choices[int(rng.integers(0, len(choices)))]
+            turns.append((spk, sample_sentence(self.lexicon, rng, self.words_range[0],
+                                               self.words_range[1])))
+            prev = spk
+        audio, segments = render_conversation(self.voice, turns, profiles, rng)
+        return {"audio": audio, "segments": segments, "n_speakers": n_spk}
+
+
+def write_conversations(out_dir: str, n_convs: int = 20, split: str = "test",
+                        seed: int = 1234, **kwargs) -> str:
+    """Write conversations 0..n_convs-1 as 16-bit WAVs plus a JSONL
+    manifest (audio_path, duration, n_speakers, the ground-truth
+    segments); returns the manifest path."""
+    ds = SyntheticConversationDataset(n_convs, split=split, seed=seed, **kwargs)
+    os.makedirs(out_dir, exist_ok=True)
+    manifest = os.path.join(out_dir, f"{split}_conversations.jsonl")
+    with open(manifest, "w") as mf:
+        for i in range(n_convs):
+            item = ds[i]
+            path = os.path.join(out_dir, f"{split}_conv_{i:04d}.wav")
+            pcm = np.clip(item["audio"] * 32767, -32768, 32767).astype("<i2")
+            with wave.open(path, "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(SAMPLE_RATE)
+                w.writeframes(pcm.tobytes())
+            mf.write(json.dumps({"audio_path": path,
+                                 "duration": len(item["audio"]) / SAMPLE_RATE,
+                                 "n_speakers": item["n_speakers"],
+                                 "segments": item["segments"]}) + "\n")
     return manifest

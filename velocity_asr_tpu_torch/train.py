@@ -27,6 +27,9 @@ its block's FFN and the router drawn fresh; a model with a language-ID
 head gets a fresh head grafted onto a head-less checkpoint);
 ``data.synthetic_languages`` K > 1 trains on the multilingual corpus,
 its batches labelled for ``training.lid_loss_weight``;
+``--init-from`` a pretraining artifact (``pretrain.py``'s
+``final_backbone/``) is the Stage-2 fine-tune: the pretrained backbone in
+a fresh model, a fresh CTC head (``pretrain.init_asr_from_backbone``);
 ``--resume`` restores a trainer checkpoint. At the end the run writes
 ``final_model/`` (trainer checkpoint) and ``final_pretrained/``
 (``config.json``, flax ``params.msgpack``, ``vocabulary.json``) under the
@@ -60,6 +63,7 @@ from .data import (ASRCollator, DataLoader, create_dataloader,
 from .device import resolve_device
 from .models.model import CONFIG_FILE, PARAMS_FILE, create_model, save_pretrained
 from .models.moe import upcycle_dense_to_moe
+from .pretrain import init_asr_from_backbone, is_pretrain_artifact
 from .quantize import QuantizationConfig, prepare_model_for_qat, quant_stats_to_numpy
 from .synth import SyntheticSpeechDataset
 from .training import Trainer
@@ -170,15 +174,6 @@ def _synthetic_data(data_cfg: dict, n_synth: int, device_mel: bool, batch_size: 
     return train_loader, eval_loader, train_ds.vocab
 
 
-def _is_pretrain_artifact(path: str) -> bool:
-    """A masked-prediction backbone (the JAX package's pretrain.py output)."""
-    config_file = os.path.join(path, "config.json")
-    if not os.path.exists(config_file):
-        return False
-    with open(config_file) as f:
-        return json.load(f).get("objective") == "masked_prediction"
-
-
 def init_tree(tree: dict, model) -> dict:
     """A pretrained flax tree made to fit `model` (the JAX CLI's
     ``--init-from``): dense FFNs upcycled into the model's experts
@@ -287,20 +282,25 @@ def main(argv: Optional[List[str]] = None):
 
     model = create_model(model_cfg, device=device)
     if args.init_from:
-        if _is_pretrain_artifact(args.init_from):
-            raise NotImplementedError("initialising from a pretraining artifact is not "
-                                      "ported yet (ROADMAP module item 8)")
-        with open(os.path.join(args.init_from, CONFIG_FILE)) as f:
-            init_vocab = json.load(f)["config"].get("vocab_size", 1000)
-        if init_vocab != model_cfg.vocab_size:
-            raise SystemExit(f"--init-from vocab_size {init_vocab} != "
-                             f"configured/dataset vocab_size {model_cfg.vocab_size}; fine-tune "
-                             "with the vocabulary the weights were trained on")
-        # a float tree's conv_kernel and a QAT tree's conv/kernel both map
-        # onto temporal_binding.conv.weight: either loads into either model
-        tree = init_tree(read_params(os.path.join(args.init_from, PARAMS_FILE)), model)
-        model.load_state_dict(params_from_numpy(tree), strict=True)
-        logger.info("Initialized weights from %s (fresh optimizer/step)", args.init_from)
+        if is_pretrain_artifact(args.init_from):
+            # the Stage-2 fine-tune: the pretrained backbone, a fresh CTC head
+            tree = init_asr_from_backbone(model_cfg, args.init_from,
+                                          torch.Generator().manual_seed(0))
+            model.load_state_dict(params_from_numpy(tree), strict=True)
+            logger.info("Initialized backbone from pretraining artifact %s (fresh CTC head, "
+                        "fresh optimizer/step)", args.init_from)
+        else:
+            with open(os.path.join(args.init_from, CONFIG_FILE)) as f:
+                init_vocab = json.load(f)["config"].get("vocab_size", 1000)
+            if init_vocab != model_cfg.vocab_size:
+                raise SystemExit(f"--init-from vocab_size {init_vocab} != configured/dataset "
+                                 f"vocab_size {model_cfg.vocab_size}; fine-tune with the "
+                                 "vocabulary the weights were trained on")
+            # a float tree's conv_kernel and a QAT tree's conv/kernel both map
+            # onto temporal_binding.conv.weight: either loads into either model
+            tree = init_tree(read_params(os.path.join(args.init_from, PARAMS_FILE)), model)
+            model.load_state_dict(params_from_numpy(tree), strict=True)
+            logger.info("Initialized weights from %s (fresh optimizer/step)", args.init_from)
     logger.info("Model config: %s", model_cfg)
     logger.info("Parameters: %s", f"{sum(p.numel() for p in model.parameters()):,}")
 
