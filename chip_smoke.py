@@ -187,14 +187,13 @@ its seconds:
      checkpoint at fp32, dropout and SpecAugment off, on a device-mel
      batch of 4 x 600 frames of the train split with streaming_chunks 200
      (the offline and the streaming term), card against CPU, as 8a; then,
-     reported only, the raw log-mel's card-vs-CPU gap on that batch and
-     the gradient gap with the CPU's mel fed to both sides, for the mixed
-     objective, the offline term alone and the streaming term alone; (b)
-     the CLI on configs/train_synth_stream.yaml + model_synth.yaml with
-     --init-from the checkpoint, --synthetic 1600 --max-steps 50 (12
-     updates inside the recipe's warmup; bf16, device mel, SpecAugment,
-     dropout; a depth cut for the script's budget): every loss finite,
-     the mean of the 50 micro-steps in
+     reported only, the raw log-mel's card-vs-CPU gap on that batch (the
+     gradient gaps with the CPU's mel fed to both sides were dropped for
+     the budget with phase 16); (b) the CLI on configs/train_synth_stream.yaml +
+     model_synth.yaml with --init-from the checkpoint, --synthetic 1600
+     --max-steps 50 (12 updates inside the recipe's warmup; bf16, device
+     mel, SpecAugment, dropout; a depth cut for the script's budget):
+     every loss finite, the mean of the 50 micro-steps in
      [0.2, 0.5] (the JAX run's interval means: 0.279-0.369), per
      micro-step exactly 1 log-mel, 10 bounds-forward and 10 backward
      launches, and 10 C carried-state bounds forwards and 10 C
@@ -316,7 +315,26 @@ its seconds:
      load_torch_checkpoint: logits on 4 held-out utterances bit-equal to
      from_pretrained's (computed first), 10 scans in the converted
      model's forward;
-  6. (after 7, 10, 11, 8, 9, 12, 13, 14 and 15, whose launch counts it reports) kernel timings beside
+ 16. (after 15) the parallel paths in a one-rank NCCL world (the one
+     transcribe --sequence-parallel builds without torchrun; destroyed at
+     the end): (a) the
+     sequence-parallel shard arithmetic of parallel/sp_scan.py on 2, 4
+     and 8 contiguous shards of (1, 3,600), (16, 1,200) and (1, 3,601)
+     steps at (384, 64) (identity steps pad L), the summaries stacked as
+     the all-gather stacks them, against one scan_fwd launch at rtol =
+     atol = 1e-5, on inputs whose shards' decay products lie in about
+     0.1-0.9 (so every seam carries state), with two controls that must
+     miss the tolerance: every shard from h = 0, and (from 4 shards) the
+     incoming states combined without the decays; (b) 8 long-form
+     utterances at batch 1 with scan_mode "sp" inside sequence_parallel
+     over the one-rank axis: logits bit-equal to scan_mode "pallas",
+     texts identical, and the same launches, 10 scan_fwd (an axis of one
+     rank takes the kernel path) and a log-mel a forward; (c) one fp32
+     micro-step of 8a's batch through
+     Trainer over the one-rank mesh: the loss and every parameter
+     bit-equal to the plain Trainer's, 10 bounds forwards and 10
+     backwards;
+  6. (after 7, 10, 11, 8, 9, 12, 13, 14, 15 and 16, whose launch counts it reports) kernel timings beside
      their bounds and a library call: device time from CUDA graphs of many
      calls (what the JSON line reports), and CUDA events around eager
      calls, which include the host's launch; each scan forward's bound
@@ -693,6 +711,23 @@ PRETRAIN_SCAN_SHAPES = sorted({(b, f // 2, 64) for b in (PRETRAIN_BATCH, FINETUN
                               | {(b, 64, 32) for b in (PRETRAIN_BATCH, FINETUNE_BATCH)})
 PRETRAIN_CHECK = (4, 400)  # 15c card against CPU: 4 unlabeled clips of at most 400 frames
 CONVERT_UTTS = 4  # 15d: held-out utterances whose logits must be bit-equal
+# Phase 16: the parallel paths in a one-rank NCCL world. 16a: the
+# sequence-parallel shard arithmetic (parallel/sp_scan.py's per-shard
+# functions) on S contiguous shards against one scan_fwd launch over the
+# whole length, at the long form's batch-1 shape, a batch of 16 and an L
+# that needs identity padding, rtol = atol = 1e-5 (the JAX test's);
+# 16b: SP_UTTS long-form utterances at batch 1 with scan_mode "sp"; 16c:
+# one mesh Trainer micro-step of 8a's batch.
+SP_SHARDS = (2, 4, 8)
+SP_SHAPES = ((1, 3600), (16, 1200), (1, 3601))
+SP_TOL = 1e-5
+SP_UTTS = 8
+# 16a's inputs: each channel's dt sums to SP_DT_TOTAL over the whole length
+# and A spans -SP_A_RANGE, so a shard of 1/2..1/8 of it decays by
+# exp(A * sum dt) in about 0.1-0.9 and its seam carries the state (the
+# model's dt would leave exp(A * sum dt) below fp32's resolution)
+SP_DT_TOTAL = 0.9
+SP_A_RANGE = (1.0, 5.0)
 
 
 def int8_shapes(batch: int, frames: int = 400):
@@ -2732,18 +2767,14 @@ def check_batch():
     return batch
 
 
-def train_card_vs_cpu(tag, batch, shared_mel=None, check=True, make_trainer=None,
-                      loss_fn=None, **config):
+def train_card_vs_cpu(tag, batch, make_trainer=None, loss_fn=None, **config):
     """8a, 9a, 15b and 15c: the loss and every gradient of one micro-batch,
     card against CPU, at fp32 with dropout and SpecAugment off; then one
     optimizer update on each (its largest weight difference is reported).
     By default synth_run's model under the Trainer; `make_trainer(device)`
     builds another (15b's speaker classifier, 15c's masked predictor) and
     `loss_fn(trainer, device)` its micro-step loss. `config` adds
-    TrainingConfig fields (9a: the streaming term). With `shared_mel`, a
-    device-mel batch's (normalised, raw) mel on the CPU, both sides start
-    from that mel instead of computing their own: the gap then leaves out
-    the log-mel's. `check` False only reports. Returns the worst
+    TrainingConfig fields (9a: the streaming term). Returns the worst
     gradient's max_abs / max|grad|."""
     import torch
 
@@ -2752,12 +2783,8 @@ def train_card_vs_cpu(tag, batch, shared_mel=None, check=True, make_trainer=None
 
     def synth_trainer(device):
         model = from_pretrained(CHECKPOINT, device=device, dtype="float32", dropout=0.0)
-        trainer = Trainer(model, TrainingConfig(learning_rate=3e-4, warmup_steps=1, **config),
-                          iter(()))
-        if shared_mel is not None:
-            mel = tuple(m.to(device) for m in shared_mel)
-            trainer._batch_mel = lambda _batch, mel=mel: mel
-        return trainer
+        return Trainer(model, TrainingConfig(learning_rate=3e-4, warmup_steps=1, **config),
+                       iter(()))
 
     make_trainer = make_trainer or synth_trainer
     loss_fn = loss_fn or (lambda trainer, device: trainer._loss(trainer._to_device(batch), None))
@@ -2787,7 +2814,6 @@ def train_card_vs_cpu(tag, batch, shared_mel=None, check=True, make_trainer=None
     finite = all(torch.isfinite(g).all() for g in g_card) and math.isfinite(loss_card)
     log(f"[train {tag}] fp32, {shape}"
         + "".join(f", {k} {v}" for k, v in config.items())
-        + (", the CPU's log-mel on both sides" if shared_mel is not None else "")
         + ", card vs CPU: loss "
         f"{loss_card:.6f} vs {loss_cpu:.6f} (rel {loss_rel:.3e}, tol {TRAIN_LOSS_MAX_REL:g}); "
         f"gradients of {len(grad_rel)} parameters, max_abs / max|grad|: worst "
@@ -2796,7 +2822,7 @@ def train_card_vs_cpu(tag, batch, shared_mel=None, check=True, make_trainer=None
         + ", ".join(f"{n} max|grad| {v:.3e} of the largest" for n, v in zero_rel.items())
         + f" (tol {ZERO_GRAD_MAX_REL:g}); largest gradient {top:.3e}; after one update, "
         f"weights max_abs {upd:.3e}")
-    if check and not (finite and loss_rel <= TRAIN_LOSS_MAX_REL
+    if not (finite and loss_rel <= TRAIN_LOSS_MAX_REL
                       and grad_rel[worst[0]] <= TRAIN_GRAD_MAX_REL
                       and all(v <= ZERO_GRAD_MAX_REL for v in zero_rel.values())):
         raise AssertionError(f"[train {tag}] training on the card disagrees with the CPU")
@@ -2804,10 +2830,10 @@ def train_card_vs_cpu(tag, batch, shared_mel=None, check=True, make_trainer=None
 
 
 def attribute_stream_gap(batch):
-    """9a's card-vs-CPU gradient gap, taken apart (reported, not checked):
-    the two sides' raw log-mel on this batch, then the micro-step with
-    the CPU's mel on both sides for the mixed objective, the offline term
-    alone and the streaming term alone."""
+    """9a's card-vs-CPU gradient gap's first suspect (reported, not
+    checked): the two sides' raw log-mel on this batch. (The micro-steps
+    with the CPU's mel fed to both sides, which put the gap in the
+    log-mel, were dropped for the budget with phase 16: PERF.md.)"""
     import torch
 
     from velocity_asr_tpu_torch.training import Trainer
@@ -2821,15 +2847,6 @@ def attribute_stream_gap(batch):
     log(f"[train 9a, attribution] raw log-mel of 9a's batch, card vs CPU: max_abs {mel_gap:.3e}"
         f" (of max|mel| {raws[1][1].abs().max().item():.3e}); normalised: max_abs "
         f"{(raws[0][0].cpu() - raws[1][0]).abs().max().item():.3e}")
-    gaps = {}
-    for name, config in (("mixed", {"streaming_chunks": STREAM_CHUNK, "streaming_aux_weight": 0.5}),
-                         ("offline term alone", {}),
-                         ("streaming term alone", {"streaming_chunks": STREAM_CHUNK,
-                                                   "streaming_aux_weight": 1.0})):
-        gaps[name] = train_card_vs_cpu(f"9a, attribution, {name}", batch, shared_mel=raws[1],
-                                       check=False, **config)
-    log("[train 9a, attribution] worst gradient gap with the CPU's log-mel on both sides: "
-        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
 
 
 def batch_frames(batch):
@@ -4847,6 +4864,199 @@ def phase_diarize_pretrain(tmp: str, manifest: str, plan, card: str):
     return counts
 
 
+def seam_inputs(rng, batch, length, state_dim=64, d_inner=384):
+    """16a's x, dt, A, B, C on the card: dt's draw as ``scan_inputs``'s,
+    scaled so each (row, channel) sums to SP_DT_TOTAL over the length; A
+    spaced evenly over -SP_A_RANGE."""
+    import torch
+
+    x = rng.standard_normal((batch, length, d_inner))
+    dt = np.log1p(np.exp(rng.standard_normal((batch, length, d_inner)) - 1.0))
+    dt *= SP_DT_TOTAL / dt.sum(axis=1, keepdims=True)
+    A = -np.linspace(*SP_A_RANGE, state_dim)
+    B = rng.standard_normal((batch, length, state_dim))
+    C = rng.standard_normal((batch, length, state_dim))
+    return [torch.tensor(a.astype(np.float32), device="cuda") for a in (x, dt, A, B, C)]
+
+
+def sp_shard_arithmetic(rng):
+    """16a: each shape split into S contiguous shards (identity steps pad L
+    to a multiple of S), every shard's summary from the carried-state
+    kernel, the summaries stacked as the all-gather stacks them, each
+    shard rerun from its incoming state; y against one scan_fwd launch
+    over the whole length. The inputs make each shard's decay product
+    about 0.1-0.9, and two controls must miss the tolerance, so the check
+    can fail: every shard rerun from h = 0, and (with 4 shards or more,
+    where a shard has two before it) the incoming states combined with
+    the decays set to 1. Returns the worst max|diff| / (atol + rtol |ref|)
+    (at most 1 passes)."""
+    import torch
+    import torch.nn.functional as F
+
+    from velocity_asr_tpu_torch.ops.scan import scan_fwd
+    from velocity_asr_tpu_torch.parallel.sp_scan import (incoming_state, shard_output,
+                                                         shard_summary)
+
+    def score(y, ref):
+        return ((y - ref).abs() / (SP_TOL + SP_TOL * ref.abs())).max().item()
+
+    worst, controls_fail = 0.0, True
+    for batch, length in SP_SHAPES:
+        x, dt, A, B, C = seam_inputs(rng, batch, length)
+        D = torch.zeros(x.shape[2], device=x.device)
+        with torch.no_grad():
+            ref = scan_fwd(x, dt, A, B, C)
+            for shards in SP_SHARDS:
+                pad = (-length) % shards
+                xp, dtp, Bp, Cp = (F.pad(t, (0, 0, 0, pad)) for t in (x, dt, B, C))
+                step = (length + pad) // shards
+                parts = [tuple(t[:, i * step:(i + 1) * step].contiguous() for t in
+                               (xp, dtp, Bp, Cp)) for i in range(shards)]
+                summaries = torch.cat([torch.stack(shard_summary(xs, dts, A, Bs, Cs))[None]
+                                       for xs, dts, Bs, Cs in parts])
+                a_all, h_all = summaries[:, 0], summaries[:, 1]
+
+                def rerun(h_in_of):
+                    return torch.cat([shard_output(xs, dts, A, Bs, Cs, D, h_in_of(i))
+                                      for i, (xs, dts, Bs, Cs) in enumerate(parts)],
+                                     dim=1)[:, :length]
+
+                y = rerun(lambda i: incoming_state(a_all, h_all, i))
+                zero = rerun(lambda i: torch.zeros_like(h_all[0]))
+                no_decay = (rerun(lambda i: incoming_state(torch.ones_like(a_all), h_all, i))
+                            if shards >= 4 else None)
+                torch.cuda.synchronize()
+                got = score(y, ref)
+                worst = max(worst, got)
+                miss = [score(zero, ref)] + ([] if no_decay is None else [score(no_decay, ref)])
+                controls_fail = controls_fail and min(miss) > 1.0
+                decays = a_all[:-1]  # the products the seams apply
+                log(f"[16a] ({batch}, {length}, 384, 64) over {shards} shards of {step} steps"
+                    f"{f' (+{pad} identity steps)' if pad else ''}: seam decays "
+                    f"{decays.min().item():.3f}-{decays.max().item():.3f}; max_abs "
+                    f"{(y - ref).abs().max().item():.3e}, worst |diff| / (atol + rtol |ref|) "
+                    f"{got:.3f}; controls (must pass 1): from h = 0 {miss[0]:.3e}"
+                    + (f", without the decays {miss[1]:.3e}" if no_decay is not None else ""))
+    if worst > 1.0:
+        raise AssertionError("[16a] the sequence-parallel shards disagree with one launch")
+    if not controls_fail:
+        raise AssertionError("[16a] a control within the tolerance: the seams carry too little "
+                             "state for the check to fail")
+    return worst
+
+
+def sp_transcripts(plan, counts):
+    """16b: SP_UTTS long-form utterances at batch 1 through synth_run with
+    scan_mode "sp" in a sequence_parallel context over the one-rank mesh:
+    logits bit-equal to scan_mode "pallas", texts identical, and per
+    forward the plain path's launches, one scan_fwd a scan (an axis of
+    one rank takes the kernel path) and one log-mel."""
+    import torch
+
+    from velocity_asr_tpu_torch.audio import load_audio
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.parallel import create_mesh, sequence_parallel
+    from velocity_asr_tpu_torch.transcribe import load_transcriber
+
+    with open(plan["longform"]["manifest"]) as f:
+        paths = [json.loads(line)["audio_path"] for line in f][:SP_UTTS]
+    sp = load_transcriber(CHECKPOINT, device="cuda", scan_mode="sp")
+    ref = load_transcriber(CHECKPOINT, device="cuda")
+    mesh = create_mesh()
+    same = equal_texts = 0
+    t_sp = t_ref = 0.0
+    for path in paths:
+        audio = load_audio(path)
+        padded, n_frames = sp._pad_audio(audio)
+        wire = torch.from_numpy(sp._to_wire(padded)).to("cuda")
+        t0 = time.perf_counter()
+        with sequence_parallel(mesh):
+            reset_launch_counts()
+            logits = sp.masked_logits(wire, n_frames)
+            torch.cuda.synchronize()
+            got = dict(launch_counts)
+            text = sp.transcribe_array(audio)["text"]
+        t_sp += time.perf_counter() - t0
+        counts.update(got)
+        expect_launches("16b sp forward", got, {"scan_fwd_f32": SCANS_PER_STEP,
+                                                "log_mel_f32": 1})
+        t0 = time.perf_counter()
+        ref_logits = ref.masked_logits(wire, n_frames)
+        ref_text = ref.transcribe_array(audio)["text"]
+        torch.cuda.synchronize()
+        t_ref += time.perf_counter() - t0
+        same += torch.equal(logits, ref_logits)
+        equal_texts += text == ref_text
+    log(f"[16b] {len(paths)} long-form utterances at batch 1, scan_mode sp over a one-rank "
+        f"NCCL mesh: logits bit-equal to pallas on {same}, texts equal on {equal_texts}; "
+        f"{t_sp:.3f} s (sp, logits and text) vs {t_ref:.3f} s (pallas)")
+    if same != len(paths) or equal_texts != len(paths):
+        raise AssertionError("[16b] scan_mode sp at world 1 differs from pallas")
+
+
+def mesh_trainer_step(counts):
+    """16c: one fp32 micro-step of 8a's batch through Trainer(mesh=...) over
+    the one-rank NCCL mesh (num_data_shards=1): the loss and every
+    parameter bit-equal to the plain Trainer's, and exactly
+    SCANS_PER_STEP bounds-forward and backward launches."""
+    import torch
+
+    from velocity_asr_tpu_torch.models.model import from_pretrained
+    from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
+    from velocity_asr_tpu_torch.parallel.mesh import create_mesh, local_mesh
+    from velocity_asr_tpu_torch.training import Trainer, TrainingConfig
+
+    batch = check_batch()
+    out = []
+    for mesh in (local_mesh(), create_mesh(1, 1)):
+        model = from_pretrained(CHECKPOINT, device="cuda", dtype="float32")
+        trainer = Trainer(model, TrainingConfig(learning_rate=3e-4, warmup_steps=1,
+                                                num_data_shards=1), iter(()), mesh=mesh)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        loss = trainer.train_step(batch)["loss"]
+        torch.cuda.synchronize()
+        got = dict(launch_counts)
+        out.append((loss, [p.detach().clone() for p in trainer.params], got))
+    (loss, params, _), (mesh_loss, mesh_params, got) = out
+    counts.update(got)
+    equal = sum(torch.equal(a, b) for a, b in zip(params, mesh_params))
+    log(f"[16c] one fp32 micro-step of {CHECK_BATCH} x {CHECK_FRAMES} frames (dropout 0.1), "
+        f"Trainer over the one-rank NCCL mesh vs the plain Trainer: loss {mesh_loss!r} vs "
+        f"{loss!r}; {equal} of {len(params)} parameters bit-equal")
+    expect_launches("16c mesh micro-step", got, {"scan_fwd_bounds_f32": SCANS_PER_STEP,
+                                                 "scan_bwd_f32": SCANS_PER_STEP})
+    if mesh_loss != loss or equal != len(params):
+        raise AssertionError("[16c] the mesh Trainer's step differs from the plain Trainer's")
+
+
+def phase_parallel(plan, card: str):
+    """Phase 16: the parallel paths in a one-rank NCCL world, the one
+    ``transcribe --sequence-parallel`` builds without torchrun
+    (``parallel.init_distributed``; destroyed at the end): 16a the
+    sequence-parallel shard arithmetic, 16b --sequence-parallel's path at
+    world 1, 16c the mesh Trainer; returns the launch counts of 16b and
+    16c (the main-path runs)."""
+    import torch
+
+    from velocity_asr_tpu_torch.parallel import init_distributed, shutdown_distributed
+
+    counts = collections.Counter()
+    log(f"[16] {card}")
+    init_distributed("cuda")
+    try:
+        for name, fn in (("16a", lambda: sp_shard_arithmetic(np.random.default_rng(16))),
+                         ("16b", lambda: sp_transcripts(plan, counts)),
+                         ("16c", lambda: mesh_trainer_step(counts))):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            log(f"[{name}] {time.perf_counter() - t0:.3f} s")
+    finally:
+        shutdown_distributed()
+    return counts
+
+
 def exp_floor_ms(batch, length, d_inner, state_dim):
     """The least time the SFU takes for the forward's one IEEE expf per
     (b, t, d, n): exp2 at SFU_PER_CLOCK_PER_SM a clock on every SM at the
@@ -5240,11 +5450,14 @@ def main(argv=None) -> int:
         data_counts.update(run_phase(
             "15 diarization, pretraining, converter",
             lambda: phase_diarize_pretrain(tmp, manifest, plan, card), t_start))
+        data_counts.update(run_phase(
+            "16 parallel paths (one-rank NCCL world)",
+            lambda: phase_parallel(plan, card), t_start))
         kernels = run_phase(
             "6 timing",
             lambda: phase_timing(counts, bucket, errs, batched, streaming, training,
                                  stream_training, serve["transcribe"]), t_start)
-        for kernel in kernels["kernels"]:  # phases 12-15's launches join each count
+        for kernel in kernels["kernels"]:  # phases 12-16's launches join each count
             kernel["launches"] += data_counts.get(kernel["name"], 0)
     except PhaseFailed as e:
         print(f"chip_smoke: phase {e} failed", file=sys.stderr)

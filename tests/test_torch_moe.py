@@ -465,7 +465,8 @@ def test_checkpointed_moe_step_is_bit_equal_to_the_plain_one():
 
 @pytest.mark.parametrize("change,error,match", [
     ({"qat": True}, ValueError, "QAT \\+ MoE is not supported"),
-    ({"num_pipeline_stages": 2}, NotImplementedError, "ROADMAP module item 9"),
+    # pipeline stages are ported: with experts they raise the JAX Trainer's error
+    ({"num_pipeline_stages": 2}, ValueError, "pipeline parallelism \\+ MoE is not supported"),
 ])
 def test_moe_trainer_refusals(change, error, match):
     model = tmodel.create_model(VelocityASRConfig(**SMALL), device="cpu")

@@ -151,6 +151,18 @@ def test_diarization_pretraining_and_converter_modules_are_checked(module):
     assert module in _modules()
 
 
+@pytest.mark.parametrize("module", [
+    "velocity_asr_tpu_torch.parallel", "velocity_asr_tpu_torch.parallel.mesh",
+    "velocity_asr_tpu_torch.parallel.tp", "velocity_asr_tpu_torch.parallel.pp",
+    "velocity_asr_tpu_torch.parallel.sp_scan", "velocity_asr_tpu_torch.parallel.dryrun",
+])
+def test_parallel_modules_are_checked(module):
+    """The mesh and its collectives, tensor and expert parallelism, the
+    pipeline, the sequence-parallel scan and the multi-rank dry run are
+    among the modules both checks walk."""
+    assert module in _modules()
+
+
 def test_qat_names_need_no_jax():
     """The QAT names are the port's own classes, not re-exports."""
     import velocity_asr_tpu_torch as port

@@ -62,8 +62,11 @@ def test_modes_agree_on_cpu(mode):
 
 
 def test_unknown_mode_raises():
+    """An unknown mode raises; "sp" (ported) raises outside its context."""
     t = [torch.from_numpy(a) for a in _inputs(4)]
     with pytest.raises(ValueError, match="Unknown scan mode"):
+        tscan.selective_scan(*t, mode="bogus")
+    with pytest.raises(ValueError, match="sequence_parallel"):
         tscan.selective_scan(*t, mode="sp")
 
 

@@ -378,8 +378,8 @@ HOST_MEL_WAVEFORM = "noise_injection / speed_perturb require data.device_mel"
     # misconfiguration, not a fallback to the offline objective
     pytest.param({"train": {"streaming_chunks": 200}}, ValueError, "device_mel",
                  id="streaming_chunks"),
-    pytest.param({"train": {"num_model_shards": 2}}, NotImplementedError,
-                 "ROADMAP module item 9", id="num_model_shards"),
+    # parallel training is ported: num_model_shards trains over a world of 2
+    pytest.param({"train": {"num_model_shards": 2}}, None, None, id="num_model_shards"),
     pytest.param({"train": {"profile_dir": "trace", "profile_start": 5}}, None, None,
                  id="profile_dir"),
     # the waveform augmentations act on device-mel batches' audio: on a
@@ -405,6 +405,13 @@ def test_unported_options_raise(change, error, match, monkeypatch):
     options are set when the model is built, as the blocks read them."""
     model = _small_model(seed=0, **change.get("model", {}))
     cfg = ttraining.TrainingConfig(**change.get("train", {}))
+    if error is None and cfg.num_model_shards > 1:
+        from torch_parallel_workers import train_step_world
+        from velocity_asr_tpu_torch.parallel.dryrun import spawn_world
+
+        losses = spawn_world(2, train_step_world, (change["train"], _batch(2)), timeout=120)
+        assert np.isfinite(losses[0]) and losses[0] == losses[1]
+        return
     if error is None:
         remat = []
         apply = tssm.CheckpointedBlock.apply

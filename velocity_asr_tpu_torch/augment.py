@@ -17,6 +17,11 @@ raw audio before the log-mel. Each is a draw (``draw_noise``,
 ``draw_speed``: the SNRs and unit-normal noise, the warp factors) and
 the arithmetic on it (``add_noise``, ``warp_speed``), so the arithmetic
 can be held against the JAX package's on the JAX functions' own draws.
+
+Under a ``parallel.data_shard`` (data-parallel training) every draw is
+made for the global batch and each rank takes its rows
+(``parallel.mesh.sharded_draw``), so a world-N step draws what the
+one-process step draws.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from .parallel.mesh import sharded_draw
 
 
 @dataclass
@@ -49,14 +56,16 @@ def _sample_masks(rng: torch.Generator, count: int, max_width: int, limit: torch
     """(batch, count) starts and widths, masks within [0, limit)."""
     batch = limit.shape[0]
     device = limit.device
-    widths = torch.randint(0, max_width + 1, (batch, count), generator=rng, device=device)
+    widths = sharded_draw(lambda s: torch.randint(0, max_width + 1, s, generator=rng,
+                                                  device=device), (batch, count))
     if width_cap is not None:
         widths = torch.minimum(widths, width_cap[:, None])
     widths = torch.minimum(widths, limit[:, None])
     # start ~ U[0, limit - width] inclusive: the last valid frame or bin
     # is reachable and a mask never spills past limit
     max_start = torch.clamp(limit[:, None] - widths + 1, min=1)
-    starts = torch.randint(0, 2**30, (batch, count), generator=rng, device=device) % max_start
+    starts = sharded_draw(lambda s: torch.randint(0, 2**30, s, generator=rng, device=device),
+                          (batch, count)) % max_start
     return starts, widths
 
 
@@ -97,9 +106,11 @@ def draw_noise(rng: torch.Generator, config: SpecAugmentConfig, audio: torch.Ten
     """(snr_db (batch, 1), unit-normal noise shaped like audio): SNRs
     uniform in [noise_min_snr_db, noise_max_snr_db)."""
     batch = audio.shape[0]
-    u = torch.rand((batch, 1), generator=rng, device=audio.device, dtype=torch.float32)
+    u = sharded_draw(lambda s: torch.rand(s, generator=rng, device=audio.device,
+                                          dtype=torch.float32), (batch, 1))
     snr_db = config.noise_min_snr_db + u * (config.noise_max_snr_db - config.noise_min_snr_db)
-    unit = torch.randn(audio.shape, generator=rng, device=audio.device, dtype=audio.dtype)
+    unit = sharded_draw(lambda s: torch.randn(s, generator=rng, device=audio.device,
+                                              dtype=audio.dtype), audio.shape)
     return snr_db, unit
 
 
@@ -127,8 +138,8 @@ def noise_inject(audio: torch.Tensor, rng: torch.Generator, config: SpecAugmentC
 
 def draw_speed(rng: torch.Generator, config: SpecAugmentConfig, audio: torch.Tensor):
     """Warp factors (batch, 1), uniform in [speed_min, speed_max)."""
-    u = torch.rand((audio.shape[0], 1), generator=rng, device=audio.device,
-                   dtype=torch.float32)
+    u = sharded_draw(lambda s: torch.rand(s, generator=rng, device=audio.device,
+                                          dtype=torch.float32), (audio.shape[0], 1))
     return config.speed_min + u * (config.speed_max - config.speed_min)
 
 

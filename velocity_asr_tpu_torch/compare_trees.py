@@ -27,7 +27,15 @@ the package's public wrappers:
 - the training CLI's micro-step (``train.main`` on configs/train_synth.yaml
   and model_synth.yaml, ``--synthetic 3200``, bf16; the offline training
   path of chip_smoke.py's phase 8b): ms per micro-step to a synchronise,
-  and the host's time per backward call inside those micro-steps.
+  and the host's time per backward call inside those micro-steps;
+- with ``--ops``, the device operations of single micro-steps (each one
+  under its own ``torch.profiler`` window: the kernels and copies on the
+  card), a count the host's speed does not move, for the two training
+  recipes of chip_smoke.py: 8b's (as above) and 9b's streaming-aware
+  fine-tune (configs/train_synth_stream.yaml, ``--init-from`` the
+  synth_run checkpoint, ``--synthetic 1600``; device mel, 200-frame
+  chunks). Both trees read the same seeded batches, so the counts are
+  held step for step, beside each batch's length.
 
 The order's letters name the trees in the order given (A = OLD, B = NEW);
 ``ABBAAB`` runs OLD, NEW, NEW, OLD, OLD, NEW, so that drift over the call
@@ -72,11 +80,22 @@ EAGER_CALLS = 50
 GRAPH_CALLS = 10
 INT8_GRAPH_CALLS = 100
 WARMUP_STEPS = 10  # micro-steps left out of the per-step figures
+# --ops: (recipe, config, extra CLI arguments, micro-steps run, micro-steps
+# traced from the end); the first micro-steps are left out as warm-up.
+# Every tree starts 9b from this checkout's synth_run checkpoint.
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OPS_RECIPES = (
+    ("8b", "train_synth.yaml", ["--synthetic", "3200"], 8, 5),
+    ("9b", "train_synth_stream.yaml",
+     ["--synthetic", "1600", "--init-from", os.path.join(ROOT, "checkpoints", "synth_run",
+                                                          "final_pretrained")], 6, 4),
+)
 
 _CHILD = ("import importlib.util, sys; "
           "spec = importlib.util.spec_from_file_location('compare_trees_turn', sys.argv[1]); "
           "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod); "
-          "mod.turn(sys.argv[2], sys.argv[3], int(sys.argv[4]), sys.argv[5])")
+          "mod.turn(sys.argv[2], sys.argv[3], int(sys.argv[4]), sys.argv[5], "
+          "sys.argv[6] == '1')")
 
 
 def _inputs(shape, device):
@@ -272,7 +291,66 @@ def _time_steps(tree, steps):
             "bwd_calls": len(bwd_ms), "bwd_host_mean_ms": float(np.mean(kept_bwd))}
 
 
-def turn(tree, device, steps, out_dir):
+def _device_ops(prof) -> int:
+    """The kernels and copies a profiler window saw on the card (as
+    chip_smoke.py's report_trace counts them)."""
+    from torch.autograd import DeviceType
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and device_us(e) > 0
+               and not e.key.startswith("ProfilerStep"))
+
+
+def _count_ops(tree):
+    """{recipe: [[the batch's length, device operations] per traced
+    micro-step]} of OPS_RECIPES through the tree's training CLI (the
+    length in mel frames, or in samples for a device-mel batch)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from velocity_asr_tpu_torch import train as cli
+    from velocity_asr_tpu_torch import training
+
+    out = {}
+    step = training.Trainer._step
+    for name, config, extra, total, traced in OPS_RECIPES:
+        seen = []
+
+        def counted_step(self, batch):
+            if len(seen) < total - traced:
+                seen.append(None)
+                return step(self, batch)
+            torch.cuda.synchronize()
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                      torch.profiler.ProfilerActivity.CUDA])
+            prof.start()
+            loss = step(self, batch)
+            loss.item()
+            torch.cuda.synchronize()
+            prof.stop()
+            key = "mel_spectrogram" if "mel_spectrogram" in batch else "audio"
+            seen.append([int(np.asarray(batch[key]).shape[1]), _device_ops(prof)])
+            return loss
+
+        training.Trainer._step = counted_step
+        try:
+            with tempfile.TemporaryDirectory(prefix="compare_trees_") as tmp:
+                cli.main(["--config", os.path.join(tree, "configs", config),
+                          "--model-config", os.path.join(tree, "configs", "model_synth.yaml"),
+                          *extra, "--max-steps", str(total), "--checkpoint-dir", tmp,
+                          "--device", "cuda"])
+        finally:
+            training.Trainer._step = step
+        out[name] = [s for s in seen if s is not None]
+    return out
+
+
+def turn(tree, device, steps, out_dir, ops=False):
     """One turn, in its own process: print one JSON line of measurements
     and save the forward's outputs in out_dir."""
     sys.path.insert(0, tree)
@@ -290,6 +368,8 @@ def turn(tree, device, steps, out_dir):
            "int8": [_time_int8(s, dtype, device) for s in int8_shapes for dtype in INT8_TYPES]}
     if steps:
         out["train"] = _time_steps(tree, steps)
+    if ops:
+        out["ops"] = _count_ops(tree)
     print(json.dumps(out), flush=True)
 
 
@@ -360,6 +440,9 @@ def main(argv=None) -> int:
     parser.add_argument("--steps", type=int, default=200,
                         help="training micro-steps per turn on the card")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--ops", action="store_true",
+                        help="also count the device operations of single training "
+                             "micro-steps (8b's and 9b's recipes; the card only)")
     args = parser.parse_args(argv)
     trees = [os.path.abspath(t) for t in args.trees]
     letters = {chr(ord("A") + i): t for i, t in enumerate(trees)}
@@ -379,8 +462,9 @@ def _run_turns(args, letters, steps, here, tmp) -> int:
         tree = letters[letter]
         dirs.append(os.path.join(tmp, f"turn{i}"))
         os.makedirs(dirs[-1])
+        ops = "1" if args.ops and args.device == "cuda" else "0"
         proc = subprocess.run([sys.executable, "-c", _CHILD, here, tree, args.device, str(steps),
-                               dirs[-1]], cwd=tree, capture_output=True, text=True)
+                               dirs[-1], ops], cwd=tree, capture_output=True, text=True)
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-8000:])
             print(f"turn {letter} ({tree}) failed with exit code {proc.returncode}", flush=True)
@@ -403,6 +487,9 @@ def _run_turns(args, letters, steps, here, tmp) -> int:
             print(f"turn {letter} int8 {tuple(r['shape'])} x {r['dtype']}: {times}", flush=True)
         if "train" in result:
             print(f"turn {letter} train: {json.dumps(result['train'])}", flush=True)
+        for recipe, counted in result.get("ops", {}).items():
+            print(f"turn {letter} ops {recipe} [length, device operations] per micro-step: "
+                  f"{counted}", flush=True)
     if args.device == "cuda":
         for line in (_summary(turns, "forward", ("",))
                      + _summary(turns, "int8", ("dynamic_", "static_"))):
@@ -415,6 +502,16 @@ def _run_turns(args, letters, steps, here, tmp) -> int:
         print(f"forward across turns {f['entry']} {tuple(f['shape'])}: states (bounds, h_final) "
               f"{'bit-equal' if f['states_bit_equal'] else 'DIFFER'}; y max_rel "
               f"{f['y_max_rel']:.3e} (tol {AGREE_MAX_REL:g}) {'ok' if good else 'FAIL'}", flush=True)
+    for recipe in turns[0].get("ops", {}):
+        by_tree = {}
+        for t in turns:
+            by_tree.setdefault(t["letter"], []).append(t["ops"][recipe])
+        print(f"ops {recipe}: " + "; ".join(
+            f"{letter} {runs[0]}" + ("" if all(r == runs[0] for r in runs) else
+                                     f" (turns differ: {runs})")
+            for letter, runs in sorted(by_tree.items()))
+            + ("; the same in every turn" if len({json.dumps(r) for rs in by_tree.values()
+                                                 for r in rs}) == 1 else ""), flush=True)
     worst = _agree(turns)
     ok = worst <= AGREE_MAX_REL and fwd_ok
     print(f"outputs across turns: max relative gap of the gradients' and int8 outputs' sums "

@@ -183,14 +183,19 @@ def create_speaker_model(config: Optional[SpeakerEncoderConfig] = None, device="
     return model.to(device)
 
 
+def am_softmax_per_row(cos: torch.Tensor, labels: torch.Tensor, margin: float,
+                       scale: float) -> torch.Tensor:
+    """Each row's cross entropy of scale * (cos - margin * onehot), (B,)."""
+    onehot = F.one_hot(labels.to(torch.int64), cos.shape[-1]).to(torch.float32)
+    logits = scale * (cos - margin * onehot)
+    return -(onehot * F.log_softmax(logits, dim=-1)).sum(dim=-1)
+
+
 def am_softmax_loss(cos: torch.Tensor, labels: torch.Tensor, margin: float, scale: float,
                     n_valid=None) -> torch.Tensor:
     """Additive-margin softmax over cosine logits (B, C): the mean over
-    rows (the first n_valid rows where given) of the cross entropy of
-    scale * (cos - margin * onehot)."""
-    onehot = F.one_hot(labels.to(torch.int64), cos.shape[-1]).to(torch.float32)
-    logits = scale * (cos - margin * onehot)
-    per = -(onehot * F.log_softmax(logits, dim=-1)).sum(dim=-1)
+    rows (the first n_valid rows where given) of ``am_softmax_per_row``."""
+    per = am_softmax_per_row(cos, labels, margin, scale)
     if n_valid is None:
         return per.mean()
     w = (torch.arange(per.shape[0], device=per.device) < n_valid).to(torch.float32)
@@ -223,7 +228,8 @@ class SpeakerTrainer(Trainer):
             mel = spec_augment(mel, rng, aug, lengths)
         _, cos = self.model(mel, input_lengths=lengths, rng=rng)
         cfg = self.model.config
-        return am_softmax_loss(cos, batch["targets"][:, 0], cfg.am_margin, cfg.am_scale)
+        return self._row_mean(am_softmax_per_row(cos, batch["targets"][:, 0], cfg.am_margin,
+                                                 cfg.am_scale))
 
 
 # ----- artifacts --------------------------------------------------------------

@@ -34,7 +34,9 @@ class VelocityASRConfig:
     # the JAX package's default) run the CUDA selective-scan kernel on a
     # CUDA tensor and its plain version on a CPU tensor (ops/scan.py);
     # "associative", the log-depth scan in stock operations, is for
-    # exported graphs only (export.export_graph_config).
+    # exported graphs only (export.export_graph_config); "sp" shards each
+    # scan's time axis over the ranks of an active
+    # parallel.sequence_parallel context.
     scan_mode: str = "parallel"
     use_compile: bool = False
     dtype: str = "float32"
@@ -57,6 +59,31 @@ class VelocityASRConfig:
     @property
     def d_inner(self) -> int:
         return self.d_model * self.ssm_expand_ratio
+
+    @classmethod
+    def from_preset(cls, name: str, **overrides) -> "VelocityASRConfig":
+        """Named model-family presets (the JAX package's):
+
+        - "tiny": 4 SSM layers at d_model 128, for edge use and smoke runs;
+        - "base": the defaults (6.2M parameters, vocabulary 1,000);
+        - "large-vocab": the base encoder with a 50,000-token vocabulary
+          (the CTC head alone ~9.6M parameters; tensor parallelism shards
+          it over the vocabulary);
+        - "moe": the base encoder with an 8-expert top-2 MoE FFN in every
+          local block (expert parallelism shards the experts).
+
+        `overrides` replace fields after the preset's."""
+        presets: Dict[str, Dict[str, Any]] = {
+            "tiny": dict(d_model=128, ssm_layers=4, ssm_state_dim=32,
+                         global_ssm_layers=1, global_ssm_state_dim=16,
+                         attention_dim=32, vocab_size=1000),
+            "base": {},
+            "large-vocab": dict(vocab_size=50000),
+            "moe": dict(moe_experts=8),
+        }
+        if name not in presets:
+            raise ValueError(f"unknown preset {name!r}; options: {sorted(presets)}")
+        return cls(**{**presets[name], **overrides})
 
     @classmethod
     def from_dict(cls, config_dict: Dict[str, Any]) -> "VelocityASRConfig":

@@ -8,7 +8,13 @@ quantizable projection (attention, fusion, pooling, CTC head) as a Dense,
 a QAT fake-quantized Dense or an int8 Dense. ``Dropout`` is flax's
 (``nn.Dropout``: keep with probability 1 - rate, scale by 1 / (1 - rate))
 in training mode, drawing its mask from a ``torch.Generator`` that the
-caller passes to each forward; in eval mode it is the identity.
+caller passes to each forward; in eval mode it is the identity. Under a
+``parallel.data_shard`` the mask is this rank's part of the global
+batch's (``parallel.mesh.sharded_draw``).
+
+Under tensor parallelism (``parallel.tp.shard_params_tp``) the CTC head
+holds its slice of the vocabulary and gathers the logits over the model
+group.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv import strided_conv1d
+from ..parallel.mesh import enter, gather, sharded_draw
 
 
 class Dense(nn.Linear):
@@ -75,7 +82,10 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor, rng: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng: torch.Generator | None = None,
+                batch_dim: int = 0, experts=None) -> torch.Tensor:
+        """`batch_dim` is x's batch axis and `experts` (index, count) marks
+        dim 0 as this rank's block of experts (``sharded_draw``)."""
         if not self.training or self.rate == 0.0:
             return x
         if rng is None:
@@ -84,7 +94,8 @@ class Dropout(nn.Module):
         if self.rate >= 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        mask = sharded_draw(lambda s: torch.rand(s, generator=rng, device=x.device), x.shape,
+                            batch_dim, experts) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -242,7 +253,9 @@ class TemporalBindingLayer(nn.Module):
 
 
 class CTCOutputHead(nn.Module):
-    """LayerNorm -> Dropout -> Linear(vocab)."""
+    """LayerNorm -> Dropout -> Linear(vocab). With ``tp_group`` set
+    (``parallel.tp.shard_params_tp``) the projection holds this rank's
+    rows of the vocabulary and the logits are gathered over the group."""
 
     def __init__(self, d_model: int = 192, vocab_size: int = 1000,
                  dtype: torch.dtype = torch.float32, int8: bool = False,
@@ -253,6 +266,10 @@ class CTCOutputHead(nn.Module):
         self.dropout = Dropout(dropout)
         self.proj = quant_dense(quant_mode(qat, int8), d_model, vocab_size, dtype,
                                 static=int8_static, qat_bits=qat_bits)
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor, rng: torch.Generator | None = None) -> torch.Tensor:
-        return self.proj(self.dropout(self.norm(x), rng))
+        h = self.dropout(self.norm(x), rng)
+        if self.tp_group is None:
+            return self.proj(h)
+        return gather(self.proj(enter(h, self.tp_group)), self.tp_group, dim=-1)

@@ -27,6 +27,15 @@ outputs back. The Switch load-balance aux ``E * sum_e f_e * P_e`` (f the
 first-choice fraction, P the mean gate, over valid tokens) and f itself
 are returned only to a caller that passes a ``collect`` list: each layer
 appends ``(aux, f_frac)``.
+
+Expert parallelism (``parallel.tp.shard_params_tp`` sets ``ep``): the
+expert weights hold this rank's block of experts, the routing is computed
+on every rank, each rank runs its experts on the tokens routed to them,
+and the weighted outputs are summed over the model group. Under a
+``parallel.data_shard`` f and P are means over the real rows of the
+global batch (their sums and the token count all-reduced over the data
+axis), as one process computes them, and the dropout mask is this rank's
+part of the global one.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import current_data_shard, enter_all, reduce
 from .layers import Dense, Dropout
 
 
@@ -71,6 +81,7 @@ class MoEFFN(nn.Module):
         self.w_out = nn.Parameter(torch.zeros(num_experts, hidden, d_model))
         self.b_out = nn.Parameter(torch.zeros(num_experts, d_model))
         self.dropout = Dropout(dropout)
+        self.ep = None  # (model group, this rank's block, blocks) under expert parallelism
 
     def capacity(self, s_len: int) -> int:
         """Slots per expert in a group of s_len tokens."""
@@ -119,7 +130,9 @@ class MoEFFN(nn.Module):
         the dropout after the GELU draws from `rng`; `collect`, if given,
         receives (aux, f_frac) of this call."""
         b, t_len, d = x.shape
-        n_exp, k_top, dt = self.num_experts, self.top_k, self.dtype
+        k_top, dt = self.top_k, self.dtype
+        group, e_index, e_count = self.ep if self.ep is not None else (None, 0, 1)
+        n_local = self.w_in.shape[0]  # this rank's experts: n_exp / e_count
         s_len = min(self.group_size, t_len)
         pad = (-t_len) % s_len
         n_groups = (t_len + pad) // s_len
@@ -130,45 +143,68 @@ class MoEFFN(nn.Module):
         valid = valid.expand(b, -1).reshape(bg, s_len)
         r = self.route(xg, valid)
         cap = r["cap"]
+        # under EP the experts' inputs and the combine weights enter the
+        # sharded region (one all-reduce of their gradients)
+        x_in, weight = enter_all((xg, r["weight"]), group)
+        keep, idx = r["keep"], r["idx"]
+        if self.ep is not None:  # the choices this rank's experts serve
+            idx = idx - e_index * n_local
+            keep = keep & (idx >= 0) & (idx < n_local)
 
         # slot -> token: each kept choice writes its token index into slot
         # expert * cap + pos of its group; dropped choices go to a spare
         # column; an empty slot points at the zero row (index bg * s_len)
         with torch.no_grad():
             tok = torch.arange(s_len, device=x.device).expand(bg, s_len)
-            slot_tok = torch.full((bg, n_exp * cap + 1), s_len, dtype=torch.int64,
+            slot_tok = torch.full((bg, n_local * cap + 1), s_len, dtype=torch.int64,
                                   device=x.device)
-            slots = torch.where(r["keep"], r["idx"] * cap + r["pos"], n_exp * cap)
+            slots = torch.where(keep, idx * cap + r["pos"], n_local * cap)
             for k in range(k_top):
                 slot_tok.scatter_(1, slots[k], tok)
             base = torch.arange(bg, device=x.device)[:, None] * s_len
             src = torch.where(slot_tok[:, :-1] < s_len, slot_tok[:, :-1] + base, bg * s_len)
-            src = src.view(bg, n_exp, cap).transpose(0, 1).reshape(-1)
-        x_rows = torch.cat([xg.reshape(bg * s_len, d).to(dt),
+            src = src.view(bg, n_local, cap).transpose(0, 1).reshape(-1)
+        x_rows = torch.cat([x_in.reshape(bg * s_len, d).to(dt),
                             torch.zeros(1, d, dtype=dt, device=x.device)])
-        expert_in = x_rows.index_select(0, src).view(n_exp, bg * cap, d)
+        expert_in = x_rows.index_select(0, src).view(n_local, bg * cap, d)
         h = torch.baddbmm(self.b_in.to(dt)[:, None, :], expert_in, self.w_in.to(dt))
-        h = self.dropout(F.gelu(h), rng)
+        h = self.dropout(F.gelu(h), rng, batch_dim=1,
+                         experts=None if self.ep is None else (e_index, e_count))
         expert_out = torch.baddbmm(self.b_out.to(dt)[:, None, :], h, self.w_out.to(dt))
 
-        # token <- its k outputs, weighted; a dropped choice reads the zero row
+        # token <- its k outputs, weighted; a dropped choice (or one another
+        # rank's experts serve) reads the zero row
         with torch.no_grad():
-            group = torch.arange(bg, device=x.device)[:, None] * cap
-            out_idx = torch.where(r["keep"], r["idx"] * (bg * cap) + group + r["pos"],
-                                  n_exp * bg * cap)
-        out_rows = torch.cat([expert_out.reshape(n_exp * bg * cap, d),
+            first_slot = torch.arange(bg, device=x.device)[:, None] * cap
+            out_idx = torch.where(keep, idx * (bg * cap) + first_slot + r["pos"],
+                                  n_local * bg * cap)
+        out_rows = torch.cat([expert_out.reshape(n_local * bg * cap, d),
                               torch.zeros(1, d, dtype=dt, device=x.device)])
         picked = out_rows.index_select(0, out_idx.reshape(-1)).view(k_top, bg, s_len, d)
-        w = r["weight"].to(dt).to(torch.float32)
-        y = (w[..., None] * picked.to(torch.float32)).sum(dim=0).to(dt)
+        w = weight.to(dt).to(torch.float32)
+        y = reduce((w[..., None] * picked.to(torch.float32)).sum(dim=0), group).to(dt)
         y = y.reshape(b, n_groups * s_len, d)[:, :t_len]
 
         if collect is not None:
+            collect.append(self._aux(r, valid, b, n_groups))
+        return y
+
+    def _aux(self, r, valid: torch.Tensor, b: int, n_groups: int):
+        """(Switch aux, f_frac) over the valid tokens: of this call, or
+        under a ``data_shard`` of the real rows of the global batch."""
+        shard = current_data_shard()
+        if shard is None:
             n_valid = torch.clamp(valid.sum(), min=1.0)
             f_frac = r["first"].sum(dim=(0, 1)) / n_valid
             p_mean = (r["gates"] * valid[..., None]).sum(dim=(0, 1)) / n_valid
-            collect.append((n_exp * (f_frac * p_mean).sum(), f_frac))
-        return y
+        else:
+            rows = shard.row_mask(valid.device).to(torch.float32).repeat_interleave(n_groups)
+            w_tok = valid * rows[:, None]
+            n_valid = torch.clamp(shard.total(w_tok.sum()), min=1.0)
+            f_frac = shard.total((r["first"] * w_tok[..., None]).sum(dim=(0, 1))) / n_valid
+            p_mean = reduce((r["gates"] * w_tok[..., None]).sum(dim=(0, 1)),
+                            shard.group) / n_valid
+        return self.num_experts * (f_frac * p_mean).sum(), f_frac
 
 
 def upcycle_dense_to_moe(params: Dict, num_experts: int,

@@ -21,6 +21,10 @@ With ``moe_experts > 0`` a block's FFN is ``moe.MoEFFN`` (its dropout
 after the GELU drawn from the same ``rng``); a ``collect`` list passed
 down the stack receives each MoE block's (aux, f_frac), in the graph
 under autograd, a checkpointed block's included.
+
+Under an active ``parallel.pipeline_parallel`` an offline, stateless
+forward of the local stack runs as a microbatch pipeline over the mesh's
+ranks (``parallel.pp.pipeline_blocks``); streaming calls keep the loop.
 """
 
 from __future__ import annotations
@@ -196,7 +200,11 @@ class CheckpointedBlock(torch.autograd.Function):
 class LocalSSMProcessor(nn.Module):
     """A stack of SSM blocks and a final LayerNorm; with `checkpoint`, a
     stateless pass that records gradients runs each block as
-    ``CheckpointedBlock``."""
+    ``CheckpointedBlock``. Under ``parallel.pipeline_parallel`` an offline
+    stateless pass runs the blocks as a pipeline; a stack with experts or
+    with ``scan_mode="sp"`` raises there (the JAX package's refusals)."""
+
+    pipelined = True  # the global context's stack (GlobalSSM) never pipelines
 
     def __init__(self, d_model: int = 192, num_layers: int = 8, state_dim: int = 64,
                  expand_ratio: int = 2, kernel_size: int = 4,
@@ -219,6 +227,12 @@ class LocalSSMProcessor(nn.Module):
         states are spliced in even when no state is asked back (running
         stateless would decode the chunk as a fresh stream). `collect`
         receives each MoE block's (aux, f_frac)."""
+        if states is None and not return_state and self.pipelined:
+            from ..parallel.pp import current_pipeline_parallel
+
+            ctx = current_pipeline_parallel()
+            if ctx is not None:
+                return self._pipelined(x, rng, ctx)
         new_states = []
         remat = (self.checkpoint and states is None and not return_state
                  and torch.is_grad_enabled())
@@ -238,10 +252,30 @@ class LocalSSMProcessor(nn.Module):
         out = self.norm(x)
         return (out, new_states) if return_state else out
 
+    def _pipelined(self, x: torch.Tensor, rng, ctx) -> torch.Tensor:
+        from ..parallel.pp import pipeline_blocks
+
+        if self.layers[0].ssm.scan_mode == "sp":
+            raise ValueError(
+                "pipeline_parallel cannot nest with scan_mode='sp' (both "
+                "shard over the mesh's ranks); pick one axis per run")
+        if self.layers[0].moe is not None:
+            raise ValueError(
+                "pipeline_parallel with a MoE stack is not supported: EP "
+                "and PP both consume the model mesh axis, and the pipelined "
+                "block apply would drop the load-balance loss")
+        mesh, axis, microbatches = ctx
+        x = pipeline_blocks(list(self.layers), x, mesh=mesh, axis=axis,
+                            microbatches=microbatches, rng=rng if self.training else None,
+                            checkpoint=self.checkpoint)
+        return self.norm(x)
+
 
 class GlobalSSM(LocalSSMProcessor):
     """The SSM stack over pooled tokens: expand ratio 2 and kernel size 4,
     fixed as in the JAX package."""
+
+    pipelined = False
 
     def __init__(self, d_model: int = 192, num_layers: int = 2, state_dim: int = 32,
                  scan_mode: str = "parallel", dtype: torch.dtype = torch.float32,

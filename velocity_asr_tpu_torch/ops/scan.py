@@ -49,7 +49,7 @@ import torch
 from .cuda_lib import check_tensor, library
 
 TRAIN_CHUNK = 16  # steps between saved states (JAX ops/scan_pallas.py TRAIN_CHUNK)
-ScanMode = str  # "sequential" | "parallel" | "pallas" | "associative"
+ScanMode = str  # "sequential" | "parallel" | "pallas" | "associative" | "sp"
 
 
 def scan_fwd_plain(x, dt, A, B, C, h0=None, return_state: bool = False):
@@ -515,6 +515,12 @@ def selective_scan(x, dt, A, B, C, D, mode: str = "parallel", h0=None,
     is given), as the JAX package's Pallas tier does; the state returned
     is fp32 (batch, d_inner, state_dim).
 
+    "sp" shards the time axis over the ranks of the active
+    ``parallel.sequence_parallel`` context (``parallel.sp_scan``) and
+    raises without one; over an axis of one rank, and for a streaming
+    chunk (h0 or return_state), it takes the kernel path, as the JAX
+    package keeps its single-device scan there.
+
     While autograd records and an input (h0 included) requires grad, the
     scan goes through ``SelectiveScanFn``, or ``CarriedStateScanFn`` with
     h0 or return_state (the training kernels on CUDA tensors, their plain
@@ -525,7 +531,18 @@ def selective_scan(x, dt, A, B, C, D, mode: str = "parallel", h0=None,
         return selective_scan_sequential(x, dt, A, B, C, D, h0, return_state)
     if mode == "associative":
         return selective_scan_parallel(x, dt, A, B, C, D, h0, return_state)
-    if mode not in ("pallas", "parallel"):
+    if mode == "sp" and h0 is None and not return_state:
+        from ..parallel.sp_scan import current_sequence_parallel, selective_scan_sp_padded
+
+        ctx = current_sequence_parallel()
+        if ctx is None:
+            raise ValueError(
+                'scan_mode="sp" needs an active mesh: wrap the forward call in '
+                "velocity_asr_tpu_torch.parallel.sequence_parallel(mesh, axis)")
+        mesh, axis = ctx
+        if mesh.shape[axis] > 1:
+            return selective_scan_sp_padded(x, dt, A, B, C, D, mesh, axis)
+    if mode not in ("pallas", "parallel", "sp"):
         raise ValueError(f"Unknown scan mode: {mode!r}")
     args = [t.contiguous() for t in (x, dt, A, B, C)]
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C, h0)

@@ -53,6 +53,7 @@ from .models.attention import HierarchicalGlobalContext
 from .models.config import VelocityASRConfig
 from .models.layers import Dense, TemporalBindingLayer
 from .models.ssm import LocalSSMProcessor
+from .parallel.mesh import sharded_draw
 from .training import Trainer, TrainingConfig
 
 logger = logging.getLogger(__name__)
@@ -87,8 +88,8 @@ def sample_time_mask(rng: torch.Generator, batch: int, t_len: int,
     device = rng.device
     lengths = torch.as_tensor(input_lengths, device=device)
     valid = torch.arange(t_len, device=device)[None, :] < lengths[:, None]
-    starts = (torch.rand((batch, t_len), generator=rng, device=device)
-              < config.span_probability) & valid
+    starts = (sharded_draw(lambda s: torch.rand(s, generator=rng, device=device),
+                           (batch, t_len)) < config.span_probability) & valid
     c = torch.cumsum(starts.to(torch.int32), dim=1)
     lagged = F.pad(c, (config.span_length, 0))[:, :t_len]
     return ((c - lagged) > 0) & valid
@@ -100,12 +101,15 @@ def sample_freq_mask(rng: torch.Generator, batch: int, n_mels: int,
     one band of U[band_min, band_max] bins (capped at n_mels) at a uniform
     start."""
     device = rng.device
-    apply = torch.rand((batch, 1), generator=rng, device=device) < config.frequency_mask_prob
-    widths = torch.randint(config.frequency_band_min, config.frequency_band_max + 1,
-                           (batch, 1), generator=rng, device=device)
+    apply = sharded_draw(lambda s: torch.rand(s, generator=rng, device=device),
+                         (batch, 1)) < config.frequency_mask_prob
+    widths = sharded_draw(lambda s: torch.randint(config.frequency_band_min,
+                                                  config.frequency_band_max + 1, s,
+                                                  generator=rng, device=device), (batch, 1))
     widths = torch.clamp(widths, max=n_mels)
     max_start = torch.clamp(n_mels - widths + 1, min=1)
-    starts = torch.randint(0, 2 ** 30, (batch, 1), generator=rng, device=device) % max_start
+    starts = sharded_draw(lambda s: torch.randint(0, 2 ** 30, s, generator=rng, device=device),
+                          (batch, 1)) % max_start
     pos = torch.arange(n_mels, device=device)[None, :]
     return (pos >= starts) & (pos < starts + widths) & apply
 
@@ -165,10 +169,11 @@ def create_pretrain_model(config: Optional[VelocityASRConfig] = None, device="cu
 
 def masked_prediction_loss(pred: torch.Tensor, target_mel: torch.Tensor,
                            time_mask: torch.Tensor, input_lengths: torch.Tensor,
-                           n_valid=None) -> torch.Tensor:
+                           n_valid=None, shard=None) -> torch.Tensor:
     """MSE over masked valid frames (the mean over mel bins a frame), the
     prediction cut to the target's T frames; n_valid masks batch rows past
-    it."""
+    it. Under data parallelism `shard` (a ``parallel.mesh.DataShard``)
+    masks the padding rows and counts the frames over the global batch."""
     b, t, _ = target_mel.shape
     pred = pred[:, :t, :]
     lengths = torch.as_tensor(input_lengths, device=pred.device)
@@ -176,8 +181,12 @@ def masked_prediction_loss(pred: torch.Tensor, target_mel: torch.Tensor,
     w = (time_mask & valid).to(torch.float32)
     if n_valid is not None:
         w = w * (torch.arange(b, device=pred.device) < n_valid)[:, None].to(torch.float32)
+    count = w.sum()
+    if shard is not None:
+        w = w * shard.row_mask(pred.device)[:, None].to(torch.float32)
+        count = shard.total(w.sum())
     err = ((pred - target_mel.to(torch.float32)) ** 2).mean(dim=-1)
-    return (err * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return (err * w).sum() / torch.clamp(count, min=1.0)
 
 
 class PretrainTrainer(Trainer):
@@ -231,7 +240,7 @@ class PretrainTrainer(Trainer):
                                                                                  rng)
         inputs = torch.where(freq_mask[:, None, :], torch.zeros_like(mel), mel)
         pred = self.model(inputs, time_mask=time_mask, rng=rng)
-        return masked_prediction_loss(pred, mel, time_mask, lengths)
+        return masked_prediction_loss(pred, mel, time_mask, lengths, shard=self._shard)
 
 
 # ----- artifacts / the Stage-2 hand-off -----------------------------------------

@@ -42,6 +42,15 @@ temporal-binding conv into the QAT model's ``QuantConv1d``, and
 conv's float names) with the observers beside it in
 ``quant_stats.msgpack``, for ``export_model``. It runs on the card unless
 ``--device cpu``.
+
+Under ``torchrun`` (``torchrun --standalone --nproc_per_node N -m
+velocity_asr_tpu_torch.train ...``) the ``distributed:`` section lays the
+ranks out (``num_data_shards``, ``num_model_shards``,
+``num_pipeline_stages``, ``pipeline_microbatches``; NCCL on the cards,
+gloo with ``--device cpu``): every rank builds the same model from the
+same seed and reads the same global batch stream, the Trainer takes its
+rows, and rank 0 alone logs and writes. Without ``torchrun`` the world is
+one rank.
 """
 
 from __future__ import annotations
@@ -63,6 +72,8 @@ from .data import (ASRCollator, DataLoader, create_dataloader,
 from .device import resolve_device
 from .models.model import CONFIG_FILE, PARAMS_FILE, create_model, save_pretrained
 from .models.moe import upcycle_dense_to_moe
+from .parallel.mesh import init_distributed, is_main_process, shutdown_distributed
+from .parallel.tp import unsharded
 from .pretrain import init_asr_from_backbone, is_pretrain_artifact
 from .quantize import QuantizationConfig, prepare_model_for_qat, quant_stats_to_numpy
 from .synth import SyntheticSpeechDataset
@@ -240,8 +251,20 @@ def main(argv: Optional[List[str]] = None):
                         help="data loader worker processes (0: load in this process)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s | %(levelname)s | %(message)s")
+    distributed = "WORLD_SIZE" in os.environ  # launched by torchrun
+    if distributed:
+        args.device = init_distributed(args.device)
+    logging.basicConfig(level=logging.INFO if is_main_process() else logging.WARNING,
+                        format="%(asctime)s | %(levelname)s | %(message)s")
+    try:
+        return _train(parser, args)
+    finally:
+        if distributed:
+            shutdown_distributed()
 
+
+def _train(parser, args):
+    """main's work once the process group (if any) is up."""
     for flag, path, default in (("--config", args.config, "configs/train.yaml"),
                                 ("--model-config", args.model_config, "configs/model.yaml")):
         if path != default and not os.path.exists(path):
@@ -317,9 +340,12 @@ def main(argv: Optional[List[str]] = None):
     final = os.path.join(train_cfg.checkpoint_dir, "final_model")
     trainer.save_checkpoint(final)
     pretrained = os.path.join(train_cfg.checkpoint_dir, "final_pretrained")
-    # fake quantization is a training-time construct: ship the float
-    # inference config, the learned observers beside it for export_model
-    save_pretrained(pretrained, dataclasses.replace(model_cfg, qat=False), model)
+    with unsharded(model, trainer.mesh):
+        if not trainer.is_main:
+            return {"history": history, "trainer": trainer}
+        # fake quantization is a training-time construct: ship the float
+        # inference config, the learned observers beside it for export_model
+        save_pretrained(pretrained, dataclasses.replace(model_cfg, qat=False), model)
     if model_cfg.qat:
         write_params(os.path.join(pretrained, QUANT_STATS_FILE),
                      quant_stats_to_numpy(model))

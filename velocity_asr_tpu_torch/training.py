@@ -53,6 +53,23 @@ uses.
   with a language-ID head adds ``lid_loss_weight`` times the cross
   entropy of its ``lid_logits`` for batches that carry ``language``.
 
+Parallel training (the ``distributed:`` fields; ``parallel/``): the
+Trainer runs over a (data, model) ``parallel.Mesh`` of
+``torch.distributed`` ranks, built from ``num_data_shards`` and
+``num_model_shards`` / ``num_pipeline_stages`` with the JAX Trainer's
+checks, or passed in. Each rank takes its rows of the global batch
+(``parallel.shard_batch``: padded by repeating row 0), the loss is the
+sum over its real rows divided by the global valid count, and one SUM
+all-reduce of the gradients over the data axis (in buckets) makes every
+rank's gradient the one-process gradient; random draws are made for the
+global batch and cut to the rank's rows (``parallel.data_shard``), and
+the MoE load-balance fractions are global. A model axis > 1 shards the
+CTC head over the vocabulary and MoE experts over the axis
+(``parallel.tp``; the clip norm counts each shard once); pipeline
+stages run the local stack as a microbatch pipeline over the same axis
+(``parallel.pp``). Checkpoints keep the single-rank layout, written by
+rank 0; only rank 0 logs and writes metrics and traces.
+
 The model's scans train through ``ops.scan.SelectiveScanFn`` (offline)
 and ``ops.scan.CarriedStateScanFn`` (the streaming term): on the card the
 bounds-saving forward and backward kernels, without and with the carried
@@ -61,6 +78,7 @@ state.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -69,7 +87,7 @@ import re
 import shutil
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +96,11 @@ import torch.nn.functional as F
 from .audio import HOP_LENGTH, causal_normalize_mel, masked_normalize_mel
 from .augment import SpecAugmentConfig, noise_inject, spec_augment, speed_perturb_audio
 from .ops.mel import compute_mel_spectrogram
+from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, DataShard, all_reduce_, create_mesh,
+                            data_shard, is_main_process, shard_batch)
+from .parallel.pp import pipeline_parallel
+from .parallel.tp import (full_state_dict, gather_tensor, shard_params_tp, shard_state_dict,
+                          sharded_specs)
 from .quantize import load_quant_stats, quant_stats_buffers
 from .streaming import streaming_forward
 
@@ -88,8 +111,9 @@ logger = logging.getLogger(__name__)
 class TrainingConfig:
     """Training configuration: the JAX package's fields and defaults. The
     port trains the offline objective and, with ``streaming_chunks``, the
-    streaming-aware one, with the MoE and language-ID terms; a config that
-    turns on parallel training makes ``Trainer`` raise (``_unsupported``)."""
+    streaming-aware one, with the MoE and language-ID terms, on one rank
+    or over a mesh of ranks (``num_data_shards``, ``num_model_shards``,
+    ``num_pipeline_stages``, ``pipeline_microbatches``)."""
 
     learning_rate: float = 1e-4
     weight_decay: float = 0.01
@@ -229,13 +253,21 @@ class Optimizer:
     k-th call; the update clips the mean by its global norm, runs Adam
     (bias-corrected moments), adds weight_decay * p and scales by
     -schedule(updates so far).
+
+    Under tensor or expert parallelism some parameters are this rank's
+    slices (`sharded`, one flag a parameter): the global norm sums their
+    squares over `group` (the model axis) and adds the replicated ones
+    once. The moments follow the parameters they belong to.
     """
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def __init__(self, params: List[torch.Tensor], config: TrainingConfig):
+    def __init__(self, params: List[torch.Tensor], config: TrainingConfig,
+                 sharded: Optional[List[bool]] = None, group=None):
         self.params = list(params)
         self.config = config
+        self.sharded = sharded if sharded is not None and any(sharded) else None
+        self.group = group
         self.every = max(config.gradient_accumulation_steps, 1)
         self.schedule = warmup_cosine_schedule(config.learning_rate, config.warmup_steps,
                                                lr_horizon(config))
@@ -262,7 +294,7 @@ class Optimizer:
             torch._foreach_zero_(self.acc)
             self.mini_step = 0
         # clip as optax does: t / norm * max once norm reaches max (no sync)
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = self.global_norm(grads)
         max_norm = torch.full((), self.config.grad_clip_norm, dtype=torch.float32,
                               device=norm.device)
         keep = norm < max_norm
@@ -287,6 +319,16 @@ class Optimizer:
         torch._foreach_add_(self.params, update, alpha=-lr)
         return True
 
+    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The gradients' global norm, each sharded leaf counted once."""
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.sharded is None:
+            return torch.linalg.vector_norm(norms)
+        mask = torch.tensor(self.sharded, device=norms.device)
+        sq = norms * norms
+        split = all_reduce_(torch.where(mask, sq, torch.zeros_like(sq)).sum(), self.group)
+        return torch.sqrt(torch.where(mask, torch.zeros_like(sq), sq).sum() + split)
+
     def last_lr(self) -> float:
         """The rate of the most recent update (of the first before any)."""
         return self.schedule(max(self.count - 1, 0))
@@ -310,7 +352,23 @@ class Optimizer:
 
 def _refuse_combinations(model_config, config: TrainingConfig) -> None:
     """The JAX Trainer's ValueErrors: QAT with the streaming-aware
-    objective or with MoE, and a language-ID loss without the head."""
+    objective or with MoE, MoE with pipeline stages, tensor and pipeline
+    axes of different sizes, and a language-ID loss without the head;
+    and QAT over a sharded model axis (the fake quantizers' ranges would
+    be each slice's)."""
+    stages, shards = config.num_pipeline_stages, config.num_model_shards
+    if stages > 1 and shards > 1 and shards != stages:
+        raise ValueError(
+            "num_model_shards and num_pipeline_stages both >1 must "
+            "be equal: TP and PP share the mesh's model axis "
+            f"(got {shards} vs {stages})")
+    if getattr(model_config, "moe_experts", 0) > 0 and stages > 1:
+        raise ValueError(
+            "pipeline parallelism + MoE is not supported (EP and "
+            "PP both consume the model mesh axis)")
+    if getattr(model_config, "qat", False) and shards > 1:
+        raise ValueError("QAT + tensor parallelism is not supported (each rank's fake "
+                         "quantizers would observe only its slice)")
     if getattr(model_config, "qat", False):
         if config.streaming_chunks:
             raise ValueError("QAT + the streaming-aware objective is not supported "
@@ -320,15 +378,6 @@ def _refuse_combinations(model_config, config: TrainingConfig) -> None:
     if config.lid_loss_weight > 0 and getattr(model_config, "num_languages", 0) <= 0:
         raise ValueError("training.lid_loss_weight > 0 requires a model with "
                          "num_languages > 0 (the language-ID head)")
-
-
-def _unsupported(config: TrainingConfig) -> Optional[str]:
-    """What the port cannot train yet, with the ROADMAP item it waits on
-    (pipeline stages with MoE among it)."""
-    if (config.num_model_shards > 1 or config.num_pipeline_stages > 1
-            or config.num_data_shards not in (None, 1)):
-        return "parallel training (ROADMAP module item 9)"
-    return None
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -356,16 +405,32 @@ class Trainer:
     fresh iterator of them; `seed` decides the dropout and SpecAugment
     draws. ``train_step`` / ``eval_step`` return host floats (one sync),
     ``train`` syncs once per log interval.
+
+    `mesh` (a ``parallel.Mesh``; None: built from the config's
+    ``num_data_shards`` and ``num_model_shards`` / ``num_pipeline_stages``
+    over the world's ranks) spreads the step over ranks: every rank
+    builds the Trainer with the same model, seed and batch stream. A model
+    axis > 1 shards `model` in place (``parallel.tp.shard_params_tp``)
+    unless it is the pipeline's alone.
     """
 
     def __init__(self, model: torch.nn.Module, config: TrainingConfig,
                  train_iter: Iterator[Dict[str, Any]],
                  eval_batches: Optional[Callable[[], Iterator[Dict[str, Any]]]] = None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         _refuse_combinations(model.config, config)
-        why = _unsupported(config)
-        if why:
-            raise NotImplementedError(f"{why} is not ported yet")
+        n_model = max(config.num_model_shards, config.num_pipeline_stages)
+        self.mesh = mesh if mesh is not None else create_mesh(config.num_data_shards,
+                                                              n_model=n_model)
+        if not self.mesh.member:
+            raise ValueError(f"this rank is outside the {self.mesh.shape} mesh")
+        if config.num_pipeline_stages > 1 and self.mesh.shape[MODEL_AXIS] != \
+                config.num_pipeline_stages:
+            raise ValueError(f"mesh model axis is {self.mesh.shape[MODEL_AXIS]}, but "
+                             f"num_pipeline_stages={config.num_pipeline_stages}")
+        if self.mesh.shape[MODEL_AXIS] > 1 and (config.num_pipeline_stages <= 1
+                                                or config.num_model_shards > 1):
+            shard_params_tp(model, self.mesh)
         self.model = model
         self.config = config
         self.train_iter = train_iter
@@ -373,10 +438,18 @@ class Trainer:
         self.seed = seed
         self.device = next(model.parameters()).device
         self.params = list(model.parameters())
-        self.optimizer = Optimizer(self.params, config)
+        specs = sharded_specs(model)
+        # the dim each parameter is sharded along over the model axis, or None
+        self._specs = [specs.get(n) for n, _ in model.named_parameters()]
+        self.optimizer = Optimizer(self.params, config, [d is not None for d in self._specs],
+                                   self.mesh.group(MODEL_AXIS))
         self.global_step = 0
         self.best_eval_loss = float("inf")
         self.data_wait_seconds = 0.0  # time train() spent waiting for batches
+        self.is_main = is_main_process()
+        self._shard: Optional[DataShard] = None  # the step's rows, while it runs
+        # the step loss's parts computed alike on every data rank: (weight, term)
+        self._replicated: List[Tuple[float, torch.Tensor]] = []
 
     # ----- steps ---------------------------------------------------------------
 
@@ -425,6 +498,19 @@ class Trainer:
             audio = noise_inject(audio, _fork(rng, 2), aug, (lengths - 1) * HOP_LENGTH)
         return {**batch, "waveform": audio, "input_lengths": lengths}
 
+    def _one_rank(self) -> bool:
+        """Whether the step's rows are the whole batch (no data axis > 1)."""
+        return self._shard is None or self._shard.group is None
+
+    def _row_mean(self, per_row: torch.Tensor) -> torch.Tensor:
+        """The sum of a per-row loss over this rank's real rows, divided by
+        the global batch's valid count; on one data rank, the batch mean."""
+        if self._one_rank():
+            return per_row.mean()
+        shard = self._shard
+        mask = shard.row_mask(per_row.device)
+        return torch.where(mask, per_row, torch.zeros_like(per_row)).sum() / max(shard.n_valid, 1)
+
     def _loss(self, batch: Dict[str, torch.Tensor], rng: Optional[torch.Generator]):
         """The micro-batch's loss; `rng` draws the augmentations and dropout
         (None: neither). CTC, plus in training ``moe_aux_weight`` times the
@@ -433,7 +519,9 @@ class Trainer:
         frames) for a batch with ``language``. With ``streaming_chunks`` and
         a device-mel batch, the streaming term (its own CTC and aux) is
         mixed in at ``streaming_aux_weight``, in training and evaluation
-        alike."""
+        alike. Per-row terms are ``_row_mean``s; the aux terms, the same on
+        every data rank, are also listed in ``_replicated`` with their
+        weights."""
         cfg = self.config
         batch = self._augment_waveform(batch, rng)
         mel, raw = self._batch_mel(batch)
@@ -451,7 +539,8 @@ class Trainer:
         out_lengths = (lengths + 1) // 2
 
         def ctc(logits):
-            return ctc_loss(logits, batch["targets"], out_lengths, batch["target_lengths"])
+            return self._row_mean(ctc_loss_per_example(logits, batch["targets"], out_lengths,
+                                                       batch["target_lengths"]))
 
         mcfg = self.model.config
         moe_aux = (self.model.training and mcfg.moe_experts > 0 and cfg.moe_aux_weight > 0)
@@ -461,11 +550,16 @@ class Trainer:
                          feature_lengths=out_lengths if want_lid else None)
         logits, feats = out if want_lid else (out, None)
         loss = ctc(logits)
+        self._replicated = []
         if collect:
-            loss = loss + cfg.moe_aux_weight * (sum(a for a, _ in collect) / len(collect))
+            aux = cfg.moe_aux_weight * (sum(a for a, _ in collect) / len(collect))
+            loss = loss + aux
+            self._replicated.append((1.0, aux))
         if want_lid:
-            lid_ce = F.cross_entropy(feats["lid_logits"].to(torch.float32),
-                                     batch["language"].to(torch.int64))
+            lid_logits = feats["lid_logits"].to(torch.float32)
+            language = batch["language"].to(torch.int64)
+            lid_ce = (F.cross_entropy(lid_logits, language) if self._one_rank() else
+                      self._row_mean(F.cross_entropy(lid_logits, language, reduction="none")))
             loss = loss + cfg.lid_loss_weight * lid_ce
         if not cfg.streaming_chunks or raw is None:
             return loss
@@ -475,26 +569,95 @@ class Trainer:
             fork = torch.Generator(device=rng.device)
             fork.set_state(aug_state)
             smel = spec_augment(smel, fork, aug, lengths)
+        w = cfg.streaming_aux_weight
+        self._replicated = [((1.0 - w) * c, t) for c, t in self._replicated]
         if moe_aux:
             slogits, s_aux = streaming_forward(self.model, smel, cfg.streaming_chunks, rng=rng,
                                                collect_losses=True)
-            s_loss = ctc(slogits) + cfg.moe_aux_weight * s_aux
+            s_aux = cfg.moe_aux_weight * s_aux
+            s_loss = ctc(slogits) + s_aux
+            self._replicated.append((w, s_aux))
         else:
             s_loss = ctc(streaming_forward(self.model, smel, cfg.streaming_chunks, rng=rng))
-        w = cfg.streaming_aux_weight
         return (1.0 - w) * loss + w * s_loss
 
+    def _pp_scope(self):
+        """The pipeline context of a step (none without pipeline stages)."""
+        if self.config.num_pipeline_stages > 1:
+            return pipeline_parallel(self.mesh, microbatches=self.config.pipeline_microbatches)
+        return contextlib.nullcontext()
+
+    @contextlib.contextmanager
+    def _rows(self, batch: Dict[str, Any]):
+        """This rank's rows of `batch` on the device, over a data axis > 1
+        with the step's ``DataShard`` set for the loss and the draws; on
+        one data rank the whole batch, as the one-process step takes it."""
+        self._replicated = []
+        if self.mesh.shape[DATA_AXIS] == 1:
+            with self._pp_scope():
+                yield self._to_device(batch)
+            return
+        local, _, shard = shard_batch(self.mesh, batch)
+        self._shard = shard
+        try:
+            with data_shard(shard), self._pp_scope():
+                yield self._to_device(local)
+        finally:
+            self._shard = None
+
+    def _global_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The step's loss over the global batch: the per-row part summed
+        over the data axis, the aux part counted once."""
+        group = self.mesh.group(DATA_AXIS)
+        loss = loss.detach()
+        if group is None:
+            return loss
+        if not self._replicated:  # a loss made of per-row terms only
+            return all_reduce_(loss.clone(), group)
+        rep = sum(c * t.detach() for c, t in self._replicated)
+        return all_reduce_(loss - rep, group) + rep
+
+    def _all_reduce_grads(self, grads: List[torch.Tensor],
+                          bucket_bytes: int = 25 << 20) -> None:
+        """Sum the gradients over the data axis in place, in buckets of
+        about `bucket_bytes` (one flat all-reduce each)."""
+        group = self.mesh.group(DATA_AXIS)
+        if group is None:
+            return
+        bucket, size = [], 0
+        for g in grads + [None]:
+            if g is not None:
+                bucket.append(g)
+                size += g.numel() * g.element_size()
+            if bucket and (g is None or size >= bucket_bytes):
+                flat = all_reduce_(torch.cat([t.reshape(-1) for t in bucket]), group)
+                for t, chunk in zip(bucket, flat.split([t.numel() for t in bucket])):
+                    t.copy_(chunk.view_as(t))
+                bucket, size = [], 0
+
+    def gradients(self, batch: Dict[str, Any], rng: Optional[torch.Generator] = None):
+        """(the global loss, every parameter's gradient) of one micro-batch
+        in the model's current mode, without an update: each rank's
+        gradient summed over the data axis, a sharded parameter's its
+        slice's. Zeros for a parameter the loss does not reach."""
+        with self._rows(batch) as local:
+            loss = self._loss(local, rng)
+            grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+            reported = self._global_loss(loss)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        self._all_reduce_grads(grads)
+        return reported, grads
+
     def _step(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """One micro-step; returns the loss as a device tensor (no sync)."""
+        """One micro-step; returns the global loss as a device tensor (no
+        sync)."""
         self.model.train()
         rng = torch.Generator(device=self.device)
         rng.manual_seed(step_seed(self.seed, self.global_step))
-        loss = self._loss(self._to_device(batch), rng)
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        loss, grads = self.gradients(batch, rng)
         self.optimizer.step(grads)
         self.global_step += 1
-        return loss.detach()
+        return loss
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
         loss = self._step(batch)
@@ -503,7 +666,9 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
         self.model.eval()
-        return {"eval_loss": float(self._loss(self._to_device(batch), None))}
+        with self._rows(batch) as local:
+            loss = self._global_loss(self._loss(local, None))
+        return {"eval_loss": float(loss)}
 
     def evaluate(self) -> Dict[str, float]:
         if self.eval_batches is None:
@@ -519,8 +684,12 @@ class Trainer:
     # ----- loop ----------------------------------------------------------------
 
     def train(self) -> Dict[str, List[float]]:
+        """The training loop. Over a mesh every rank runs it (the steps,
+        evaluations and checkpoint gathers are collective); rank 0 alone
+        logs, writes the metrics and checkpoints, and profiles."""
         cfg = self.config
-        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+        if self.is_main:
+            os.makedirs(cfg.checkpoint_dir, exist_ok=True)
         history: Dict[str, List[float]] = {"train_loss": [], "eval_loss": [], "lr": []}
         losses: List[torch.Tensor] = []
         t0 = t_loop = time.perf_counter()
@@ -528,7 +697,7 @@ class Trainer:
         window = None
         try:
             for step in range(self.global_step, cfg.max_steps):
-                if cfg.profile_dir is not None:
+                if cfg.profile_dir is not None and self.is_main:
                     if step == cfg.profile_start:
                         window = self._start_profile()
                     elif window is not None and step == cfg.profile_start + cfg.profile_steps:
@@ -548,11 +717,12 @@ class Trainer:
                     losses = []
                     lr = self.optimizer.last_lr()
                     dt = (time.perf_counter() - t0) / cfg.log_interval
-                    logger.info("Step %d/%d | Loss: %.4f | LR: %.6f | %.3fs/step",
-                                step + 1, cfg.max_steps, avg, lr, dt)
+                    if self.is_main:
+                        logger.info("Step %d/%d | Loss: %.4f | LR: %.6f | %.3fs/step",
+                                    step + 1, cfg.max_steps, avg, lr, dt)
                     history["train_loss"].append(avg)
                     history["lr"].append(lr)
-                    if cfg.metrics_path:
+                    if cfg.metrics_path and self.is_main:
                         os.makedirs(os.path.dirname(os.path.abspath(cfg.metrics_path)),
                                     exist_ok=True)
                         with open(cfg.metrics_path, "a") as f:
@@ -563,7 +733,8 @@ class Trainer:
                 if self.eval_batches and (step + 1) % cfg.eval_interval == 0:
                     eval_loss = self.evaluate()["eval_loss"]
                     history["eval_loss"].append(eval_loss)
-                    logger.info("Eval Loss: %.4f", eval_loss)
+                    if self.is_main:
+                        logger.info("Eval Loss: %.4f", eval_loss)
                     if eval_loss < self.best_eval_loss:
                         self.best_eval_loss = eval_loss
                         self.save_checkpoint(os.path.join(cfg.checkpoint_dir, "best_model"))
@@ -575,9 +746,10 @@ class Trainer:
         finally:
             if window is not None:  # a run that ends or fails inside the window
                 self._stop_profile(window)
-        logger.info("Trained %d micro-steps: data wait %.3f s of %.3f s",
-                    cfg.max_steps - first, self.data_wait_seconds - wait0,
-                    time.perf_counter() - t_loop)
+        if self.is_main:
+            logger.info("Trained %d micro-steps: data wait %.3f s of %.3f s",
+                        cfg.max_steps - first, self.data_wait_seconds - wait0,
+                        time.perf_counter() - t_loop)
         return history
 
     # ----- profiling -----------------------------------------------------------
@@ -611,43 +783,74 @@ class Trainer:
 
     # ----- checkpoints ---------------------------------------------------------
 
+    def _full_opt_state(self) -> Dict[str, Any]:
+        """The optimizer state with each sharded parameter's moments
+        gathered (the single-rank layout)."""
+        state = self.optimizer.state_dict()
+        for key in ("mu", "nu", "acc"):
+            if state[key] is not None:
+                state[key] = [t if d is None else gather_tensor(t, d, self.mesh)
+                              for t, d in zip(state[key], self._specs)]
+        return state
+
     def save_checkpoint(self, path: str) -> None:
         """params, optimizer state and a QAT model's observers
-        (``state.pt``) and the JAX Trainer's ``trainer_meta.json`` keys."""
+        (``state.pt``) and the JAX Trainer's ``trainer_meta.json`` keys, in
+        the single-rank layout (sharded parameters and their moments
+        gathered); rank 0 writes, every rank returns once it has."""
         path = os.path.abspath(path)
-        os.makedirs(path, exist_ok=True)
-        payload = {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict()}
-        stats = quant_stats_buffers(self.model)
-        if stats:
-            payload["quant_stats"] = stats
-        torch.save(payload, os.path.join(path, "state.pt"))
-        meta = {
-            "global_step": self.global_step,
-            "best_eval_loss": self.best_eval_loss,
-            "training_config": dataclasses.asdict(self.config),
-            "model_config": self.model.config.to_dict(),
-        }
-        with open(os.path.join(path, "trainer_meta.json"), "w") as f:
-            json.dump(meta, f, indent=2)
-        logger.info("Saved checkpoint to %s", path)
+        payload = {"params": full_state_dict(self.model, self.mesh),
+                   "opt_state": self._full_opt_state()}
+        if self.is_main:
+            os.makedirs(path, exist_ok=True)
+            stats = quant_stats_buffers(self.model)
+            if stats:
+                payload["quant_stats"] = stats
+            torch.save(payload, os.path.join(path, "state.pt"))
+            meta = {
+                "global_step": self.global_step,
+                "best_eval_loss": self.best_eval_loss,
+                "training_config": dataclasses.asdict(self.config),
+                "model_config": self.model.config.to_dict(),
+            }
+            with open(os.path.join(path, "trainer_meta.json"), "w") as f:
+                json.dump(meta, f, indent=2)
+            logger.info("Saved checkpoint to %s", path)
+        self._barrier()
+
+    def _barrier(self) -> None:
+        if torch.distributed.is_initialized():
+            torch.distributed.barrier()
 
     def load_checkpoint(self, path: str) -> None:
+        """Read a ``save_checkpoint`` directory (written by one rank or
+        many) and take this rank's slices of the sharded parameters and
+        their moments."""
         path = os.path.abspath(path)
         payload = torch.load(os.path.join(path, "state.pt"), map_location=self.device,
                              weights_only=True)
-        self.model.load_state_dict(payload["params"], strict=True)
-        self.optimizer.load_state_dict(payload["opt_state"])
+        self.model.load_state_dict(shard_state_dict(payload["params"], self.model, self.mesh),
+                                   strict=True)
+        opt = payload["opt_state"]
+        if any(d is not None for d in self._specs):
+            names = [n for n, _ in self.model.named_parameters()]
+            for key in ("mu", "nu", "acc"):
+                if opt[key] is not None:
+                    opt[key] = list(shard_state_dict(dict(zip(names, opt[key])), self.model,
+                                                     self.mesh).values())
+        self.optimizer.load_state_dict(opt)
         if quant_stats_buffers(self.model):
             load_quant_stats(self.model, payload["quant_stats"])
         with open(os.path.join(path, "trainer_meta.json")) as f:
             meta = json.load(f)
         self.global_step = int(meta["global_step"])
         self.best_eval_loss = float(meta["best_eval_loss"])
-        logger.info("Loaded checkpoint from %s (step %d)", path, self.global_step)
+        if self.is_main:
+            logger.info("Loaded checkpoint from %s (step %d)", path, self.global_step)
 
     def _rotate_checkpoints(self) -> None:
         """Keep the newest keep_last ``checkpoint_step_*`` directories."""
-        if self.config.keep_last <= 0:
+        if self.config.keep_last <= 0 or not self.is_main:
             return
         pat = re.compile(r"checkpoint_step_(\d+)$")
         entries = sorted((int(m.group(1)), name) for name in os.listdir(self.config.checkpoint_dir)

@@ -5,7 +5,9 @@
         [--beam-width K [--lm LM.json.gz] [--lm-weight 0.5] [--hotwords FILE|w1,w2]
          [--hotword-weight 2.0]] \
         [--streaming [--chunk-seconds 2.0] [--lookahead N]] [--identify-language] \
-        [--device cuda]
+        [--sequence-parallel] [--device cuda]
+    torchrun --standalone --nproc_per_node N -m velocity_asr_tpu_torch.transcribe \
+        utt.flac --checkpoint DIR --sequence-parallel
 
 Per utterance: reflect-pad the audio to its frame bucket (multiples of
 ``frame_bucket`` frames), round it to int16 as the JAX pipeline's wire
@@ -36,11 +38,18 @@ greedy path: one forward per frame bucket.
 adds each file's ``language``, ``language_prob`` and ``language_probs``:
 the head's posterior from a forward of its own, pooled over the
 utterance's valid output frames (``Transcriber.language_probs``).
+
+``--sequence-parallel`` runs every SSM scan with its time axis sharded
+over all ranks (``scan_mode="sp"`` inside ``parallel.sequence_parallel``
+over a mesh of every rank: NCCL on the card, gloo with ``--device
+cpu``); without ``torchrun`` the world is one rank. Every rank computes
+every file; rank 0 alone prints and writes ``--output``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -372,6 +381,10 @@ def main(argv: List[str] | None = None) -> int:
     parser.add_argument("--identify-language", action="store_true",
                         help="also report the language-ID head's prediction (models "
                              "trained with num_languages > 0)")
+    parser.add_argument("--sequence-parallel", action="store_true",
+                        help="shard the SSM scans' time axis over all ranks (sequence "
+                             "parallelism for long-form audio; run under torchrun for more "
+                             "than one rank)")
     args = parser.parse_args(argv)
     if not args.audio and not args.input_dir:
         parser.error("provide audio file(s) or --input-dir")
@@ -387,7 +400,32 @@ def main(argv: List[str] | None = None) -> int:
         parser.error("--identify-language is not supported with --streaming "
                      "(the LID head pools over the full utterance)")
 
-    pipeline = load_transcriber(args.checkpoint, device=args.device)
+    device, overrides, scope, main_rank = args.device, {}, contextlib.nullcontext(), True
+    if args.sequence_parallel:
+        from .parallel import create_mesh, init_distributed, sequence_parallel
+        from .parallel.mesh import is_main_process
+
+        device = init_distributed(args.device)
+        overrides["scan_mode"] = "sp"
+        mesh = create_mesh()
+        scope, main_rank = sequence_parallel(mesh), is_main_process()
+        if main_rank:
+            print(f"Sequence parallelism: time axis sharded over {mesh.shape['data']} ranks",
+                  file=sys.stderr)
+    try:
+        with scope:
+            return _run(parser, args, device, overrides, main_rank)
+    finally:
+        if args.sequence_parallel:
+            from .parallel import shutdown_distributed
+
+            shutdown_distributed()
+
+
+def _run(parser, args, device, overrides: dict, main_rank: bool) -> int:
+    """main's work after the argument checks and the parallel set-up;
+    only `main_rank` prints and writes the output."""
+    pipeline = load_transcriber(args.checkpoint, device=device, **overrides)
     if args.identify_language and pipeline.num_languages <= 0:
         parser.error("--identify-language requires a model with a LID head "
                      "(trained with output.num_languages > 0); this "
@@ -416,12 +454,12 @@ def main(argv: List[str] | None = None) -> int:
                                         identify_language=args.identify_language)
 
     def show(result):
-        if not args.output:
+        if main_rank and not args.output:
             print(json.dumps(result) if args.json
                   else f"{result['file']}\t{result.get('text', result.get('error', ''))}")
 
     results = transcribe_files(files, transcribe_one, show)
-    if args.output:
+    if args.output and main_rank:
         with open(args.output, "w") as f:
             if args.json:
                 json.dump(results, f, indent=2)
