@@ -330,10 +330,11 @@ its seconds:
      over the one-rank axis: logits bit-equal to scan_mode "pallas",
      texts identical, and the same launches, 10 scan_fwd (an axis of one
      rank takes the kernel path) and a log-mel a forward; (c) one fp32
-     micro-step of 8a's batch through
-     Trainer over the one-rank mesh: the loss and every parameter
-     bit-equal to the plain Trainer's, 10 bounds forwards and 10
-     backwards;
+     micro-step of 8a's batch through Trainer over the one-rank mesh, of
+     the checkpoint and of its QAT model (13a's): the loss, every
+     parameter and the QAT observers bit-equal to the plain Trainer's, 10
+     bounds forwards and 10 backwards each, and no collective call (an
+     axis of one rank has no group, so no observer reduces);
   6. (after 7, 10, 11, 8, 9, 12, 13, 14, 15 and 16, whose launch counts it reports) kernel timings beside
      their bounds and a library call: device time from CUDA graphs of many
      calls (what the JSON line reports), and CUDA events around eager
@@ -361,6 +362,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -717,7 +719,7 @@ CONVERT_UTTS = 4  # 15d: held-out utterances whose logits must be bit-equal
 # whole length, at the long form's batch-1 shape, a batch of 16 and an L
 # that needs identity padding, rtol = atol = 1e-5 (the JAX test's);
 # 16b: SP_UTTS long-form utterances at batch 1 with scan_mode "sp"; 16c:
-# one mesh Trainer micro-step of 8a's batch.
+# one mesh Trainer micro-step of 8a's batch, float and QAT.
 SP_SHARDS = (2, 4, 8)
 SP_SHAPES = ((1, 3600), (16, 1200), (1, 3601))
 SP_TOL = 1e-5
@@ -4994,40 +4996,77 @@ def sp_transcripts(plan, counts):
         raise AssertionError("[16b] scan_mode sp at world 1 differs from pallas")
 
 
+@contextlib.contextmanager
+def counted_collectives():
+    """Count the torch.distributed collective and point-to-point calls
+    made in the block (every name the port's parallel code calls)."""
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather", "broadcast", "barrier", "batch_isend_irecv",
+             "broadcast_object_list", "all_gather_object")
+    calls = collections.Counter()
+    saved = {n: getattr(dist, n) for n in names}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    try:
+        for n in names:
+            setattr(dist, n, counting(n))
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
 def mesh_trainer_step(counts):
     """16c: one fp32 micro-step of 8a's batch through Trainer(mesh=...) over
-    the one-rank NCCL mesh (num_data_shards=1): the loss and every
-    parameter bit-equal to the plain Trainer's, and exactly
-    SCANS_PER_STEP bounds-forward and backward launches."""
+    the one-rank NCCL mesh (num_data_shards=1), of the checkpoint and of
+    its QAT model: the loss, every parameter (and the QAT observers)
+    bit-equal to the plain Trainer's, exactly SCANS_PER_STEP bounds-forward
+    and backward launches, and no collective (an axis of one rank has no
+    group, so no observer reduces)."""
     import torch
 
     from velocity_asr_tpu_torch.models.model import from_pretrained
     from velocity_asr_tpu_torch.ops.cuda_lib import launch_counts, reset_launch_counts
     from velocity_asr_tpu_torch.parallel.mesh import create_mesh, local_mesh
+    from velocity_asr_tpu_torch.quantize import quant_stats_buffers
     from velocity_asr_tpu_torch.training import Trainer, TrainingConfig
 
     batch = check_batch()
-    out = []
-    for mesh in (local_mesh(), create_mesh(1, 1)):
-        model = from_pretrained(CHECKPOINT, device="cuda", dtype="float32")
-        trainer = Trainer(model, TrainingConfig(learning_rate=3e-4, warmup_steps=1,
-                                                num_data_shards=1), iter(()), mesh=mesh)
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        loss = trainer.train_step(batch)["loss"]
-        torch.cuda.synchronize()
-        got = dict(launch_counts)
-        out.append((loss, [p.detach().clone() for p in trainer.params], got))
-    (loss, params, _), (mesh_loss, mesh_params, got) = out
-    counts.update(got)
-    equal = sum(torch.equal(a, b) for a, b in zip(params, mesh_params))
-    log(f"[16c] one fp32 micro-step of {CHECK_BATCH} x {CHECK_FRAMES} frames (dropout 0.1), "
-        f"Trainer over the one-rank NCCL mesh vs the plain Trainer: loss {mesh_loss!r} vs "
-        f"{loss!r}; {equal} of {len(params)} parameters bit-equal")
-    expect_launches("16c mesh micro-step", got, {"scan_fwd_bounds_f32": SCANS_PER_STEP,
-                                                 "scan_bwd_f32": SCANS_PER_STEP})
-    if mesh_loss != loss or equal != len(params):
-        raise AssertionError("[16c] the mesh Trainer's step differs from the plain Trainer's")
+    for qat in (False, True):
+        out = []
+        for mesh in (local_mesh(), create_mesh(1, 1)):
+            model = (qat_model("cuda") if qat
+                     else from_pretrained(CHECKPOINT, device="cuda", dtype="float32"))
+            trainer = Trainer(model, TrainingConfig(learning_rate=3e-4, warmup_steps=1,
+                                                    num_data_shards=1), iter(()), mesh=mesh)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            with counted_collectives() as calls:
+                loss = trainer.train_step(batch)["loss"]
+                torch.cuda.synchronize()
+            got = dict(launch_counts)
+            state = [p.detach().clone() for p in trainer.params]
+            state += [v.clone() for v in quant_stats_buffers(model).values()]
+            out.append((loss, state, got, sum(calls.values())))
+        (loss, state, _, _), (mesh_loss, mesh_state, got, collectives) = out
+        counts.update(got)
+        equal = sum(torch.equal(a, b) for a, b in zip(state, mesh_state))
+        what, held = (("QAT micro-step (dropout 0)", "parameters and observers") if qat
+                      else ("micro-step (dropout 0.1)", "parameters"))
+        log(f"[16c] one fp32 {what} of {CHECK_BATCH} x {CHECK_FRAMES} frames, Trainer over the "
+            f"one-rank NCCL mesh vs the plain Trainer: loss {mesh_loss!r} vs {loss!r}; {equal} "
+            f"of {len(state)} {held} bit-equal; {collectives} collective calls in the mesh step")
+        expect_launches(f"16c mesh {'QAT ' if qat else ''}micro-step", got,
+                        {"scan_fwd_bounds_f32": SCANS_PER_STEP, "scan_bwd_f32": SCANS_PER_STEP})
+        if mesh_loss != loss or equal != len(state) or collectives:
+            raise AssertionError("[16c] the mesh Trainer's step differs from the plain "
+                                 "Trainer's, or called a collective")
 
 
 def phase_parallel(plan, card: str):

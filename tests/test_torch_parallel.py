@@ -20,7 +20,15 @@ tests/conftest.py, the port's in gloo worlds of 2 and 4 processes
   gradient, dropout and SpecAugment on, for DP (with and without
   padding), TP and EP (1e-5 of each gradient's max);
 - TP and EP checkpoints reloaded bit-equal in one process
-  (tests/test_torch_parallel_cli.py runs the CLIs under torchrun).
+  (tests/test_torch_parallel_cli.py runs the CLIs under torchrun);
+- QAT over the mesh: DP micro-steps at worlds 2 and 4 and a padded 3-row
+  one, TP and DP + TP micro-steps, each against the JAX Trainer on the
+  same mesh (the observers over the global batch and the whole
+  vocabulary: tests/test_torch_quantize.py's stats tolerances, each
+  rank's equal to every other's, and each rank's own rows giving stats
+  more than 1% away, the control); every rank's gradients and observers
+  against one process (1e-5); a TP checkpoint's observers in the
+  one-rank layout, reloaded bit-equal in one process and sharded.
 
 The JAX Trainer references run the JAX package's sequential scan (the
 same recurrence as its Pallas tier, which the one-process tests of
@@ -39,6 +47,7 @@ import pytest
 import torch
 
 import torch_parallel_workers as W
+from test_torch_quantize import ACT_STATS_RTOL, JIT_WEIGHT_RTOL, _check_stats
 from velocity_asr_tpu import training as jtraining
 from velocity_asr_tpu.models import config as jconfig
 from velocity_asr_tpu.models import model as jmodel
@@ -47,11 +56,12 @@ from velocity_asr_tpu.parallel import sequence_parallel as jsequence_parallel
 from velocity_asr_tpu.parallel import sp_scan as jsp
 from velocity_asr_tpu.parallel import tp as jtp
 from velocity_asr_tpu_torch import training as ttraining
-from velocity_asr_tpu_torch.checkpoint import _flatten, params_to_numpy
+from velocity_asr_tpu_torch.checkpoint import _flatten, params_to_numpy, quant_stats_from_numpy
 from velocity_asr_tpu_torch.models.config import VelocityASRConfig
 from velocity_asr_tpu_torch.ops import scan as tscan
 from velocity_asr_tpu_torch.parallel import mesh as tmesh
 from velocity_asr_tpu_torch.parallel.dryrun import spawn_world
+from velocity_asr_tpu_torch.quantize import load_quant_stats, quant_stats_buffers
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRAD_EQUAL = 1e-5  # world-N gradients against one process: fp32 summation order
@@ -356,15 +366,19 @@ def test_dp_step_with_padding_matches_jax(worlds, jax_padded_step, world):
 
 
 @pytest.mark.parametrize("world", [2, 4])
-@pytest.mark.parametrize("axis", ["grad_dp", "grad_dp_pad", "grad_tp", "grad_ep"])
+@pytest.mark.parametrize("axis", ["grad_dp", "grad_dp_pad", "grad_tp", "grad_ep",
+                                  "grad_qat_dp", "grad_qat_dp_pad", "grad_qat_tp"])
 def test_every_rank_gets_the_one_process_gradient(worlds, world, axis):
     """Dropout 0.1 and SpecAugment on: the world's draws are the one
     process's, so the loss and every parameter's gradient on every rank
-    equal the one-process ones up to the order of fp32 sums."""
+    equal the one-process ones up to the order of fp32 sums; with QAT the
+    observers too (their ranges over the global batch)."""
+    keys = ("loss_rel", "grad_rel", "zero_grad_rel", "norm_rel")
+    if "qat" in axis:
+        keys += ("stats_rel",)
     for r in worlds[world]:
         gaps = r[axis]
-        assert all(gaps[k] <= GRAD_EQUAL for k in ("loss_rel", "grad_rel", "zero_grad_rel",
-                                                    "norm_rel")), (r["rank"], gaps)
+        assert all(gaps[k] <= GRAD_EQUAL for k in keys), (r["rank"], gaps)
 
 
 @pytest.mark.parametrize("kind,model", [("tp", {"vocab_size": 64}),
@@ -383,10 +397,153 @@ def test_sharded_checkpoint_reloads_bit_equal_in_one_process(worlds, kind, model
         assert mu.shape == p.shape
 
 
-def test_qat_over_a_sharded_model_axis_is_refused():
-    """Each rank's fake quantizers would observe only its slice of the
-    head, so QAT with num_model_shards > 1 raises before any collective."""
-    model = W.small_model()
-    model.config = dataclasses.replace(model.config, qat=True)
-    with pytest.raises(ValueError, match="QAT \\+ tensor parallelism"):
-        ttraining.Trainer(model, ttraining.TrainingConfig(num_model_shards=2), iter(()))
+# ----- QAT over the mesh ---------------------------------------------------------------
+
+
+QAT_MESHES = {"dp2": dict(n_data=2), "dp4": dict(n_data=4), "tp4": dict(n_data=2, n_model=2)}
+
+
+def _jax_first_steps(jt, batches):
+    """The JAX Trainer's first micro-step on each batch, each from the
+    Trainer's start (one compile: the batches pad to one shape): [(step,
+    params, quant_stats)]."""
+    start = jax.device_get((jt.params, jt.opt_state, jt.quant_stats))
+    out = []
+    for b in batches:
+        jt.params, jt.opt_state, jt.quant_stats = start
+        jt.global_step = 0
+        jt._replicate()
+        ref = jt.train_step(b)
+        out.append((ref, jax.device_get(jt.params), jax.device_get(jt.quant_stats)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_qat():
+    """steps(mesh) -> the JAX Trainer's QAT micro-steps on that mesh of
+    QAT_MESHES from W.qat_model's weights, computed once: the 4-row batch,
+    and on "dp2" the 3-row one too (padded to 4)."""
+    cache = {}
+
+    def steps(name):
+        if name not in cache:
+            mesh = jmesh.create_mesh(**QAT_MESHES[name])
+            jt = _jax_trainer(params_to_numpy(W.qat_model()), mesh,
+                              model={"vocab_size": 64, "qat": True})
+            batches = [W.qat_batch()] + [W.qat_three()] * (name == "dp2")
+            cache[name] = _jax_first_steps(jt, batches)
+        return cache[name]
+
+    return steps
+
+
+@pytest.fixture(scope="module")
+def qat_grads():
+    """The port's clipped one-process gradients of W.qat_model on the
+    4-row and the 3-row batch (what decides the update's tolerance)."""
+    return {rows: _one_process_grads(W.qat_model(), b)
+            for rows, b in ((4, W.qat_batch()), (3, W.qat_three()))}
+
+
+def _stats_model(tree):
+    """A QAT model holding a flax quant_stats tree."""
+    model = W.qat_model()
+    load_quant_stats(model, quant_stats_from_numpy(tree))
+    return model
+
+
+def _activation_gap(tree, jstats) -> float:
+    """The largest relative gap of an activation observer's scale or zero
+    point between a port stats tree and the JAX one."""
+    ref = dict(_flatten(jax.device_get(jstats)))
+    return max(float(np.abs(value - ref[key]).max() / np.abs(ref[key]).max())
+               for key, value in _flatten(tree)
+               if "activation_quantizer" in key and key[-1] in ("scale", "zero_point"))
+
+
+def _check_qat_step(ranks, prefix, ref, ref_params, ref_stats, grads):
+    """Every rank's loss, update and observers against the JAX step, and
+    every rank's observers bit-equal to rank 0's."""
+    start = params_to_numpy(W.qat_model())
+    first = dict(_flatten(ranks[0][f"{prefix}_stats"]))
+    for r in ranks:
+        np.testing.assert_allclose(r[f"{prefix}_step"]["loss"], ref["loss"], rtol=1e-5)
+        _check_stats(ref_stats, _stats_model(r[f"{prefix}_stats"]), ACT_STATS_RTOL,
+                     JIT_WEIGHT_RTOL)
+        for key, value in _flatten(r[f"{prefix}_stats"]):
+            np.testing.assert_array_equal(value, first[key], err_msg=f"rank {r['rank']}: {key}")
+        _assert_update_close(start, r[f"{prefix}_params"], ref_params, grads)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_qat_dp_step_matches_jax(worlds, jax_qat, qat_grads, world):
+    """QAT over a data axis of every rank: each rank's observers are the
+    JAX Trainer's over the global batch (same n_data, same weights), the
+    same on every rank, and the loss and update JAX's. The control: each
+    rank's own rows alone give activation stats more than 1% away."""
+    (ref, ref_params, ref_stats), = jax_qat(f"dp{world}")[:1]
+    _check_qat_step(worlds[world], "qat_dp", ref, ref_params, ref_stats, qat_grads[4])
+    for r in worlds[world]:
+        assert _activation_gap(r["qat_dp_own_rows"], ref_stats) > 0.01, r["rank"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_qat_dp_step_with_padding_matches_jax(worlds, jax_qat, qat_grads, world):
+    """3 rows over the data axis, padded by repeating row 0 as the JAX
+    Trainer pads: the observers see row 0 twice, as JAX's do."""
+    ref, ref_params, ref_stats = jax_qat("dp2")[1]
+    _check_qat_step(worlds[world], "qat_dp3", ref, ref_params, ref_stats, qat_grads[3])
+
+
+@pytest.mark.parametrize("world", [2, 4], ids=["tp", "dp-tp"])
+def test_qat_tp_step_matches_jax(worlds, jax_qat, qat_grads, world):
+    """QAT with the head sharded over 2 model ranks: each rank keeps its
+    32 channels of the head's weight observer, its output observer spans
+    the whole vocabulary and the global batch (JAX's on the (2 data, 2
+    model) mesh, which computes the one global batch the port's (1, 2)
+    and (2, 2) meshes do: one compile serves both)."""
+    (ref, ref_params, ref_stats), = jax_qat("tp4")[:1]
+    assert all(r["qat_tp_local_stats"] == (1, 32) for r in worlds[world])
+    _check_qat_step(worlds[world], "qat_tp", ref, ref_params, ref_stats, qat_grads[4])
+
+
+def test_qat_tp_checkpoint_reloads_bit_equal_in_one_process(worlds):
+    """The TP QAT checkpoint keeps the one-rank layout, observers too: one
+    process reloads parameters and stats bit-equal, and a sharded Trainer
+    reloads the same stats."""
+    r = worlds[4][0]
+    trainer = ttraining.Trainer(W.qat_model(seed=0), ttraining.TrainingConfig(**W.TRAIN),
+                                iter(()))
+    trainer.load_checkpoint(os.path.join(r["tmp"], "tp_qat_ckpt"))
+    state = trainer.model.state_dict()
+    assert state.keys() == r["qat_tp_saved"].keys()
+    for key, value in r["qat_tp_saved"].items():
+        assert torch.equal(state[key], torch.tensor(value)), key
+    stats = quant_stats_buffers(trainer.model)
+    assert stats.keys() == r["qat_tp_saved_stats"].keys()
+    for key, value in r["qat_tp_saved_stats"].items():
+        assert torch.equal(stats[key], torch.tensor(value)), key
+        for rank in worlds[4]:
+            np.testing.assert_array_equal(rank["qat_tp_reloaded_stats"][key], value,
+                                          err_msg=f"rank {rank['rank']}: {key}")
+    assert stats["ctc_head.proj.weight_quantizer.scale"].shape == (1, 64)
+
+
+@pytest.mark.parametrize("rows,n_data", [(4, 2), (3, 2), (5, 4)], ids=["even", "padded", "dp4"])
+def test_ranks_rounding_rounds_as_each_rank(rows, n_data):
+    """The four-card QAT leg's witness: one rank's forward under
+    ``dryrun.ranks_rounding`` gives each data rank's rows bit for bit as a
+    forward of those rows alone does (padded by row 0 as ``shard_batch``
+    pads; the CPU's vector loops round by layout, which the joined
+    results keep)."""
+    from types import SimpleNamespace
+
+    from velocity_asr_tpu_torch.parallel.dryrun import witness_bit_equal
+
+    trainer = SimpleNamespace(config=ttraining.TrainingConfig(**W.TRAIN),
+                              mesh=SimpleNamespace(shape={"data": n_data, "model": 1}),
+                              model=SimpleNamespace(ctc_head=SimpleNamespace(tp_group=None)))
+    batch = {"mel_spectrogram": np.random.default_rng(rows).standard_normal(
+        (rows, 48, 80)).astype(np.float32)}
+    with torch.no_grad():
+        assert witness_bit_equal(trainer, W.small_model(seed=0, dropout=0.0), batch)

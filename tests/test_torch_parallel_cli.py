@@ -1,6 +1,6 @@
 """The port's parallel entry points on the CPU: the train and
 ``transcribe --sequence-parallel`` CLIs under torchrun (gloo, world 2,
-``--device cpu``) against one process."""
+``--device cpu``) against one process, the train CLI also with QAT."""
 
 import json
 import os
@@ -57,6 +57,46 @@ def test_train_cli_under_torchrun_matches_one_process(tmp_path):
         assert (p - q).abs().max().item() <= 2 * 2 * 3e-4 * 2 / 500, name
     assert open(tmp_path / "world2" / "final_pretrained" / "vocabulary.json").read() == \
         open(tmp_path / "one" / "final_pretrained" / "vocabulary.json").read()
+
+
+def test_train_cli_qat_under_torchrun_matches_one_process(tmp_path):
+    """quantization.enabled under torchrun at world 2: the observers range
+    over the global batch, so final_pretrained's quant_stats.msgpack
+    (written once every rank has gathered) and params are the one-process
+    run's, within tests/test_torch_quantize.py's stats tolerances and the
+    update bound above."""
+    from test_torch_quantize import ACT_STATS_RTOL, JIT_WEIGHT_RTOL, _check_stats
+    from velocity_asr_tpu_torch.checkpoint import quant_stats_from_numpy, read_params
+    from velocity_asr_tpu_torch.models.model import create_model, from_pretrained
+    from velocity_asr_tpu_torch.quantize import load_quant_stats, prepare_model_for_qat
+
+    (tmp_path / "model.yaml").write_text(
+        "model:\n  d_model: 16\n  dropout: 0.0\nssm:\n  num_layers: 1\n  state_dim: 4\n"
+        "global_context:\n  ssm_layers: 1\n  ssm_state_dim: 4\n  attention_heads: 2\n"
+        "  attention_dim: 8\noutput:\n  vocab_size: 1000\nperformance:\n  scan_mode: pallas\n")
+    train = open(os.path.join(ROOT, "configs", "train_synth.yaml")).read()
+    (tmp_path / "train.yaml").write_text(
+        train.replace("gradient_accumulation_steps: 2", "gradient_accumulation_steps: 1")
+        .replace("quantization:\n  enabled: false", "quantization:\n  enabled: true"))
+    common = ["--config", str(tmp_path / "train.yaml"), "--model-config",
+              str(tmp_path / "model.yaml"), "--synthetic", "8", "--max-steps", "2",
+              "--batch-size", "4", "--num-workers", "0", "--device", "cpu"]
+    proc = _torchrun(["-m", "velocity_asr_tpu_torch.train", *common, "--checkpoint-dir",
+                      str(tmp_path / "world2")])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    one = subprocess.run([sys.executable, "-m", "velocity_asr_tpu_torch.train", *common,
+                          "--checkpoint-dir", str(tmp_path / "one")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert one.returncode == 0, one.stderr[-3000:]
+    world2, ref = (tmp_path / run / "final_pretrained" for run in ("world2", "one"))
+    a, b = (from_pretrained(str(d), device="cpu") for d in (world2, ref))
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        assert (p - q).abs().max().item() <= 2 * 2 * 3e-4 * 2 / 500, name
+    model = create_model(prepare_model_for_qat(b.config), device="cpu")
+    load_quant_stats(model, quant_stats_from_numpy(read_params(str(ref / "quant_stats.msgpack"))))
+    _check_stats(read_params(str(world2 / "quant_stats.msgpack")), model, ACT_STATS_RTOL,
+                 JIT_WEIGHT_RTOL)
 
 
 def test_transcribe_sequence_parallel_under_torchrun_matches_one_process(tmp_path):

@@ -9,7 +9,8 @@ module), the JAX side on tests/conftest.py's virtual mesh:
   (2e-5), and a Trainer step with two stages against the JAX Trainer at
   tests/test_torch_training.py's update tolerances;
 - every parameter's gradient on every rank against the one-process
-  gradient at 4 stages and at 2 stages x 2 data shards (1e-5);
+  gradient at 4 stages and at 2 stages x 2 data shards (1e-5), also of
+  a QAT model, its observers within 1e-5 too;
 - dropout 0.1 trains, streaming ignores the context, the errors (a stage
   count that does not divide the stack, scan_mode "sp", MoE, mismatched
   tensor and pipeline axes) and ``_resolve_microbatches``'s table.
@@ -130,12 +131,17 @@ def test_trainer_pipeline_step_matches_jax(world):
     assert covered > 0.75 * total and len(names) == len(list(model.parameters()))
 
 
-@pytest.mark.parametrize("axis", ["grad_pp4", "grad_pp2_dp2"])
+@pytest.mark.parametrize("axis", ["grad_pp4", "grad_pp2_dp2", "grad_qat_pp4",
+                                  "grad_qat_pp2_dp2"])
 def test_every_rank_gets_the_one_process_gradient(world, axis):
+    """With QAT the observers too: they run outside the pipelined stack,
+    on every stage, over the data axis's global batch."""
+    keys = ("loss_rel", "grad_rel", "zero_grad_rel", "norm_rel")
+    if "qat" in axis:
+        keys += ("stats_rel",)
     for r in world:
         gaps = r[axis]
-        assert all(gaps[k] <= GRAD_EQUAL for k in ("loss_rel", "grad_rel", "zero_grad_rel",
-                                                    "norm_rel")), (r["rank"], gaps)
+        assert all(gaps[k] <= GRAD_EQUAL for k in keys), (r["rank"], gaps)
 
 
 def test_pipeline_with_dropout_trains(world):

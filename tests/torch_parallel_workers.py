@@ -16,12 +16,14 @@ from velocity_asr_tpu_torch.models.config import VelocityASRConfig
 from velocity_asr_tpu_torch.models.model import create_model
 from velocity_asr_tpu_torch.models.ssm import LocalSSMProcessor
 from velocity_asr_tpu_torch.parallel.dryrun import compare_step, one_rank
-from velocity_asr_tpu_torch.parallel.mesh import create_mesh
+from velocity_asr_tpu_torch.parallel.mesh import create_mesh, shard_batch
 from velocity_asr_tpu_torch.parallel.pp import pipeline_parallel
 from velocity_asr_tpu_torch.parallel.sp_scan import (selective_scan_sequence_parallel,
                                                      selective_scan_sp_padded,
                                                      sequence_parallel)
-from velocity_asr_tpu_torch.parallel.tp import full_state_dict, shard_params_tp
+from velocity_asr_tpu_torch.parallel.tp import (full_quant_stats, full_state_dict,
+                                                shard_params_tp, unsharded)
+from velocity_asr_tpu_torch.quantize import quant_stats_to_numpy
 from velocity_asr_tpu_torch.training import Trainer, TrainingConfig
 
 SMALL = dict(d_model=32, ssm_layers=2, ssm_state_dim=8, global_ssm_layers=1,
@@ -65,6 +67,37 @@ def batch(seed: int, frames: int = 48, lengths=(48, 40), target_lengths=(8, 6), 
     return {"mel_spectrogram": mel, "targets": targets,
             "input_lengths": np.asarray(lengths, np.int32),
             "target_lengths": np.asarray(target_lengths, np.int32)}
+
+
+def qat_batch() -> dict:
+    """The QAT steps' 4-row batch (the TP step's). Its rows span other
+    ranges: a shard's observers differ from the whole batch's, which the
+    tests assert on every rank."""
+    return batch(5, vocab=64, lengths=(48, 40, 44, 36), target_lengths=(8, 6, 7, 5))
+
+
+def qat_three() -> dict:
+    """The padded QAT step's 3-row batch."""
+    return batch(9, vocab=64, lengths=(48, 40, 30), target_lengths=(8, 6, 5))
+
+
+def qat_grad_batch(rows: int, frames: int = 48) -> dict:
+    """A `rows`-row batch for the QAT gradient comparisons. Fake
+    quantization rounds each activation to a code, so a QAT gradient
+    equals the one process's only where every rank's activations round as
+    the one process's: on the CPU a call on one row rounds otherwise than
+    a call on several (2.3e-6 on the logits), codes at a boundary flip
+    and a gradient moves by up to 1.5e-3 of its max. So the comparisons
+    give every rank, and every pipeline microbatch, two rows or more."""
+    lengths = tuple(frames - 2 * i for i in range(rows))
+    return batch(13, frames=frames, lengths=lengths, vocab=64,
+                 target_lengths=tuple(8 - i % 4 for i in range(rows)))
+
+
+def qat_model(seed: int = 4, **overrides):
+    """The SMALL model with QAT on and a 64-token head (it splits over 2
+    model ranks)."""
+    return small_model(seed=seed, **{"vocab_size": 64, "qat": True, **overrides})
 
 
 def mel(seed: int, rows: int, frames: int) -> np.ndarray:
@@ -167,15 +200,81 @@ def parallel_suite(tmp: str) -> dict:
         lambda: small_model(seed=14, **moe, **drop),
         TrainingConfig(**TRAIN, augment=aug, moe_aux_weight=0.5, num_data_shards=world // 2,
                        num_model_shards=2), four)
+    out.update(qat_suite(tmp, world))
+    return out
+
+
+def own_rows_stats(model, b: dict, mesh) -> dict:
+    """The observers of `model` (no groups) after a training forward of
+    this rank's rows of `b` alone: what they held before they reduced over
+    the data axis, the control a test of the reduction must differ from."""
+    rows, _, _ = shard_batch(mesh, b)
+    model.train()
+    with torch.no_grad():
+        model(torch.tensor(rows["mel_spectrogram"]))
+    return quant_stats_to_numpy(model)
+
+
+def qat_suite(tmp: str, world: int) -> dict:
+    """QAT over the mesh: micro-steps over the data axis (4 rows, and 3
+    padded), over a (world/2, 2) mesh with the head sharded, its
+    checkpoint, and every rank's gradients and observers against one
+    process (dropout and SpecAugment on)."""
+    out = {}
+    four = qat_batch()
+    dp = Trainer(qat_model(), TrainingConfig(**TRAIN, num_data_shards=world), iter(()))
+    out["qat_dp_step"] = dp.train_step(four)
+    out["qat_dp_params"] = _numpy_tree(dp.model, dp.mesh)
+    out["qat_dp_stats"] = _stats_tree(dp.model, dp.mesh)
+    out["qat_dp_own_rows"] = own_rows_stats(qat_model(), four, dp.mesh)
+    dp3 = Trainer(qat_model(), TrainingConfig(**TRAIN, num_data_shards=world), iter(()))
+    out["qat_dp3_step"] = dp3.train_step(qat_three())
+    out["qat_dp3_params"] = _numpy_tree(dp3.model, dp3.mesh)
+    out["qat_dp3_stats"] = _stats_tree(dp3.model, dp3.mesh)
+
+    tp_cfg = TrainingConfig(**TRAIN, num_data_shards=world // 2, num_model_shards=2)
+    tp = Trainer(qat_model(), tp_cfg, iter(()))
+    out["qat_tp_local_stats"] = tuple(tp.model.ctc_head.proj.weight_quantizer.scale.shape)
+    out["qat_tp_step"] = tp.train_step(four)
+    out["qat_tp_params"] = _numpy_tree(tp.model, tp.mesh)
+    out["qat_tp_stats"] = _stats_tree(tp.model, tp.mesh)
+    tp.save_checkpoint(f"{tmp}/tp_qat_ckpt")
+    out["qat_tp_saved"] = {k: v.numpy() for k, v in full_state_dict(tp.model, tp.mesh).items()}
+    out["qat_tp_saved_stats"] = {k: v.numpy() for k, v in
+                                 full_quant_stats(tp.model, tp.mesh).items()}
+    # the one-rank layout read back into a sharded Trainer: the same full stats
+    back = Trainer(qat_model(seed=0), tp_cfg, iter(()))
+    back.load_checkpoint(f"{tmp}/tp_qat_ckpt")
+    out["qat_tp_reloaded_stats"] = {k: v.numpy() for k, v in
+                                    full_quant_stats(back.model, back.mesh).items()}
+
+    aug = SpecAugmentConfig(enabled=True, time_mask_frames=8, freq_mask_bins=6)
+    drop = dict(dropout=0.1)
+    out["grad_qat_dp"] = grads_vs_one_process(
+        lambda: qat_model(seed=11, **drop),
+        TrainingConfig(**TRAIN, augment=aug, num_data_shards=world), qat_grad_batch(2 * world))
+    out["grad_qat_dp_pad"] = grads_vs_one_process(
+        lambda: qat_model(seed=11, **drop),
+        TrainingConfig(**TRAIN, augment=aug, num_data_shards=world),
+        qat_grad_batch(2 * world - 1))
+    out["grad_qat_tp"] = grads_vs_one_process(
+        lambda: qat_model(seed=12, **drop),
+        TrainingConfig(**TRAIN, augment=aug, num_data_shards=world // 2, num_model_shards=2),
+        qat_grad_batch(2 * world))
     return out
 
 
 def _numpy_tree(model, mesh) -> dict:
     """The model's full parameters as the flax tree (slices gathered)."""
-    from velocity_asr_tpu_torch.parallel.tp import unsharded
-
     with unsharded(model, mesh):
         return params_to_numpy(model)
+
+
+def _stats_tree(model, mesh) -> dict:
+    """The model's observers as the flax quant_stats tree (slices
+    gathered)."""
+    with unsharded(model, mesh):
+        return quant_stats_to_numpy(model)
 
 
 def stack(num_layers: int = 4, seed: int = 0, **kw) -> LocalSSMProcessor:
@@ -241,6 +340,15 @@ def pp_suite() -> dict:
     out["grad_pp2_dp2"] = grads_vs_one_process(
         lambda: pp_model(seed=3), TrainingConfig(**TRAIN, num_data_shards=2,
                                                  num_pipeline_stages=2), b)
+    # QAT: the observers sit outside the pipelined stack, on every stage;
+    # 8 rows, so that every microbatch holds two (qat_grad_batch)
+    eight = qat_grad_batch(8, frames=32)
+    out["grad_qat_pp4"] = grads_vs_one_process(
+        lambda: pp_model(seed=3, qat=True), TrainingConfig(**TRAIN, num_pipeline_stages=4,
+                                                           pipeline_microbatches=4), eight)
+    out["grad_qat_pp2_dp2"] = grads_vs_one_process(
+        lambda: pp_model(seed=3, qat=True), TrainingConfig(**TRAIN, num_data_shards=2,
+                                                           num_pipeline_stages=2), eight)
     # streaming ignores the context
     mod = stack()
     with torch.no_grad(), pipeline_parallel(meshes[2]):

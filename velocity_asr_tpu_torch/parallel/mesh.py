@@ -233,10 +233,11 @@ def group_rank(group) -> int:
 # ----- differentiable collectives --------------------------------------------------
 
 
-def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum `t` over `group` in place (nothing without a group)."""
+def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce `t` over `group` in place, a sum unless `op` says otherwise
+    (nothing without a group)."""
     if group is not None:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 

@@ -8,7 +8,9 @@ buffers in the flax ``quant_stats`` layout: ``scale`` and ``zero_point``
 tensor), ``calibrated`` (a bool scalar) and the calibration range
 ``range_min`` / ``range_max`` (+inf / -inf until something is observed).
 In training mode it recomputes scale and zero point from the live tensor
-on every forward, with no EMA; while ``calibrating`` it accumulates the
+on every forward, with no EMA (over a mesh, from the range of the whole
+tensor the JAX observer sees: ``FakeQuantize.groups``); while
+``calibrating`` it accumulates the
 range across batches; in eval mode it reads the stored stats and passes x
 through unchanged until ``calibrated``. Weights are symmetric per output
 channel, activations asymmetric per tensor with a fractional zero point
@@ -46,6 +48,7 @@ import torch
 import torch.nn as nn
 
 from .models.layers import Dense
+from .parallel.mesh import DATA_AXIS, all_reduce_
 from .ops.conv import strided_conv1d
 from .ops.int8_matmul import dynamic_int8_dense, quantize_weight, scale_of
 
@@ -78,6 +81,14 @@ class FakeQuantize(nn.Module):
     division by a tensor (IEEE on every device); x_dq = (clip(round(x /
     scale + zp)) - zp) * scale in fp32, cast to x's dtype, and the STE
     sum formed in x's dtype.
+
+    ``groups`` ({mesh axis: process group}) names the process groups whose
+    ranks together hold the tensor the JAX observer sees, where this rank
+    holds a part of it: in training mode the range is reduced over each
+    (one MAX all-reduce of (max, -min) a group, in axis order: exact, so
+    every rank ends with the same stats). ``observe_over`` and
+    ``parallel.tp.shard_params_tp`` set them; calibration and evaluation
+    reduce nothing.
     """
 
     def __init__(self, bits: int = 8, symmetric: bool = True, per_channel: bool = False,
@@ -93,6 +104,7 @@ class FakeQuantize(nn.Module):
         self.qmin, self.qmax = ((-(2 ** (bits - 1)), 2 ** (bits - 1) - 1) if symmetric
                                 else (0, 2 ** bits - 1))
         self.calibrating = False
+        self.groups: Dict[str, Any] = {}
         shape = self.stat_shape
         self.register_buffer("scale", torch.ones(shape), persistent=False)
         self.register_buffer("zero_point", torch.zeros(shape), persistent=False)
@@ -114,12 +126,24 @@ class FakeQuantize(nn.Module):
         self.range_max.fill_(float("-inf"))
 
     def _ranges(self, x: torch.Tensor):
+        """(min, max) of x, per channel in the stats' shape (that of the
+        buffers: a tensor-parallel slice's holds its channels only)."""
         v = x.detach().to(torch.float32)
         if not self.per_channel:
             return v.amin(), v.amax()
         dims = [d for d in range(v.dim()) if d != self.channel_dim % v.dim()]
-        return (v.amin(dim=dims).reshape(self.stat_shape),
-                v.amax(dim=dims).reshape(self.stat_shape))
+        return (v.amin(dim=dims).reshape(self.scale.shape),
+                v.amax(dim=dims).reshape(self.scale.shape))
+
+    def _global_ranges(self, x: torch.Tensor):
+        """``_ranges`` over the ranks of every group in ``groups``."""
+        x_min, x_max = self._ranges(x)
+        if not self.groups:
+            return x_min, x_max
+        pair = torch.stack([x_max, -x_min])
+        for axis in sorted(self.groups):
+            all_reduce_(pair, self.groups[axis], op=torch.distributed.ReduceOp.MAX)
+        return -pair[1], pair[0]
 
     def _scale_zp(self, x_min: torch.Tensor, x_max: torch.Tensor):
         def const(value):
@@ -144,7 +168,7 @@ class FakeQuantize(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             # refreshed from the live tensor every training forward (no EMA)
-            scale, zp = self._scale_zp(*self._ranges(x))
+            scale, zp = self._scale_zp(*self._global_ranges(x))
             with torch.no_grad():
                 self.scale.copy_(scale)
                 self.zero_point.copy_(zp)
@@ -229,6 +253,22 @@ def prepare_model_for_qat(config, quant_config: Optional[QuantizationConfig] = N
 
 def fake_quantizers(model: nn.Module):
     return [m for m in model.modules() if isinstance(m, FakeQuantize)]
+
+
+def observe_over(model: nn.Module, data_group) -> nn.Module:
+    """Every per-tensor observer of `model` reduces its training range
+    over `data_group`, the process group of the mesh's data axis, where
+    each rank holds its rows of the global batch (None: over no data
+    group), in place. Per-channel weight observers see whole channels on
+    every rank and reduce nothing."""
+    for fq in fake_quantizers(model):
+        if fq.per_channel:
+            continue
+        if data_group is None:
+            fq.groups.pop(DATA_AXIS, None)
+        else:
+            fq.groups[DATA_AXIS] = data_group
+    return model
 
 
 @torch.no_grad()

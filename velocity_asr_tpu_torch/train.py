@@ -251,8 +251,9 @@ def main(argv: Optional[List[str]] = None):
                         help="data loader worker processes (0: load in this process)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    distributed = "WORLD_SIZE" in os.environ  # launched by torchrun
-    if distributed:
+    # launched by torchrun; a process group that was up before main stays up
+    distributed = "WORLD_SIZE" in os.environ and not torch.distributed.is_initialized()
+    if "WORLD_SIZE" in os.environ:
         args.device = init_distributed(args.device)
     logging.basicConfig(level=logging.INFO if is_main_process() else logging.WARNING,
                         format="%(asctime)s | %(levelname)s | %(message)s")
@@ -340,17 +341,19 @@ def _train(parser, args):
     final = os.path.join(train_cfg.checkpoint_dir, "final_model")
     trainer.save_checkpoint(final)
     pretrained = os.path.join(train_cfg.checkpoint_dir, "final_pretrained")
+    # every rank gathers the sharded parameters and observer stats (a
+    # collective) before any returns
     with unsharded(model, trainer.mesh):
         if not trainer.is_main:
             return {"history": history, "trainer": trainer}
         # fake quantization is a training-time construct: ship the float
         # inference config, the learned observers beside it for export_model
         save_pretrained(pretrained, dataclasses.replace(model_cfg, qat=False), model)
-    if model_cfg.qat:
-        write_params(os.path.join(pretrained, QUANT_STATS_FILE),
-                     quant_stats_to_numpy(model))
-        logger.info("QAT run: final_pretrained saved with qat=False (fp32 inference); "
-                    "observer stats in %s", QUANT_STATS_FILE)
+        if model_cfg.qat:
+            write_params(os.path.join(pretrained, QUANT_STATS_FILE),
+                         quant_stats_to_numpy(model))
+            logger.info("QAT run: final_pretrained saved with qat=False (fp32 inference); "
+                        "observer stats in %s", QUANT_STATS_FILE)
     if vocab is not None:
         # transcribe and evaluate read the id -> token layout from here
         with open(os.path.join(pretrained, "vocabulary.json"), "w") as f:

@@ -42,6 +42,10 @@ uses.
   evaluation (an uncalibrated one evaluates as the float model); the
   trainer checkpoint carries them (``quant_stats``). QAT with the
   streaming-aware objective or MoE raises the JAX package's ValueError.
+  Over a mesh the observers see what the JAX Trainer's do, the global
+  batch: every activation observer reduces its range over the data
+  group (``quantize.observe_over``), the sharded head's output observer
+  over the model group too (``parallel.tp``).
 - ``streaming_chunks`` > 0 (device-mel batches only) adds the
   streaming-aware term: CTC on ``streaming.streaming_forward`` logits of
   the same utterances, normalised with causal per-chunk statistics and
@@ -67,8 +71,9 @@ the MoE load-balance fractions are global. A model axis > 1 shards the
 CTC head over the vocabulary and MoE experts over the axis
 (``parallel.tp``; the clip norm counts each shard once); pipeline
 stages run the local stack as a microbatch pipeline over the same axis
-(``parallel.pp``). Checkpoints keep the single-rank layout, written by
-rank 0; only rank 0 logs and writes metrics and traces.
+(``parallel.pp``). Checkpoints keep the single-rank layout, observer
+stats included, written by rank 0; only rank 0 logs and writes metrics
+and traces.
 
 The model's scans train through ``ops.scan.SelectiveScanFn`` (offline)
 and ``ops.scan.CarriedStateScanFn`` (the streaming term): on the card the
@@ -99,9 +104,9 @@ from .ops.mel import compute_mel_spectrogram
 from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, DataShard, all_reduce_, create_mesh,
                             data_shard, is_main_process, shard_batch)
 from .parallel.pp import pipeline_parallel
-from .parallel.tp import (full_state_dict, gather_tensor, shard_params_tp, shard_state_dict,
-                          sharded_specs)
-from .quantize import load_quant_stats, quant_stats_buffers
+from .parallel.tp import (full_quant_stats, full_state_dict, gather_tensor, shard_params_tp,
+                          shard_quant_stats, shard_state_dict, sharded_specs)
+from .quantize import load_quant_stats, observe_over, quant_stats_buffers
 from .streaming import streaming_forward
 
 logger = logging.getLogger(__name__)
@@ -353,9 +358,7 @@ class Optimizer:
 def _refuse_combinations(model_config, config: TrainingConfig) -> None:
     """The JAX Trainer's ValueErrors: QAT with the streaming-aware
     objective or with MoE, MoE with pipeline stages, tensor and pipeline
-    axes of different sizes, and a language-ID loss without the head;
-    and QAT over a sharded model axis (the fake quantizers' ranges would
-    be each slice's)."""
+    axes of different sizes, and a language-ID loss without the head."""
     stages, shards = config.num_pipeline_stages, config.num_model_shards
     if stages > 1 and shards > 1 and shards != stages:
         raise ValueError(
@@ -366,9 +369,6 @@ def _refuse_combinations(model_config, config: TrainingConfig) -> None:
         raise ValueError(
             "pipeline parallelism + MoE is not supported (EP and "
             "PP both consume the model mesh axis)")
-    if getattr(model_config, "qat", False) and shards > 1:
-        raise ValueError("QAT + tensor parallelism is not supported (each rank's fake "
-                         "quantizers would observe only its slice)")
     if getattr(model_config, "qat", False):
         if config.streaming_chunks:
             raise ValueError("QAT + the streaming-aware objective is not supported "
@@ -431,6 +431,7 @@ class Trainer:
         if self.mesh.shape[MODEL_AXIS] > 1 and (config.num_pipeline_stages <= 1
                                                 or config.num_model_shards > 1):
             shard_params_tp(model, self.mesh)
+        observe_over(model, self.mesh.group(DATA_AXIS))
         self.model = model
         self.config = config
         self.train_iter = train_iter
@@ -801,11 +802,11 @@ class Trainer:
         path = os.path.abspath(path)
         payload = {"params": full_state_dict(self.model, self.mesh),
                    "opt_state": self._full_opt_state()}
+        stats = full_quant_stats(self.model, self.mesh)
+        if stats:
+            payload["quant_stats"] = stats
         if self.is_main:
             os.makedirs(path, exist_ok=True)
-            stats = quant_stats_buffers(self.model)
-            if stats:
-                payload["quant_stats"] = stats
             torch.save(payload, os.path.join(path, "state.pt"))
             meta = {
                 "global_step": self.global_step,
@@ -840,7 +841,8 @@ class Trainer:
                                                      self.mesh).values())
         self.optimizer.load_state_dict(opt)
         if quant_stats_buffers(self.model):
-            load_quant_stats(self.model, payload["quant_stats"])
+            load_quant_stats(self.model, shard_quant_stats(payload["quant_stats"], self.model,
+                                                           self.mesh))
         with open(os.path.join(path, "trainer_meta.json")) as f:
             meta = json.load(f)
         self.global_step = int(meta["global_step"])
