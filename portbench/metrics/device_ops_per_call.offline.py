@@ -1,0 +1,9 @@
+"""Device kernels, copies and sets per ``transcribe_batch`` call in the
+profiled slice: the dispatch work the host does for each call."""
+
+LAYER = "entry (host dispatch)"
+KIND = "offline"
+
+
+def read(trace):
+    return trace.ops_per_call() if trace.kind == KIND else None
