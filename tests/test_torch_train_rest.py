@@ -295,6 +295,14 @@ def test_profile_dir_writes_one_trace_of_the_window(tmp_path):
     steps = sorted({e["name"] for e in events if e.get("name", "").startswith("micro_step_")})
     assert steps == ["micro_step_1"]
     assert any(e.get("name") == "aten::mm" or e.get("name") == "aten::addmm" for e in events)
+    # the step's own spans, each once, inside its range
+    step = next(e for e in events if e.get("name") == "micro_step_1" and e.get("ph") == "X")
+    spans = [e for e in events if e.get("name", "").startswith("train.") and e.get("ph") == "X"]
+    assert sorted(e["name"] for e in spans) == sorted(
+        ["train.h2d", "train.forward", "train.ctc", "train.backward", "train.optimizer",
+         "train.clip"])
+    assert all(step["ts"] <= e["ts"] and e["ts"] + e["dur"] <= step["ts"] + step["dur"]
+               for e in spans)
 
 
 def test_profile_window_closes_when_the_run_fails(tmp_path):

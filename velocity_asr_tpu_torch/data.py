@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.utils.data
 
+from . import tracing
 from .audio import HOP_LENGTH, SAMPLE_RATE, compute_mel_spectrogram_np, load_audio
 
 PAD_TOKEN_ID = 2  # <pad>
@@ -152,16 +153,17 @@ class ASRCollator:
         self.target_bucket = max(target_bucket, 1)
 
     def __call__(self, batch: List[Dict[str, Any]]) -> Dict[str, Any]:
-        if "audio" in batch[0]:
-            return {"audio": self._pad_audio(batch), **self._targets(batch)}
-        max_mel = _round_up(
-            max(item["mel_spectrogram"].shape[0] for item in batch), self.frame_bucket
-        )
-        mel_bins = batch[0]["mel_spectrogram"].shape[1]
-        mels = np.full((len(batch), max_mel, mel_bins), self.mel_pad_value, np.float32)
-        for i, item in enumerate(batch):
-            mels[i, : item["mel_spectrogram"].shape[0]] = item["mel_spectrogram"]
-        return {"mel_spectrogram": mels, **self._targets(batch)}
+        with tracing.span("data.collate"):
+            if "audio" in batch[0]:
+                return {"audio": self._pad_audio(batch), **self._targets(batch)}
+            max_mel = _round_up(
+                max(item["mel_spectrogram"].shape[0] for item in batch), self.frame_bucket
+            )
+            mel_bins = batch[0]["mel_spectrogram"].shape[1]
+            mels = np.full((len(batch), max_mel, mel_bins), self.mel_pad_value, np.float32)
+            for i, item in enumerate(batch):
+                mels[i, : item["mel_spectrogram"].shape[0]] = item["mel_spectrogram"]
+            return {"mel_spectrogram": mels, **self._targets(batch)}
 
     def _targets(self, batch: List[Dict[str, Any]]) -> Dict[str, Any]:
         """Targets padded with `pad_token_id` to a multiple of

@@ -47,6 +47,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import tracing
 from ..parallel.mesh import current_data_shard, enter_all, reduce
 from .layers import Dense, Dropout
 
@@ -141,48 +142,52 @@ class MoEFFN(nn.Module):
         xg = xg.reshape(bg, s_len, d)
         valid = (torch.arange(t_len + pad, device=x.device) < t_len).to(torch.float32)
         valid = valid.expand(b, -1).reshape(bg, s_len)
-        r = self.route(xg, valid)
+        with tracing.span("moe.route"):
+            r = self.route(xg, valid)
         cap = r["cap"]
-        # under EP the experts' inputs and the combine weights enter the
-        # sharded region (one all-reduce of their gradients)
-        x_in, weight = enter_all((xg, r["weight"]), group)
-        keep, idx = r["keep"], r["idx"]
-        if self.ep is not None:  # the choices this rank's experts serve
-            idx = idx - e_index * n_local
-            keep = keep & (idx >= 0) & (idx < n_local)
+        with tracing.span("moe.dispatch"):
+            # under EP the experts' inputs and the combine weights enter the
+            # sharded region (one all-reduce of their gradients)
+            x_in, weight = enter_all((xg, r["weight"]), group)
+            keep, idx = r["keep"], r["idx"]
+            if self.ep is not None:  # the choices this rank's experts serve
+                idx = idx - e_index * n_local
+                keep = keep & (idx >= 0) & (idx < n_local)
 
-        # slot -> token: each kept choice writes its token index into slot
-        # expert * cap + pos of its group; dropped choices go to a spare
-        # column; an empty slot points at the zero row (index bg * s_len)
-        with torch.no_grad():
-            tok = torch.arange(s_len, device=x.device).expand(bg, s_len)
-            slot_tok = torch.full((bg, n_local * cap + 1), s_len, dtype=torch.int64,
-                                  device=x.device)
-            slots = torch.where(keep, idx * cap + r["pos"], n_local * cap)
-            for k in range(k_top):
-                slot_tok.scatter_(1, slots[k], tok)
-            base = torch.arange(bg, device=x.device)[:, None] * s_len
-            src = torch.where(slot_tok[:, :-1] < s_len, slot_tok[:, :-1] + base, bg * s_len)
-            src = src.view(bg, n_local, cap).transpose(0, 1).reshape(-1)
-        x_rows = torch.cat([x_in.reshape(bg * s_len, d).to(dt),
-                            torch.zeros(1, d, dtype=dt, device=x.device)])
-        expert_in = x_rows.index_select(0, src).view(n_local, bg * cap, d)
-        h = torch.baddbmm(self.b_in.to(dt)[:, None, :], expert_in, self.w_in.to(dt))
-        h = self.dropout(F.gelu(h), rng, batch_dim=1,
-                         experts=None if self.ep is None else (e_index, e_count))
-        expert_out = torch.baddbmm(self.b_out.to(dt)[:, None, :], h, self.w_out.to(dt))
+            # slot -> token: each kept choice writes its token index into slot
+            # expert * cap + pos of its group; dropped choices go to a spare
+            # column; an empty slot points at the zero row (index bg * s_len)
+            with torch.no_grad():
+                tok = torch.arange(s_len, device=x.device).expand(bg, s_len)
+                slot_tok = torch.full((bg, n_local * cap + 1), s_len, dtype=torch.int64,
+                                      device=x.device)
+                slots = torch.where(keep, idx * cap + r["pos"], n_local * cap)
+                for k in range(k_top):
+                    slot_tok.scatter_(1, slots[k], tok)
+                base = torch.arange(bg, device=x.device)[:, None] * s_len
+                src = torch.where(slot_tok[:, :-1] < s_len, slot_tok[:, :-1] + base, bg * s_len)
+                src = src.view(bg, n_local, cap).transpose(0, 1).reshape(-1)
+            x_rows = torch.cat([x_in.reshape(bg * s_len, d).to(dt),
+                                torch.zeros(1, d, dtype=dt, device=x.device)])
+            expert_in = x_rows.index_select(0, src).view(n_local, bg * cap, d)
+        with tracing.span("moe.experts"):
+            h = torch.baddbmm(self.b_in.to(dt)[:, None, :], expert_in, self.w_in.to(dt))
+            h = self.dropout(F.gelu(h), rng, batch_dim=1,
+                             experts=None if self.ep is None else (e_index, e_count))
+            expert_out = torch.baddbmm(self.b_out.to(dt)[:, None, :], h, self.w_out.to(dt))
 
-        # token <- its k outputs, weighted; a dropped choice (or one another
-        # rank's experts serve) reads the zero row
-        with torch.no_grad():
-            first_slot = torch.arange(bg, device=x.device)[:, None] * cap
-            out_idx = torch.where(keep, idx * (bg * cap) + first_slot + r["pos"],
-                                  n_local * bg * cap)
-        out_rows = torch.cat([expert_out.reshape(n_local * bg * cap, d),
-                              torch.zeros(1, d, dtype=dt, device=x.device)])
-        picked = out_rows.index_select(0, out_idx.reshape(-1)).view(k_top, bg, s_len, d)
-        w = weight.to(dt).to(torch.float32)
-        y = reduce((w[..., None] * picked.to(torch.float32)).sum(dim=0), group).to(dt)
+        with tracing.span("moe.combine"):
+            # token <- its k outputs, weighted; a dropped choice (or one another
+            # rank's experts serve) reads the zero row
+            with torch.no_grad():
+                first_slot = torch.arange(bg, device=x.device)[:, None] * cap
+                out_idx = torch.where(keep, idx * (bg * cap) + first_slot + r["pos"],
+                                      n_local * bg * cap)
+            out_rows = torch.cat([expert_out.reshape(n_local * bg * cap, d),
+                                  torch.zeros(1, d, dtype=dt, device=x.device)])
+            picked = out_rows.index_select(0, out_idx.reshape(-1)).view(k_top, bg, s_len, d)
+            w = weight.to(dt).to(torch.float32)
+            y = reduce((w[..., None] * picked.to(torch.float32)).sum(dim=0), group).to(dt)
         y = y.reshape(b, n_groups * s_len, d)[:, :t_len]
 
         if collect is not None:

@@ -98,6 +98,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import tracing
 from .audio import HOP_LENGTH, causal_normalize_mel, masked_normalize_mel
 from .augment import SpecAugmentConfig, noise_inject, spec_augment, speed_perturb_audio
 from .ops.mel import compute_mel_spectrogram
@@ -286,43 +287,45 @@ class Optimizer:
     def step(self, grads: List[torch.Tensor]) -> bool:
         """Take one micro-batch's gradients; True if the parameters moved.
         Runs as a few multi-tensor (``torch._foreach_*``) launches."""
-        grads = [g.to(torch.float32) for g in grads]
-        if self.acc is not None:
-            n = self.mini_step
-            diff = torch._foreach_sub(grads, self.acc)
-            torch._foreach_div_(diff, float(n + 1))
-            torch._foreach_add_(self.acc, diff)
-            if n + 1 < self.every:
-                self.mini_step = n + 1
-                return False
-            grads = [acc.clone() for acc in self.acc]
-            torch._foreach_zero_(self.acc)
-            self.mini_step = 0
-        # clip as optax does: t / norm * max once norm reaches max (no sync)
-        norm = self.global_norm(grads)
-        max_norm = torch.full((), self.config.grad_clip_norm, dtype=torch.float32,
-                              device=norm.device)
-        keep = norm < max_norm
-        one = torch.ones((), dtype=torch.float32, device=norm.device)
-        torch._foreach_div_(grads, torch.where(keep, one, norm))
-        torch._foreach_mul_(grads, torch.where(keep, one, max_norm))
-        self.count += 1
-        f32 = np.float32
-        c1 = float(f32(1) - f32(self.b1) ** f32(self.count))
-        c2 = float(f32(1) - f32(self.b2) ** f32(self.count))
-        lr = self.schedule(self.count - 1)
-        torch._foreach_mul_(self.mu, self.b1)
-        torch._foreach_add_(self.mu, grads, alpha=1 - self.b1)
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - self.b2)
-        denom = torch._foreach_div(self.nu, c2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        update = torch._foreach_div(self.mu, c1)
-        torch._foreach_div_(update, denom)
-        torch._foreach_add_(update, self.params, alpha=self.config.weight_decay)
-        torch._foreach_add_(self.params, update, alpha=-lr)
-        return True
+        with tracing.span("train.optimizer"):
+            grads = [g.to(torch.float32) for g in grads]
+            if self.acc is not None:
+                n = self.mini_step
+                diff = torch._foreach_sub(grads, self.acc)
+                torch._foreach_div_(diff, float(n + 1))
+                torch._foreach_add_(self.acc, diff)
+                if n + 1 < self.every:
+                    self.mini_step = n + 1
+                    return False
+                grads = [acc.clone() for acc in self.acc]
+                torch._foreach_zero_(self.acc)
+                self.mini_step = 0
+            # clip as optax does: t / norm * max once norm reaches max (no sync)
+            with tracing.span("train.clip"):
+                norm = self.global_norm(grads)
+                max_norm = torch.full((), self.config.grad_clip_norm, dtype=torch.float32,
+                                      device=norm.device)
+                keep = norm < max_norm
+                one = torch.ones((), dtype=torch.float32, device=norm.device)
+                torch._foreach_div_(grads, torch.where(keep, one, norm))
+                torch._foreach_mul_(grads, torch.where(keep, one, max_norm))
+            self.count += 1
+            f32 = np.float32
+            c1 = float(f32(1) - f32(self.b1) ** f32(self.count))
+            c2 = float(f32(1) - f32(self.b2) ** f32(self.count))
+            lr = self.schedule(self.count - 1)
+            torch._foreach_mul_(self.mu, self.b1)
+            torch._foreach_add_(self.mu, grads, alpha=1 - self.b1)
+            torch._foreach_mul_(self.nu, self.b2)
+            torch._foreach_addcmul_(self.nu, grads, grads, value=1 - self.b2)
+            denom = torch._foreach_div(self.nu, c2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            update = torch._foreach_div(self.mu, c1)
+            torch._foreach_div_(update, denom)
+            torch._foreach_add_(update, self.params, alpha=self.config.weight_decay)
+            torch._foreach_add_(self.params, update, alpha=-lr)
+            return True
 
     def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The gradients' global norm, each sharded leaf counted once."""
@@ -455,9 +458,10 @@ class Trainer:
     # ----- steps ---------------------------------------------------------------
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        return {key: torch.as_tensor(np.asarray(batch[key])).to(self.device)
-                for key in ("mel_spectrogram", "audio", "targets", "input_lengths",
-                            "target_lengths", "language") if key in batch}
+        with tracing.span("train.h2d"):
+            return {key: torch.as_tensor(np.asarray(batch[key])).to(self.device)
+                    for key in ("mel_spectrogram", "audio", "targets", "input_lengths",
+                                "target_lengths", "language") if key in batch}
 
     @staticmethod
     def _batch_mel(batch: Dict[str, torch.Tensor]):
@@ -524,63 +528,70 @@ class Trainer:
         every data rank, are also listed in ``_replicated`` with their
         weights."""
         cfg = self.config
-        batch = self._augment_waveform(batch, rng)
-        mel, raw = self._batch_mel(batch)
-        lengths = batch["input_lengths"]
-        if cfg.streaming_chunks and raw is None and self.model.training:
-            # a misconfiguration, not a fallback to the offline objective
-            raise ValueError(
-                "training.streaming_chunks requires data.device_mel: true "
-                "(the streaming-aware objective needs raw mel on device)")
-        aug = cfg.augment
-        aug_state = None
-        if rng is not None and aug is not None and aug.enabled:
-            aug_state = rng.get_state()
-            mel = spec_augment(mel, rng, aug, lengths)
-        out_lengths = (lengths + 1) // 2
+        mcfg = self.model.config
+        moe_aux = (self.model.training and mcfg.moe_experts > 0 and cfg.moe_aux_weight > 0)
+        want_lid = (cfg.lid_loss_weight > 0 and mcfg.num_languages > 0 and "language" in batch)
+        with tracing.span("train.forward"):
+            batch = self._augment_waveform(batch, rng)
+            mel, raw = self._batch_mel(batch)
+            lengths = batch["input_lengths"]
+            if cfg.streaming_chunks and raw is None and self.model.training:
+                # a misconfiguration, not a fallback to the offline objective
+                raise ValueError(
+                    "training.streaming_chunks requires data.device_mel: true "
+                    "(the streaming-aware objective needs raw mel on device)")
+            aug = cfg.augment
+            aug_state = None
+            if rng is not None and aug is not None and aug.enabled:
+                aug_state = rng.get_state()
+                mel = spec_augment(mel, rng, aug, lengths)
+            out_lengths = (lengths + 1) // 2
+            collect = [] if moe_aux else None
+            out = self.model(mel, rng=rng, collect=collect, return_features=want_lid,
+                             feature_lengths=out_lengths if want_lid else None)
+            logits, feats = out if want_lid else (out, None)
 
         def ctc(logits):
             return self._row_mean(ctc_loss_per_example(logits, batch["targets"], out_lengths,
                                                        batch["target_lengths"]))
 
-        mcfg = self.model.config
-        moe_aux = (self.model.training and mcfg.moe_experts > 0 and cfg.moe_aux_weight > 0)
-        want_lid = (cfg.lid_loss_weight > 0 and mcfg.num_languages > 0 and "language" in batch)
-        collect = [] if moe_aux else None
-        out = self.model(mel, rng=rng, collect=collect, return_features=want_lid,
-                         feature_lengths=out_lengths if want_lid else None)
-        logits, feats = out if want_lid else (out, None)
-        loss = ctc(logits)
-        self._replicated = []
-        if collect:
-            aux = cfg.moe_aux_weight * (sum(a for a, _ in collect) / len(collect))
-            loss = loss + aux
-            self._replicated.append((1.0, aux))
-        if want_lid:
-            lid_logits = feats["lid_logits"].to(torch.float32)
-            language = batch["language"].to(torch.int64)
-            lid_ce = (F.cross_entropy(lid_logits, language) if self._one_rank() else
-                      self._row_mean(F.cross_entropy(lid_logits, language, reduction="none")))
-            loss = loss + cfg.lid_loss_weight * lid_ce
+        with tracing.span("train.ctc"):
+            loss = ctc(logits)
+            self._replicated = []
+            if collect:
+                aux = cfg.moe_aux_weight * (sum(a for a, _ in collect) / len(collect))
+                loss = loss + aux
+                self._replicated.append((1.0, aux))
+            if want_lid:
+                lid_logits = feats["lid_logits"].to(torch.float32)
+                language = batch["language"].to(torch.int64)
+                lid_ce = (F.cross_entropy(lid_logits, language) if self._one_rank() else
+                          self._row_mean(F.cross_entropy(lid_logits, language,
+                                                         reduction="none")))
+                loss = loss + cfg.lid_loss_weight * lid_ce
         if not cfg.streaming_chunks or raw is None:
             return loss
-        smel = causal_normalize_mel(raw, lengths, cfg.streaming_chunks)
-        if aug_state is not None:
-            # the offline view's masks: a generator from the state its draws started at
-            fork = torch.Generator(device=rng.device)
-            fork.set_state(aug_state)
-            smel = spec_augment(smel, fork, aug, lengths)
-        w = cfg.streaming_aux_weight
-        self._replicated = [((1.0 - w) * c, t) for c, t in self._replicated]
-        if moe_aux:
-            slogits, s_aux = streaming_forward(self.model, smel, cfg.streaming_chunks, rng=rng,
-                                               collect_losses=True)
-            s_aux = cfg.moe_aux_weight * s_aux
-            s_loss = ctc(slogits) + s_aux
-            self._replicated.append((w, s_aux))
-        else:
-            s_loss = ctc(streaming_forward(self.model, smel, cfg.streaming_chunks, rng=rng))
-        return (1.0 - w) * loss + w * s_loss
+        with tracing.span("train.forward"):
+            smel = causal_normalize_mel(raw, lengths, cfg.streaming_chunks)
+            if aug_state is not None:
+                # the offline view's masks: a generator from the state its draws started at
+                fork = torch.Generator(device=rng.device)
+                fork.set_state(aug_state)
+                smel = spec_augment(smel, fork, aug, lengths)
+            if moe_aux:
+                slogits, s_aux = streaming_forward(self.model, smel, cfg.streaming_chunks,
+                                                   rng=rng, collect_losses=True)
+            else:
+                slogits = streaming_forward(self.model, smel, cfg.streaming_chunks, rng=rng)
+        with tracing.span("train.ctc"):
+            w = cfg.streaming_aux_weight
+            self._replicated = [((1.0 - w) * c, t) for c, t in self._replicated]
+            s_loss = ctc(slogits)
+            if moe_aux:
+                s_aux = cfg.moe_aux_weight * s_aux
+                s_loss = s_loss + s_aux
+                self._replicated.append((w, s_aux))
+            return (1.0 - w) * loss + w * s_loss
 
     def _pp_scope(self):
         """The pipeline context of a step (none without pipeline stages)."""
@@ -643,11 +654,12 @@ class Trainer:
         slice's. Zeros for a parameter the loss does not reach."""
         with self._rows(batch) as local:
             loss = self._loss(local, rng)
-            grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-            reported = self._global_loss(loss)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
-        self._all_reduce_grads(grads)
-        return reported, grads
+            with tracing.span("train.backward"):
+                grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(self.params, grads)]
+                self._all_reduce_grads(grads)
+        return self._global_loss(loss), grads
 
     def _step(self, batch: Dict[str, Any]) -> torch.Tensor:
         """One micro-step; returns the global loss as a device tensor (no
@@ -662,7 +674,9 @@ class Trainer:
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
         loss = self._step(batch)
-        return {"loss": float(loss), "lr": self.optimizer.last_lr()}
+        with tracing.span("train.fetch"):
+            loss = float(loss)
+        return {"loss": loss, "lr": self.optimizer.last_lr()}
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, Any]) -> Dict[str, float]:

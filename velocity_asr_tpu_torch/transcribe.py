@@ -59,6 +59,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .audio import HOP_LENGTH, SAMPLE_RATE, load_audio, masked_normalize_mel
 from .decode import (CTCDecoder, _log_softmax_np, align_tokens_to_frames,
                      create_default_vocabulary, ctc_greedy_decode_torch, force_blank_beyond,
@@ -245,18 +246,32 @@ class Transcriber:
         package also pads the batch to a power of two, only to bound its
         compiled shapes; an eager forward needs no such padding.
         """
-        buckets: dict = {}
-        for i, a in enumerate(audios):
-            buckets.setdefault(self.frame_bucket_of(a), []).append(i)
         texts = [""] * len(audios)
-        for idxs in buckets.values():
-            padded, n_frames = zip(*(self._pad_audio(audios[i]) for i in idxs))
-            wire = torch.from_numpy(self._to_wire(np.concatenate(padded))).to(self.device)
-            n_valid = torch.tensor(n_frames, dtype=torch.int64, device=self.device)
-            toks, lens = ctc_greedy_decode_torch(self.masked_logits(wire, n_valid))
-            toks, lens = toks.cpu(), lens.cpu()
-            for row, i in enumerate(idxs):
-                texts[i] = self.decoder.tokens_to_text(toks[row, : lens[row]].tolist())
+        groups: list = []
+        for k in range(len(audios)):  # a bucket a pass: no more buckets than rows
+            with tracing.span("transcribe.pad"):
+                if k == 0:  # the grouping counts to the first bucket's padding
+                    buckets: dict = {}
+                    for i, a in enumerate(audios):
+                        buckets.setdefault(self.frame_bucket_of(a), []).append(i)
+                    groups = list(buckets.values())
+                idxs = groups[k]
+                padded, n_frames = zip(*(self._pad_audio(audios[i]) for i in idxs))
+                batch = np.concatenate(padded)
+            with tracing.span("transcribe.wire"):
+                batch = self._to_wire(batch)
+            with tracing.span("transcribe.h2d"):
+                batch = torch.from_numpy(batch).to(self.device)
+                n_valid = torch.tensor(n_frames, dtype=torch.int64, device=self.device)
+            with tracing.span("transcribe.forward"):
+                toks, lens = ctc_greedy_decode_torch(self.masked_logits(batch, n_valid))
+            with tracing.span("transcribe.fetch"):
+                toks, lens = toks.cpu(), lens.cpu()
+            with tracing.span("transcribe.text"):
+                for row, i in enumerate(idxs):
+                    texts[i] = self.decoder.tokens_to_text(toks[row, : lens[row]].tolist())
+            if k + 1 == len(groups):
+                break
         return [{"text": t, "duration": len(a) / self.sr} for t, a in zip(texts, audios)]
 
     def transcribe_file(self, path: str, timestamps: bool = False,
