@@ -1816,10 +1816,9 @@ def phase_main_path(manifest: str, plan):
     # One utterance's logits: finite, of the expected shape, and the
     # card's fp32 model against the same model on the CPU.
     audio = load_audio(rows[0]["audio_path"])
-    padded, n_frames = tr._pad_audio(audio)
-    wire = torch.from_numpy(tr._to_wire(padded))
+    wire, n_frames = tr.wire_pcm(audio)
     logits = tr.masked_logits(wire.cuda(), n_frames)
-    want = (1, (1 + padded.shape[1] // 160 + 1) // 2, cfg.vocab_size)
+    want = (1, (1 + wire.shape[1] // 160 + 1) // 2, cfg.vocab_size)
     if tuple(logits.shape) != want or not torch.isfinite(logits).all():
         raise AssertionError(f"logits {tuple(logits.shape)} (want {want}) or not finite")
     out_len = (n_frames + 1) // 2
@@ -3362,8 +3361,7 @@ def phase_longform_offline(plan):
     expect_launches("long form offline, batch 1", counts,
                     {"scan_fwd_f32": 10, "log_mel_f32": 1})
     audio = load_audio(longest)
-    padded, n_frames = tr._pad_audio(audio)
-    wire = torch.from_numpy(tr._to_wire(padded))
+    wire, n_frames = tr.wire_pcm(audio)
     out_len = (n_frames + 1) // 2
     f32 = [load_transcriber(CHECKPOINT, device=d, dtype="float32") for d in ("cuda", "cpu")]
     lg = [t.masked_logits(wire.to(t.device), n_frames)[:, :out_len].cpu() for t in f32]
@@ -4969,8 +4967,8 @@ def sp_transcripts(plan, counts):
     t_sp = t_ref = 0.0
     for path in paths:
         audio = load_audio(path)
-        padded, n_frames = sp._pad_audio(audio)
-        wire = torch.from_numpy(sp._to_wire(padded)).to("cuda")
+        wire, n_frames = sp.wire_pcm(audio)
+        wire = wire.to("cuda")
         t0 = time.perf_counter()
         with sequence_parallel(mesh):
             reset_launch_counts()

@@ -679,8 +679,8 @@ def _sp_longform(device, mesh) -> Dict[str, Any]:
     logits = []
     for scan_mode in ("sp", "pallas"):
         tr = load_transcriber(CHECKPOINT, device=device, dtype="float32", scan_mode=scan_mode)
-        padded, n_frames = tr._pad_audio(audios[longest])
-        wire = torch.from_numpy(tr._to_wire(padded)).to(device)
+        wire, n_frames = tr.wire_pcm(audios[longest])
+        wire = wire.to(device)
         with sequence_parallel(mesh):
             logits.append(tr.masked_logits(wire, n_frames))
     dist.barrier()

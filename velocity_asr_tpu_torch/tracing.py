@@ -13,10 +13,15 @@ and do not change from call to call:
 span                   covers
 =====================  ===================================================
 ``transcribe.pad``     ``Transcriber.transcribe_batch``, once a frame
-                       bucket: the rows' padding and their concatenation
-                       (the first bucket's also the grouping by bucket)
-``transcribe.wire``    scaling, clipping and the cast to int16 PCM
-``transcribe.h2d``     the PCM and the valid frame counts onto the device
+                       bucket: the kept staging buffer sized for the
+                       bucket and the wait for the last bucket's copies
+                       out of it (the first bucket's also the grouping
+                       by bucket)
+``transcribe.wire``    each row written into the buffer: scale, clip and
+                       cast to int16 PCM, then the reflect pad in int16
+``transcribe.h2d``     the enqueue of the PCM's and the valid frame
+                       counts' copies to the device (asynchronous from
+                       pinned memory on a CUDA device)
 ``transcribe.forward`` the host's enqueue of the log-mel, the model and
                        the greedy decode
 ``transcribe.fetch``   the decoded tokens back to the host (the host waits

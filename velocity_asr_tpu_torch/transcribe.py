@@ -11,7 +11,7 @@
 
 Per utterance: reflect-pad the audio to its frame bucket (multiples of
 ``frame_bucket`` frames), round it to int16 as the JAX pipeline's wire
-format does, then on the device: log-mel (CUDA kernel), per-bin
+format does (``fill_wire``), then on the device: log-mel (CUDA kernel), per-bin
 normalisation over the valid frames only, the model, blank forced beyond
 the valid output frames, and greedy CTC decode, or with ``--beam-width`` K > 1
 the prefix beam on the device (``beam.py``), its n-best rescored by the
@@ -32,7 +32,9 @@ spans the session tracks). Files are decoded by ``io.decode_audio_file``
 (WAV, FLAC, mp3, Ogg Vorbis, and m4a where the system codecs are);
 ``--input-dir`` takes every such file under a directory, and a file that
 fails is reported and skipped. ``Transcriber.transcribe_batch`` is the server's batched
-greedy path: one forward per frame bucket.
+greedy path: one forward per frame bucket, each bucket's int16 PCM written
+in place into one host buffer the transcriber keeps across calls (pinned
+on the card, and copied to it without blocking the host).
 
 ``--identify-language`` (a model with a language-ID head, offline only)
 adds each file's ``language``, ``language_prob`` and ``language_probs``:
@@ -53,6 +55,7 @@ import contextlib
 import json
 import os
 import sys
+import threading
 import time
 from typing import Callable, List, Optional
 
@@ -81,6 +84,32 @@ def padded_frames(n_samples: int, frame_bucket: int = 200, hop: int = HOP_LENGTH
     return -(-min_frames // frame_bucket) * frame_bucket
 
 
+def fill_wire(out: np.ndarray, audios, scratch: Optional[np.ndarray] = None) -> None:
+    """Each utterance of `audios` into its row of `out` ((rows, samples)
+    int16) as the wire format: clip(x * 32768, -32768, 32767) cast to
+    int16, reflect-padded to the row's end as ``np.pad(mode="reflect")``
+    pads, and zero beyond the samples of an utterance under 2 samples
+    long. The scale and clip run in place in `scratch` (float32, at least
+    the longest utterance; made where it is None); the wire is
+    elementwise, so reflecting the int16 gives what wiring the reflected
+    float32 would."""
+    if scratch is None:
+        scratch = np.empty(max(map(len, audios), default=0), np.float32)
+    for row, audio in zip(out, audios):
+        audio = np.asarray(audio, np.float32)
+        n, s = len(audio), scratch[:len(audio)]
+        pad = len(row) - n
+        np.multiply(audio, 32768.0, out=s)
+        np.clip(s, -32768, 32767, out=s)
+        np.copyto(row[:n], s, casting="unsafe")
+        if n < 2:
+            row[n:] = 0
+        elif pad < n:  # one reflection
+            row[n:] = row[n - 1 - pad:n - 1][::-1]
+        else:  # a pad of the row or longer reflects again and again
+            row[:] = np.pad(row[:n], (0, pad), mode="reflect")
+
+
 def combine_scorers(parts):
     """(scorer, weight) for the decoders' single scorer slot from
     [(scorer, weight)] parts: (None, 0.0) for none, the part itself for
@@ -98,6 +127,13 @@ class Transcriber:
     beam_width > 1 decodes with the device beam, its n-best rescored by
     lm_scorer at lm_weight (an LM, a hot-word booster, or a
     CombinedScorer of both at weight 1).
+
+    ``transcribe_batch`` writes each bucket's int16 PCM into one flat
+    host buffer kept across calls (pinned where the model is on a CUDA
+    device; it and its float32 scratch grow at least twofold and never
+    shrink) and copies it to the device without blocking the host; the
+    next fill waits for that copy. ``staging_allocs`` counts the buffer's
+    (re)allocations and ``staging_fills`` the buckets written into it.
     """
 
     def __init__(self, model: VelocityASR, decoder: CTCDecoder, frame_bucket: int = 200,
@@ -112,27 +148,50 @@ class Transcriber:
         self.hop = HOP_LENGTH
         self.sr = SAMPLE_RATE
         self.num_languages = int(model.config.num_languages)
+        # transcribe_batch's staging: the flat int16 PCM, the valid frame
+        # counts, the float32 scratch; the lock covers them from a fill
+        # until the device holds its copy
+        self._pcm = torch.empty(0, dtype=torch.int16)
+        self._frames = torch.empty(0, dtype=torch.int64)
+        self._scratch = np.empty(0, np.float32)
+        self._copied = None  # CUDA event after the last bucket's copies
+        self._staging_lock = threading.Lock()
+        self.staging_allocs = self.staging_fills = 0
 
     def frame_bucket_of(self, audio: np.ndarray) -> int:
         """The frame bucket this utterance pads to."""
         return padded_frames(len(audio), self.frame_bucket, self.hop)
 
-    def _pad_audio(self, audio: np.ndarray):
-        """Reflect-pad audio to its bucket; returns ((1, samples), valid frames)."""
-        n_frames = 1 + len(audio) // self.hop
-        target_samples = (self.frame_bucket_of(audio) - 1) * self.hop
-        audio = np.asarray(audio, np.float32)
-        if len(audio) >= 2:
-            padded = np.pad(audio, (0, target_samples - len(audio)), mode="reflect")
-        else:
-            padded = np.zeros(target_samples, np.float32)
-            padded[: len(audio)] = audio
-        return padded[None], n_frames
+    def bucket_samples(self, audio: np.ndarray) -> int:
+        """The samples this utterance pads to."""
+        return (self.frame_bucket_of(audio) - 1) * self.hop
 
-    @staticmethod
-    def _to_wire(audio_f32: np.ndarray) -> np.ndarray:
-        """int16 PCM, the rounding the JAX pipeline applies on its host link."""
-        return np.clip(audio_f32 * 32768.0, -32768, 32767).astype(np.int16)
+    def wire_pcm(self, audio: np.ndarray):
+        """One utterance's bucketed int16 PCM, freshly made: ((1, samples)
+        host tensor, valid frames)."""
+        out = np.empty((1, self.bucket_samples(audio)), np.int16)
+        fill_wire(out, [audio])
+        return torch.from_numpy(out), 1 + len(audio) // self.hop
+
+    def _stage(self, rows: int, samples: int, longest: int):
+        """The kept staging sized for a bucket of rows x samples, once the
+        last bucket's copies out of it are done: ((rows, samples) int16 and
+        (rows,) int64 host tensors, pinned on CUDA, and a float32 scratch
+        of at least `longest`). The caller holds the lock."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        pin = self.device.type == "cuda"
+        if self._pcm.numel() < rows * samples:
+            self._pcm = torch.empty(max(rows * samples, 2 * self._pcm.numel()),
+                                    dtype=torch.int16, pin_memory=pin)
+            self.staging_allocs += 1
+        if self._frames.numel() < rows:
+            self._frames = torch.empty(max(rows, 2 * self._frames.numel()),
+                                       dtype=torch.int64, pin_memory=pin)
+        if len(self._scratch) < longest:
+            self._scratch = np.empty(max(longest, 2 * len(self._scratch)), np.float32)
+        self.staging_fills += 1
+        return self._pcm[:rows * samples].view(rows, samples), self._frames[:rows], self._scratch
 
     @torch.inference_mode()
     def masked_logits(self, audio_i16: torch.Tensor, n_valid_frames) -> torch.Tensor:
@@ -157,8 +216,8 @@ class Transcriber:
                 "train with model output.num_languages > 0 and "
                 "training.lid_loss_weight > 0"
             )
-        padded, n_frames = self._pad_audio(audio)
-        wire = torch.from_numpy(self._to_wire(padded)).to(self.device)
+        wire, n_frames = self.wire_pcm(audio)
+        wire = wire.to(self.device)
         mel = compute_mel_spectrogram(wire.to(torch.float32) * (1.0 / 32768.0), normalize=False)
         mel = masked_normalize_mel(mel, n_frames)
         out_len = torch.tensor([(n_frames + 1) // 2], device=self.device)
@@ -189,9 +248,9 @@ class Transcriber:
         beam_width = self.beam_width if beam_width is None else beam_width
         lm_scorer = self.lm_scorer if lm_scorer is None else lm_scorer
         lm_weight = self.lm_weight if lm_weight is None else lm_weight
-        padded, n_frames = self._pad_audio(audio)
+        wire, n_frames = self.wire_pcm(audio)
         out_len = (n_frames + 1) // 2
-        audio_dev = torch.from_numpy(self._to_wire(padded)).to(self.device)
+        audio_dev = wire.to(self.device)
         logits = self.masked_logits(audio_dev, n_frames)
         result = {"duration": len(audio) / self.sr}
         if identify_language:
@@ -249,26 +308,36 @@ class Transcriber:
         texts = [""] * len(audios)
         groups: list = []
         for k in range(len(audios)):  # a bucket a pass: no more buckets than rows
-            with tracing.span("transcribe.pad"):
-                if k == 0:  # the grouping counts to the first bucket's padding
-                    buckets: dict = {}
-                    for i, a in enumerate(audios):
-                        buckets.setdefault(self.frame_bucket_of(a), []).append(i)
-                    groups = list(buckets.values())
-                idxs = groups[k]
-                padded, n_frames = zip(*(self._pad_audio(audios[i]) for i in idxs))
-                batch = np.concatenate(padded)
-            with tracing.span("transcribe.wire"):
-                batch = self._to_wire(batch)
-            with tracing.span("transcribe.h2d"):
-                batch = torch.from_numpy(batch).to(self.device)
-                n_valid = torch.tensor(n_frames, dtype=torch.int64, device=self.device)
-            with tracing.span("transcribe.forward"):
-                toks, lens = ctc_greedy_decode_torch(self.masked_logits(batch, n_valid))
+            with contextlib.ExitStack() as staged:
+                staged.enter_context(self._staging_lock)
+                with tracing.span("transcribe.pad"):
+                    if k == 0:  # the grouping counts to the first bucket's padding
+                        buckets: dict = {}
+                        for i, a in enumerate(audios):
+                            buckets.setdefault(self.frame_bucket_of(a), []).append(i)
+                        groups = list(buckets.values())
+                    rows = [audios[i] for i in groups[k]]
+                    pcm, frames, scratch = self._stage(len(rows), self.bucket_samples(rows[0]),
+                                                       max(map(len, rows)))
+                with tracing.span("transcribe.wire"):
+                    fill_wire(pcm.numpy(), rows, scratch)
+                    frames.numpy()[:] = [1 + len(a) // self.hop for a in rows]
+                with tracing.span("transcribe.h2d"):
+                    batch = pcm.to(self.device, non_blocking=True)
+                    n_valid = frames.to(self.device, non_blocking=True)
+                    if self.device.type == "cuda":  # the next fill waits for these copies
+                        if self._copied is None:
+                            self._copied = torch.cuda.Event()
+                        self._copied.record(torch.cuda.current_stream(self.device))
+                        staged.close()
+                # on the CPU `batch` is the buffer itself: the lock holds
+                # until the forward has read it
+                with tracing.span("transcribe.forward"):
+                    toks, lens = ctc_greedy_decode_torch(self.masked_logits(batch, n_valid))
             with tracing.span("transcribe.fetch"):
                 toks, lens = toks.cpu(), lens.cpu()
             with tracing.span("transcribe.text"):
-                for row, i in enumerate(idxs):
+                for row, i in enumerate(groups[k]):
                     texts[i] = self.decoder.tokens_to_text(toks[row, : lens[row]].tolist())
             if k + 1 == len(groups):
                 break
